@@ -4,18 +4,26 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout, holds each one
-against its plain PyTorch version on the card, drives the port's main path —
-masked-ReLU ResNet18 at full width, BCD candidate evaluation through
-``bcd.run_bcd`` with the sequential, batched, pipelined and suffix engines —
-and checks that the path went through the kernels (launch counts) and that
-the four engines select identical blocks.
+against its plain PyTorch version on the card, and drives the port's two
+paths, BCD candidate evaluation through ``bcd.run_bcd`` with the
+sequential, batched, pipelined and suffix engines:
 
-Output: one JSON object per line (``env``, ``build``, ``kernel_cases``,
-``forward``, ``bcd``, ``sited``), then the card's name and power limit as
-``nvidia-smi`` prints them, then the ``kernels`` summary, then the result
-line.  Exits non-zero, without a result line, if there is no CUDA device, if
-the build fails, if a kernel misses its tolerance, or if any phase raises.
-There is no CPU path here.
+  1. masked-ReLU ResNet18 at full CIFAR width (``forward``, ``bcd``,
+     ``sited`` lines);
+  2. StableLM-2-1.6B at its published widths, float32, random weights, on
+     eval tokens that the full-mask model continues greedily from a Markov
+     prompt (``lm_batch``, ``lm_forward``, ``lm_bcd``, ``lm_sited`` lines).
+
+Each path runs with the launch counts set to 0 just before it and read just
+after; the script checks that each went through its kernels and that the
+engines select identical blocks.
+
+Output: one JSON object per line (``env``, ``build``, ``kernel_cases``, the
+path lines above), then the card's name and power limit as ``nvidia-smi``
+prints them, then the ``kernels`` summary, then the result line.  Exits
+non-zero, without a result line, if there is no CUDA device, if the build
+fails, if a kernel misses its tolerance, or if any phase fails.  There is no
+CPU path here.
 
 Tolerances (stated again in the output):
   * gate, float32: |err| <= 1e-6 + 1e-6*|ref| — same arithmetic, rounded the
@@ -27,15 +35,25 @@ Tolerances (stated again in the output):
     are summed in another order than cuDNN's full-float32 algorithms
     (TF32 is off), some of which (Winograd, FFT) round more than a direct
     sum; the error of both against a float64 convolution is printed too.
-  * logits: 2e-3 absolute between fused/unfused and stacked/un-stacked
-    forwards, and between the card and the CPU — BatchNorm's rsqrt amplifies
-    conv rounding through 17 gated layers.
+  * fused matmul, float32: |err| <= 2e-4 + 2e-4*|ref| — a 5632-term sum
+    in another order than cuBLAS's, each term a gated product rounded on its
+    own; the error of both against a float64 product is printed too.  In
+    bfloat16 the gate and the sum run in float32 and the result is held to
+    the float32 plain version rounded once, at the bfloat16 tolerance.
+  * ResNet logits: 2e-3 absolute between fused/unfused and
+    stacked/un-stacked forwards, and between the card and the CPU —
+    BatchNorm's rsqrt amplifies conv rounding through 17 gated layers.
+  * LM logits: 1e-3 absolute, the same comparisons — 24 layers of sums of
+    up to 5632 products in other orders; logits are O(1) and a float32 sum
+    of that length is off by about 1e-5 relative.
 
 Times are CUDA-event times over repeated launches after a warm-up, at the
 shapes the main path uses, without flushing the L2 cache between launches
 (the big shapes exceed it).  ``bound_ms`` is the larger of bytes/3.35 TB/s
 (each input read once, each output written once) and operations/67 TFLOP/s
-(float32 outside the tensor cores, which is what these kernels use).
+(float32 outside the tensor cores, which is what these kernels use) — for
+the fused matmul in bfloat16 operations/989 TFLOP/s, the tensor cores' rate,
+the least time the card could take for that work.
 """
 from __future__ import annotations
 
@@ -54,22 +72,53 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM bfloat16 tensor cores, dense
 
-SOURCE = "src/repro_torch/kernels/csrc/masked_act.cu"
+_CSRC = "src/repro_torch/kernels/csrc/"
+SOURCE = {
+    "masked_act_2d": _CSRC + "masked_act.cu",
+    "masked_act_2d_batched": _CSRC + "masked_act.cu",
+    "masked_act_conv3x3": _CSRC + "masked_act.cu",
+    "masked_act_conv3x3_batched": _CSRC + "masked_act.cu",
+    "masked_act_matmul_2d": _CSRC + "masked_act_matmul.cu",
+    "masked_act_matmul_2d_batched": _CSRC + "masked_act_matmul.cu",
+}
 REPLACES = {
     "masked_act_2d": "src/repro/kernels/masked_act.py:55",
     "masked_act_2d_batched": "src/repro/kernels/masked_act.py:140",
     "masked_act_conv3x3": "src/repro/kernels/masked_act.py:393",
     "masked_act_conv3x3_batched": "src/repro/kernels/masked_act.py:424",
+    "masked_act_matmul_2d": "src/repro/kernels/masked_act.py:235",
+    "masked_act_matmul_2d_batched": "src/repro/kernels/masked_act.py:299",
+}
+# the kernels each main path must launch
+PATH_KERNELS = {
+    "resnet18": ("masked_act_2d", "masked_act_2d_batched",
+                 "masked_act_conv3x3", "masked_act_conv3x3_batched"),
+    "stablelm_1p6b": ("masked_act_2d", "masked_act_2d_batched",
+                      "masked_act_matmul_2d",
+                      "masked_act_matmul_2d_batched"),
 }
 TOL = {
     ("gate", torch.float32): (1e-6, 1e-6),
     ("gate", torch.bfloat16): (1e-2, 1e-2),
     ("conv", torch.float32): (2e-4, 2e-4),
     ("conv", torch.bfloat16): (1e-2, 1e-2),
+    ("matmul", torch.float32): (2e-4, 2e-4),
+    ("matmul", torch.bfloat16): (1e-2, 1e-2),
 }
 LOGIT_TOL = 2e-3
 SEED = 0            # weights, data and masks
+LM_ARCH = "stablelm_1p6b"
+LM_BATCH, LM_SEQ = 8, 128   # eval sequences x tokens (inputs: LM_SEQ - 1)
+LM_PROMPT = 16              # Markov tokens before the greedy continuation
+LM_CHUNK = 4                # candidates per chunk on the LM path
+LM_STEPS = 2                # BCD outer steps per engine on the LM path
+LM_DRC = 256                # nonlinearities removed per BCD step
+LM_SITED = ("s0.ffn@8", "s0.ffn@20")
+LM_SITED_DRC = 32
+LM_LOGIT_TOL = 1e-3
+LM_CPU_TOKENS = 32          # the card-vs-CPU check: 1 sequence x 32 tokens
 BCD_STEPS = 3       # outer steps per engine (b_target 300 below the start)
 
 
@@ -126,6 +175,7 @@ def ptxas_summary(log: str) -> dict:
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = "gate_conv3x3_kernel" if "gate_conv3x3" in ln else \
+                "gate_matmul_kernel" if "gate_matmul" in ln else \
                 "gate_kernel" if "gate_kernel" in ln else "other"
             out.setdefault(name, {"instantiations": 0, "registers": [],
                                   "smem_bytes": [], "spill_bytes": 0})
@@ -241,8 +291,72 @@ def conv_case(name, dtype, kind, n, b, h, w_, cin, cout, stride, shared_x,
                        True, byts, flops, primary, extra, timed)
 
 
+def matmul_case(name, dtype, kind, n, rows, k, nout, with_mul, shared_x,
+                primary, seed, timed=False):
+    """One comparison of the fused gate→matmul kernel with the unfused
+    pair (the plain version); the library yardstick is the gate kernel
+    followed by ``torch.matmul``, the model's unfused route."""
+    from repro_torch.kernels import masked_act as K, ref
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    batched = name == "masked_act_matmul_2d_batched"
+    lead = (1 if shared_x or not batched else n, rows, k)
+    base = torch.randn(lead, generator=g, device="cuda").to(dtype)
+    ubase = torch.randn(lead, generator=g, device="cuda").to(dtype) \
+        if with_mul else None
+    wt = (torch.randn((k, nout), generator=g, device="cuda")
+          * k ** -0.5).to(dtype)
+    if batched:
+        x = base.expand(n, rows, k) if shared_x else base
+        mul = None if ubase is None else (
+            ubase.expand(n, rows, k) if shared_x else ubase)
+        mask = (torch.rand((n, k), generator=g, device="cuda") < 0.6
+                ).float()
+    else:
+        x, mul = base[0], None if ubase is None else ubase[0]
+        mask = (torch.rand((k,), generator=g, device="cuda") < 0.6).float()
+
+    def kernel():
+        f = K.masked_act_matmul_2d_batched if batched else \
+            K.masked_act_matmul_2d
+        return f(x, mask, wt, mul, kind=kind)
+
+    def plain(double=False):
+        f = ref.masked_act_matmul_batched_ref if batched else \
+            ref.masked_act_matmul_ref
+        if double or dtype != torch.float32:
+            t = torch.float64 if double else torch.float32
+            out = f(x.to(t), mask.to(t), wt.to(t),
+                    None if mul is None else mul.to(t), kind=kind)
+            return out if double else out.to(dtype)
+        return f(x, mask, wt, mul, kind=kind)
+
+    def library():
+        gate = K.masked_act_2d_batched(x, mask, kind=kind) if batched \
+            else K.masked_act_2d(x, mask, kind=kind)
+        if mul is not None:
+            gate = gate * mul
+        return torch.matmul(gate, wt)
+
+    out, want = kernel(), plain()
+    torch.cuda.synchronize()
+    cands = n if batched else 1
+    byts = nbytes(x, mask, mul, wt) + out.numel() * out.element_size()
+    flops = 2.0 * cands * rows * k * nout
+    extra = dict(kind=kind, shape=list(x.shape), n_out=nout,
+                 mul=with_mul, shared_x=shared_x)
+    if dtype == torch.float32 and (primary or timed):
+        exact = plain(double=True)
+        extra["kernel_err_vs_f64"] = float((out.double() - exact).abs().max())
+        extra["plain_err_vs_f64"] = float((want.double() - exact).abs().max())
+        del exact
+    return finish_case(name, "matmul", dtype, out, want, kernel, plain,
+                       False, byts, flops, primary, extra, timed,
+                       library=library)
+
+
 def finish_case(name, family, dtype, out, want, kernel, plain,
-                plain_is_library, byts, flops, primary, extra, timed=False):
+                plain_is_library, byts, flops, primary, extra, timed=False,
+                library=None):
     atol, rtol = TOL[(family, dtype)]
     if out.shape != want.shape or out.dtype != want.dtype:
         fail(f"{name} {extra}: shape/dtype {tuple(out.shape)} {out.dtype} "
@@ -260,11 +374,16 @@ def finish_case(name, family, dtype, out, want, kernel, plain,
                 **extra)
     if primary or timed:
         t_bytes = byts / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOP_PER_S * 1e3
+        rate = BF16_FLOP_PER_S if (family == "matmul" and
+                                   dtype == torch.bfloat16) \
+            else FP32_FLOP_PER_S
+        t_ops = flops / rate * 1e3
         plain_ms = time_ms(plain)
+        library_ms = plain_ms if plain_is_library else None
+        if library is not None:
+            library_ms = time_ms(library)
         case.update(
-            ms=time_ms(kernel), plain_ms=plain_ms,
-            library_ms=plain_ms if plain_is_library else None,
+            ms=time_ms(kernel), plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             bytes=byts, flops=flops)
@@ -356,6 +475,35 @@ def run_kernel_cases():
                                cout=24, stride=2 - i % 2,
                                shared_x=i % 2 == 1, primary=False,
                                seed=90 + i))
+
+    # ---- masked_act_matmul_2d: the un-stacked fused LM forward, and
+    # ---- masked_act_matmul_2d_batched: every FFN of a fused suffix forward
+    # at the path's shape: rows = B·S, K = d_ff, N_out = d_model of
+    # StableLM-2-1.6B, chunks of LM_CHUNK candidates
+    rows, k, nout = LM_BATCH * (LM_SEQ - 1), 5632, 2048
+    m2, m2b = "masked_act_matmul_2d", "masked_act_matmul_2d_batched"
+    cases.append(matmul_case(m2, f32, "silu", 1, rows, k, nout, True, False,
+                             primary=True, seed=100))
+    cases.append(matmul_case(m2b, f32, "silu", LM_CHUNK, rows, k, nout, True,
+                             False, primary=True, seed=101))
+    cases.append(matmul_case(m2b, f32, "silu", LM_CHUNK, rows, k, nout, True,
+                             True, primary=False, seed=102, timed=True))
+    cases.append(matmul_case(m2b, bf16, "silu", LM_CHUNK, rows, k, nout,
+                             True, False, primary=False, seed=103,
+                             timed=True))
+    cases.append(matmul_case(m2, bf16, "silu", 1, rows, k, nout, True, False,
+                             primary=False, seed=104, timed=True))
+    for i, kind in enumerate(kinds):
+        for dt in (f32, bf16):
+            # ragged in rows, K and N_out; K = 203 takes the scalar loads,
+            # K = 96 the vector ones; every case is timed (microseconds)
+            k1, k2 = (203, 96) if i < 2 else (96, 203)
+            cases.append(matmul_case(m2, dt, kind, 1, 37, k1, 77 + 4 * i,
+                                     i % 2 == 0, False, primary=False,
+                                     seed=110 + 2 * i, timed=True))
+            cases.append(matmul_case(m2b, dt, kind, 3, 37, k2, 72 + 5 * i,
+                                     i % 2 == 1, i < 2, primary=False,
+                                     seed=120 + 2 * i, timed=True))
     return cases
 
 
@@ -543,6 +691,290 @@ def run_sited_phase(model, params, batch):
     return dict(model="resnet18", batch=128, timed_passes=reps, rows=out)
 
 
+# ---------------------------------------------------------------- LM path
+#
+# StableLM-2-1.6B at its published widths (d_model 2048, d_ff 5632, 32
+# heads of 64, vocab 100 352, 24 layers), random weights from the port's
+# own init, run in float32 (a cut of dtype, not of width).  A network with
+# random weights scores about 0 % next-token accuracy on Markov tokens, so
+# every trial would tie; the eval tokens are therefore a short Markov prompt
+# continued greedily by the full-mask model itself, and the positions after
+# the prompt carry the model's own argmax as their label.
+
+
+def make_lm(seed: int, device="cuda", cfg=None, dtype="float32"):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    cfg = dataclasses.replace(cfg or get_config(LM_ARCH), dtype=dtype)
+    model = LM(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return model, model.init(gen, device)
+
+
+def labelled_margins(logits, prompt: int):
+    """Top-2 logit margin at every position whose label is a greedy token
+    (positions prompt-1 .. S-1 of the inputs)."""
+    top2 = logits[..., prompt - 1:, :].topk(2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def make_lm_batch(model, params, seed: int, device="cuda"):
+    """``2 * LM_BATCH`` Markov prompts continued greedily to ``LM_SEQ``
+    tokens by the full-mask model (one full forward per new token, no
+    cache); the ``LM_BATCH`` sequences whose smallest top-2 logit margin at
+    the labelled positions is largest form the eval batch, so that rounding
+    differences between evaluation paths stay far below the margins."""
+    from repro_torch.core import linearize, masks as M
+    from repro_torch.data import MarkovTokens
+    n_seq, seq, prompt, pool = LM_BATCH, LM_SEQ, LM_PROMPT, 2 * LM_BATCH
+    full = M.as_device(linearize.init_masks(model.mask_sites()), device)
+    start = MarkovTokens(model.cfg.vocab, seed=seed).batch(pool, prompt, 0)
+    toks = torch.from_numpy(start["tokens"]).long().to(device)
+    with torch.no_grad():
+        while toks.shape[1] < seq:
+            logits = model.forward(params, full, toks, ties=False)
+            toks = torch.cat([toks, logits[:, -1].argmax(-1, keepdim=True)],
+                             dim=1)
+        logits = model.forward(params, full, toks[:, :-1], ties=False)
+        margin = labelled_margins(logits, prompt).amin(-1)
+        keep = margin.argsort(descending=True)[:n_seq]
+        tokens = toks[keep]
+        hit = logits[keep].argmax(-1) == tokens[:, 1:]
+    return {"tokens": tokens.to(torch.int32).cpu().numpy()}, dict(
+        pool=pool, sequences=n_seq, tokens=seq, prompt=prompt,
+        min_label_margin=float(margin[keep].min()),
+        full_mask_accuracy=float(hit.float().mean() * 100.0),
+        greedy_positions_reproduced=float(
+            hit[:, prompt - 1:].float().mean()))
+
+
+def run_lm_forward(model, params, batch, seed: int, device="cuda"):
+    """Un-stacked unfused vs fused (kernel 3), stacked vs un-stacked and
+    stacked fused from the cached embedding (kernel 4), card vs CPU on
+    1 x ``LM_CPU_TOKENS`` tokens, and one bfloat16 forward fused vs
+    unfused."""
+    from repro_torch.convert import to_device
+    from repro_torch.core import masks as M
+    rng = np.random.default_rng(seed)
+    sites = model.mask_sites()
+    trees = [{k: (rng.random(s.shape) < 0.9).astype(np.float32)
+              for k, s in sites.items()} for _ in range(2)]
+    tokens = to_device(batch["tokens"], device)
+    x, labels = tokens[:, :-1], tokens[:, 1:]
+    with torch.no_grad():
+        dev = [M.as_device(t, device) for t in trees]
+        plain = [model.forward(params, d, x, ties=False) for d in dev]
+        fused = [model.forward(params, d, x, fused=True, ties=False)
+                 for d in dev]
+        stacked = M.as_device(M.stack_trees(trees), device)
+        st_plain = model.forward(params, stacked, x, ties=False)
+        pre = model.forward_pre(params, x)
+        st_fused = model.forward(params, stacked, None, pre=pre, fused=True,
+                                 ties=False)
+        diffs = {
+            "fused_vs_unfused": max(float((a - b).abs().max())
+                                    for a, b in zip(plain, fused)),
+            "stacked_vs_unstacked": max(float((st_plain[i] - plain[i])
+                                              .abs().max())
+                                        for i in range(2)),
+            "stacked_fused_pre_vs_unstacked": max(
+                float((st_fused[i] - plain[i]).abs().max())
+                for i in range(2)),
+        }
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in plain + fused + [st_plain, st_fused])
+        margin = float(labelled_margins(plain[0], LM_PROMPT).min())
+        shapes = [list(plain[0].shape), list(st_plain.shape)]
+        del plain, fused, st_plain, st_fused, pre
+        # the same network on the CPU (plain versions)
+        small = x[:1, :LM_CPU_TOKENS]
+        cpu_params = to_device(params, "cpu")
+        want = model.forward(cpu_params, M.as_device(trees[0], "cpu"),
+                             small.cpu(), ties=False)
+        del cpu_params
+        got = model.forward(params, dev[0], small, fused=True, ties=False)
+        diffs["card_vs_cpu"] = float((got.cpu() - want).abs().max())
+        finite = finite and bool(torch.isfinite(got).all())
+    if shapes != [[LM_BATCH, LM_SEQ - 1, model.cfg.vocab],
+                  [2, LM_BATCH, LM_SEQ - 1, model.cfg.vocab]]:
+        fail(f"lm_forward: logits shapes {shapes}")
+    if not finite:
+        fail("lm_forward: non-finite logits")
+    for k, v in diffs.items():
+        if not v <= LM_LOGIT_TOL:
+            fail(f"lm_forward: {k} = {v} exceeds {LM_LOGIT_TOL}")
+    out = dict(model=model.cfg.name, dtype="float32", batch=LM_BATCH,
+               tokens=LM_SEQ - 1, nonlinearities=model.relu_count(),
+               mask_density=0.9, logit_tol=LM_LOGIT_TOL,
+               max_abs_diff=diffs, cpu_check=f"1 x {LM_CPU_TOKENS} tokens, "
+               f"{model.cfg.n_layers} layers",
+               min_top2_margin_labelled=margin)
+    out["bfloat16"] = run_lm_bf16(model.cfg, trees[0], x, device)
+    return out
+
+
+def run_lm_bf16(cfg, tree, x, device="cuda"):
+    """One forward at the config's own dtype, fused against unfused."""
+    from repro_torch.core import masks as M
+    model, params = make_lm(SEED, device, cfg=cfg, dtype="bfloat16")
+    with torch.no_grad():
+        d = M.as_device(tree, device)
+        plain = model.forward(params, d, x, ties=False)
+        fused = model.forward(params, d, x, fused=True, ties=False)
+        agree = float((plain.argmax(-1) == fused.argmax(-1)).float().mean())
+        diff = float((plain.float() - fused.float()).abs().max())
+        ok = bool(torch.isfinite(plain).all() and torch.isfinite(fused).all())
+    del params, plain, fused
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    if not ok:
+        fail("lm_forward bfloat16: non-finite logits")
+    return dict(top1_agreement=agree, max_abs_logit_diff=diff)
+
+
+def run_lm_bcd(model, params, batch, steps: int, drc: int, device="cuda"):
+    """``bcd.run_bcd`` on the LM through the four engines: identical
+    selections, and at least one step whose trials did not all tie."""
+    from repro_torch.core import bcd, linearize, masks as M
+    from repro_torch.kernels import masked_act as K
+    from repro_torch.launch.sweep import make_bcd_evaluator
+    masks0 = linearize.init_masks(model.mask_sites())
+    total = model.relu_count()
+    rt = 16
+    prints, runs, step_accs = {}, [], []
+    for backend in ("sequential", "batched", "pipelined", "suffix"):
+        holder = {"params": params}
+        evaluator, eval_acc, _ = make_bcd_evaluator(
+            backend, model, batch, holder, chunk_size=LM_CHUNK, rt=rt,
+            prefetch=2, fused_kernels=True, device=device)
+        if backend == "batched":
+            # record every trial accuracy (rt per step, in order)
+            inner = evaluator.evaluate_staged
+
+            def recording(staged, inner=inner):
+                accs = inner(staged)
+                step_accs.extend(float(a) for a in accs)
+                return accs
+            evaluator.evaluate_staged = recording
+        cfg = bcd.BCDConfig(b_target=total - drc * steps, drc=drc, rt=rt,
+                            adt=-100.0, finetune_every_step=False, seed=0,
+                            chunk_size=LM_CHUNK, moves=("remove",))
+        before = dict(K.launch_counts)
+        sync(device)
+        t0 = time.perf_counter()
+        res = bcd.run_bcd(masks0, cfg, eval_acc, evaluator=evaluator)
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = {k: K.launch_counts[k] - before[k]
+                    for k in K.launch_counts}
+        if M.relu_cost(res.masks) != total - drc * steps:
+            fail(f"lm_bcd {backend}: budget {M.relu_cost(res.masks)}")
+        accs = [h.acc_before for h in res.history]
+        if not all(np.isfinite(a) and 0.0 <= a <= 100.0 for a in accs):
+            fail(f"lm_bcd {backend}: accuracies {accs}")
+        trials = sum(h.trials for h in res.history)
+        prints[backend] = M.fingerprint(res.masks)
+        run = dict(backend=backend, steps=len(res.history), trials=trials,
+                   wall_s=wall,
+                   candidates_per_s=(trials + len(res.history)) / wall,
+                   fingerprint=prints[backend][:16],
+                   best_drops=[h.best_drop for h in res.history],
+                   acc_before=accs,
+                   launches={k: v for k, v in launches.items() if v})
+        trie = getattr(evaluator, "trie", None)
+        if trie is not None:
+            run["trie"] = dict(hits=trie.hits, extensions=trie.extensions,
+                               misses=trie.misses)
+        runs.append(run)
+    if len(set(prints.values())) != 1:
+        fail(f"lm_bcd: engines selected different blocks: {prints}")
+    distinct = [len(set(step_accs[i:i + rt]))
+                for i in range(0, len(step_accs), rt)]
+    if not distinct or max(distinct) < 2:
+        fail(f"lm_bcd: every step's trials tied ({distinct} distinct "
+             "accuracies per step): the parity would be vacuous")
+    return dict(model=model.cfg.name, dtype="float32", batch=LM_BATCH,
+                tokens=LM_SEQ - 1, drc=drc, rt=rt, chunk_size=LM_CHUNK,
+                adt=-100.0, moves=["remove"], steps=steps,
+                distinct_trial_accs_per_step=distinct, runs=runs)
+
+
+def run_lm_sited(model, params, batch, sites, drc: int, device="cuda"):
+    """Site-local candidates at mid-scan per-repeat sites through the
+    batched engine and the suffix engine, unfused and fused: equal
+    accuracies, prefix reuse in the trie, and the rates."""
+    from repro_torch.core import engine as E, linearize, masks as M
+    from repro_torch.kernels import masked_act as K
+    from repro_torch.launch.sweep import make_bcd_evaluator
+    masks0 = linearize.init_masks(model.mask_sites())
+    fractions = model.site_prefix_fractions()
+    rng = np.random.default_rng(0)
+    n_cand, reps, out = 16, 2, []
+    for site in sites:
+        idx = M.sample_removal_indices_within(
+            rng, masks0, drc, n_cand, [site],
+            repeat_sites=model.site_repeats())
+        chunks = [M.materialize_candidates(masks0, idx[i:i + LM_CHUNK])
+                  for i in range(0, n_cand, LM_CHUNK)]
+        accs, row = {}, dict(site=site, prefix_fraction=fractions[site],
+                             candidates=n_cand, chunk_size=LM_CHUNK, drc=drc)
+        for label, backend, fused in (("batched", "batched", False),
+                                      ("suffix_unfused", "suffix", False),
+                                      ("suffix_fused", "suffix", True)):
+            ev, _, _ = make_bcd_evaluator(
+                backend, model, batch, {"params": params},
+                chunk_size=LM_CHUNK, rt=n_cand, prefetch=0,
+                fused_kernels=fused, device=device)
+            items = chunks
+            if backend == "suffix":
+                ev.begin_step(masks0)
+                items = [E.SitedChunk(site, c) for c in chunks]
+            before = dict(K.launch_counts)
+            accs[label] = np.concatenate([ev.evaluate(it) for it in items])
+            launches = {k: K.launch_counts[k] - before[k]
+                        for k in K.launch_counts}
+            sync(device)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                for it in items:
+                    ev.evaluate(it)
+            sync(device)
+            wall = time.perf_counter() - t0
+            row[label] = dict(candidates_per_s=reps * n_cand / wall,
+                              launches_first_pass={
+                                  k: v for k, v in launches.items() if v})
+            if backend == "suffix":
+                t = ev.trie
+                row[label]["trie"] = dict(hits=t.hits,
+                                          extensions=t.extensions,
+                                          misses=t.misses)
+                if t.misses + t.extensions == 0:
+                    fail(f"lm_sited {site} {label}: no prefix was "
+                         f"computed (trie {row[label]['trie']})")
+            if fused and device == "cuda" and \
+                    launches["masked_act_matmul_2d_batched"] == 0:
+                fail(f"lm_sited {site}: the fused suffix did not launch "
+                     "masked_act_matmul_2d_batched")
+        for label, a in accs.items():
+            if not np.array_equal(a, accs["batched"]):
+                fail(f"lm_sited {site}: {label} accuracies {a} differ from "
+                     f"batched {accs['batched']}")
+        row["accs"] = [float(a) for a in accs["batched"]]
+        row["suffix_vs_batched"] = {
+            lab: row[lab]["candidates_per_s"] /
+            row["batched"]["candidates_per_s"]
+            for lab in ("suffix_unfused", "suffix_fused")}
+        out.append(row)
+    return dict(model=model.cfg.name, dtype="float32", batch=LM_BATCH,
+                tokens=LM_SEQ - 1, timed_passes=reps, rows=out)
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only-kernels", action="store_true",
@@ -581,27 +1013,49 @@ def main() -> None:
     if args.only_kernels:
         return
 
+    # ---- path 1, ResNet18: counts set to 0 just before, read just after
     model, params, batch = make_model_and_batch(SEED)
-    # ---- the main path: counts set to 0 just before, read just after
     K.reset_launch_counts()
     forward = run_forward(model, params, batch, SEED)
     bcd_report = run_bcd_phase(model, params, batch, BCD_STEPS)
     sited = run_sited_phase(model, params, batch)
-    launches = dict(K.launch_counts)
+    by_path = {"resnet18": dict(K.launch_counts)}
     emit({"forward": forward})
     emit({"bcd": bcd_report})
     emit({"sited": sited})
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        fail(f"main path launched these kernels no time: {missing}")
+    del model, params, batch
+    torch.cuda.empty_cache()
+
+    # ---- path 2, StableLM-2-1.6B: the eval tokens are built first (set-up),
+    # then the counts are set to 0 just before the path and read just after
+    lm, lm_params = make_lm(SEED)
+    lm_batch, batch_info = make_lm_batch(lm, lm_params, SEED)
+    emit({"lm_batch": batch_info})
+    K.reset_launch_counts()
+    lm_forward = run_lm_forward(lm, lm_params, lm_batch, SEED)
+    lm_bcd = run_lm_bcd(lm, lm_params, lm_batch, LM_STEPS, LM_DRC)
+    lm_sited = run_lm_sited(lm, lm_params, lm_batch, LM_SITED, LM_SITED_DRC)
+    by_path[LM_ARCH] = dict(K.launch_counts)
+    emit({"lm_forward": lm_forward})
+    emit({"lm_bcd": lm_bcd})
+    emit({"lm_sited": lm_sited})
+
+    for path, names in PATH_KERNELS.items():
+        missing = [k for k in names if by_path[path][k] == 0]
+        if missing:
+            fail(f"the {path} path launched these kernels no time: "
+                 f"{missing}")
+    launches = {k: sum(p[k] for p in by_path.values())
+                for k in K.launch_counts}
 
     kernels = []
     for name in K.launch_counts:
         mine = [c for c in cases if c["name"] == name]
         prim = next(c for c in mine if c["primary"])
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": launches[name],
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": max(c["max_abs_err"] for c in mine
                                if c["dtype"] == "float32"),
             "max_abs_err_bf16": max(c["max_abs_err"] for c in mine

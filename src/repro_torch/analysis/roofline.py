@@ -1,7 +1,8 @@
 """Cost models for the candidate-evaluation engine.
 
-Counterpart of ``repro/analysis/roofline.py``; only the suffix engine's
-per-site decision model is here so far.  Pure Python.
+Counterpart of ``repro/analysis/roofline.py``; so far the suffix engine's
+per-site decision model and the analytic per-block forward FLOPs that the
+LM's ``site_prefix_fractions`` are computed from.  Pure Python.
 """
 from __future__ import annotations
 
@@ -80,3 +81,117 @@ class SuffixCostModel:
             return (self.predicted_speedup(prefix_fraction, n, covered)
                     >= self.min_speedup)
         return prefix_fraction >= self.min_prefix_fraction
+
+
+def block_fwd_flops(cfg, blk, new_tokens: float, ctx: float,
+                    mode: str = "prefill"):
+    """Analytic forward cost of ONE block: (flops, weight_bytes,
+    decode_cache_bytes).
+
+    The reference's ``analytic_cell`` sums this term over the whole stack
+    (not ported yet); per-layer *fractions* (the suffix cost model's
+    prefix_fraction — models' ``site_prefix_fractions``) share the same
+    arithmetic.  ``new_tokens`` is batch×new positions, ``ctx`` the
+    attention context length.
+    """
+    d = cfg.d_model
+    hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    k = blk.kind
+    cache_bytes = 0.0
+    if k in ("dense", "moe", "attn_only"):
+        f_attn_proj = 2 * new_tokens * d * (H + 2 * KV) * hd \
+            + 2 * new_tokens * H * hd * d
+        kv_len = min(ctx, blk.window or ctx)
+        if mode == "decode":
+            f_sc = 2 * new_tokens * H * hd * kv_len * 2
+        else:
+            # causal: average key span ~ kv_len/2 (full) or window
+            span = (ctx / 2) if blk.window is None else \
+                min(blk.window, ctx / 2)
+            f_sc = 2 * new_tokens * H * hd * span * 2
+        f = f_attn_proj + f_sc
+        wb = (d * (H + 2 * KV) * hd + H * hd * d) * 2
+        if mode == "decode":
+            cache_bytes += new_tokens * kv_len * KV * hd * 2 * 2
+        if k == "dense":
+            nf = 3 if cfg.gated_ffn else 2
+            f += 2 * new_tokens * d * cfg.d_ff * nf
+            wb += d * cfg.d_ff * nf * 2
+        elif k == "moe":
+            cap = cfg.top_k * cfg.capacity_factor
+            f += 2 * new_tokens * d * cfg.n_experts          # router
+            f += 2 * new_tokens * cap * 3 * d * cfg.d_ff_expert
+            wb += 3 * cfg.n_experts * d * cfg.d_ff_expert * 2
+            if cfg.n_shared_experts:
+                f += 2 * new_tokens * 3 * d * cfg.d_ff_shared
+                wb += 3 * d * cfg.d_ff_shared * 2
+    elif k == "mamba":
+        di = cfg.d_inner
+        nh = di // cfg.mamba_head_dim
+        N, mh = cfg.ssm_state, cfg.mamba_head_dim
+        chunk = 64 if mode != "decode" else 1
+        f = 2 * new_tokens * d * 2 * di \
+            + 2 * new_tokens * d * (2 * N + nh) \
+            + 2 * new_tokens * di * d \
+            + 4 * new_tokens * di  # conv
+        # chunked SSD: scores (chunk·N) + y (chunk·mh) + state (2·N·mh)
+        f += 2 * new_tokens * nh * (chunk * N + chunk * mh + 2 * N * mh)
+        wb = (d * 2 * di + d * (2 * N + nh) + di * d) * 2
+        if mode == "decode":
+            cache_bytes += new_tokens * nh * N * mh * 4
+    elif k == "rwkv":
+        f_ff = cfg.d_ff
+        rh = cfg.rwkv_head_dim
+        Hr = d // rh
+        chunk = 32 if mode != "decode" else 1
+        f = 2 * new_tokens * d * d * 6 \
+            + 2 * new_tokens * d * f_ff * 2 + 2 * new_tokens * d * d
+        f += 2 * new_tokens * Hr * (chunk * rh * 2 + 2 * rh * rh)
+        wb = (7 * d * d + 2 * d * f_ff) * 2
+        if mode == "decode":
+            cache_bytes += new_tokens * Hr * rh * rh * 4
+    else:
+        raise ValueError(k)
+    return f, wb, cache_bytes
+
+
+def moe_capacity_slots(cfg, seq: int) -> int:
+    """Per-expert slot count of the sort-based MoE dispatch.
+
+    Mirrors the reference's ``models.moe._capacity``: decode (seq == 1) is
+    exact — one slot per expert — and everything else rounds up to a
+    multiple of 8 with a floor of 8.  The expert einsums compute ALL ``E·C`` slots whether or
+    not tokens fill them, so segment-level costing must use this padded
+    figure, not the analytic ``top_k·capacity_factor`` per-token average.
+    """
+    if seq == 1:
+        return 1
+    cap = int(seq * cfg.top_k * cfg.capacity_factor / cfg.n_experts) + 1
+    return max(8, -(-cap // 8) * 8)
+
+
+def lm_segment_fwd_flops(cfg, *, seq_len: int) -> list:
+    """Per-segment forward FLOPs of the unified LM (per-sample, prefill):
+    ``[embed, head…, stack repeat 0 … R-1, tail…, logits]``.
+
+    The scanned stack contributes one entry PER REPEAT — the per-repeat
+    prefix cuts in ``models.lm`` need per-repeat fractions, and every
+    repeat runs the identical pattern so the entries are equal.  MoE
+    blocks are corrected from :func:`block_fwd_flops`'s analytic
+    ``top_k·capacity_factor`` average to the dispatch's true padded slot
+    capacity (:func:`moe_capacity_slots`): the expert einsums pay for
+    every ``E·C`` slot, filled or not.
+    """
+    def f(blk):
+        fl = block_fwd_flops(cfg, blk, seq_len, seq_len, "prefill")[0]
+        if blk.kind == "moe":
+            analytic = seq_len * cfg.top_k * cfg.capacity_factor
+            slots = cfg.n_experts * moe_capacity_slots(cfg, seq_len)
+            fl += 2 * max(slots - analytic, 0.0) * 3 * cfg.d_model \
+                * cfg.d_ff_expert
+        return fl
+    rep = sum(f(b) for b in cfg.pattern)
+    return ([0.0] + [f(b) for b in cfg.head_blocks]
+            + [rep] * cfg.n_repeats
+            + [f(b) for b in cfg.tail]
+            + [2.0 * seq_len * cfg.d_model * cfg.vocab])

@@ -38,13 +38,34 @@ def to_device(tree, device="cuda"):
     return leaf_to_device(tree, device)
 
 
-def params_from_reference(tree, device="cuda"):
+def _reference_leaf(value, device, dtype) -> torch.Tensor:
+    arr = np.asarray(value)
+    if arr.dtype.name == "bfloat16":
+        # numpy's bfloat16 (ml_dtypes) has no torch counterpart to share
+        # memory with: widen exactly to float32, then narrow back
+        t = leaf_to_device(arr.astype(np.float32), device).to(torch.bfloat16)
+    else:
+        t = leaf_to_device(arr, device)
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t
+
+
+def params_from_reference(tree, device="cuda", dtype=torch.float32):
     """The reference's parameter pytree, leaves as numpy arrays (e.g.
-    ``jax.tree.map(np.asarray, params)``), as the port's parameter dict on
-    ``device``, float32."""
+    ``jax.tree.map(np.asarray, params)``), as the port's parameter tree on
+    ``device``: the same nested dicts, lists and tuples.
+
+    ``dtype``: every floating leaf is cast to it (float32 by default);
+    ``None`` keeps each leaf's own type, so a bfloat16 model keeps its
+    bfloat16 weights beside its float32 norm scales."""
     if isinstance(tree, dict):
-        return {k: params_from_reference(v, device) for k, v in tree.items()}
-    return leaf_to_device(tree, device, np.float32)
+        return {k: params_from_reference(v, device, dtype)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_reference(v, device, dtype)
+                          for v in tree)
+    return _reference_leaf(tree, device, dtype)
 
 
 def masks_from_reference(masks, device="cuda"):

@@ -547,9 +547,10 @@ class SuffixEvaluator:
     the head recompute: the depth-0 analogue of the prefix trie.
 
     ``fused_kernels`` runs the suffix forwards with ``fused=True``: every
-    hard-mask ``relu → 3x3 conv`` pair becomes one launch of the fused
-    gate→conv kernel.  Chunks that carry share ties run unfused (the fused
-    kernels do not implement the tie override).
+    hard-mask ``relu → 3x3 conv`` pair (CNN) or FFN gate → down-projection
+    (LM) becomes one launch of the fused gate→conv or gate→matmul kernel.
+    Chunks that carry share ties run unfused (the fused kernels do not
+    implement the tie override).
     """
 
     name = "suffix"
@@ -870,7 +871,8 @@ def make_evaluator(
     or ``"auto"`` (measured-rate tuning; pipelined and suffix).
     ``cost_model`` overrides the suffix backend's per-site fallback policy;
     ``trie_budget_bytes`` bounds its prefix-trie residency and
-    ``fused_kernels`` gates the fused gate→conv kernels (both suffix-only).
+    ``fused_kernels`` gates the fused gate→conv and gate→matmul kernels
+    (both suffix-only).
     ``device`` defaults to the card.
     """
     if backend not in ("pipelined", "suffix") and prefetch == "auto":

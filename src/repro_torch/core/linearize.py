@@ -101,7 +101,8 @@ def _apply_share_ties(x, mask, out):
     Eagerly this is four more passes over the activation, so callers that
     know from the host mask tree that nothing is tied pass ``ties=False``
     to :func:`apply_masked_act` and never get here.  The fused gate→conv
-    kernels do not implement the override: a chunk with ties runs unfused.
+    and gate→matmul kernels do not implement the override: a chunk with
+    ties runs unfused.
     """
     tied = (mask > 0.5) & (mask < 0.9)
     drv = (torch.roll(x, 1, dims=-1) > 0).to(x.dtype)
@@ -116,7 +117,10 @@ def apply_masked_act(x, mask, site: MaskSite, poly=None, soft: bool = False,
     stacked candidates.  x: ``(batch, *site.shape)``, or
     ``(N, batch, *site.shape)`` once the candidates' activations differ; an
     un-stacked x under a stacked mask is shared by the candidates and the
-    result is stacked.
+    result is stacked.  An LM site's x has a sequence axis as well,
+    ``(N, batch, seq, *site.shape)``, where a shared one comes as an
+    ``expand``-ed stride-0 view (``(batch, seq, *site)`` alone would read as
+    stacked).
 
     soft=True keeps real-valued masks differentiable (SNL's relaxation);
     hard masks route through the kernel wrappers.  Hard masks may carry
@@ -134,8 +138,13 @@ def apply_masked_act(x, mask, site: MaskSite, poly=None, soft: bool = False,
     p = None
     if poly is not None and (soft or site.replacement == "poly2"):
         p = poly
-    # mask laid out to broadcast against x: (N, 1, *site) when stacked
-    m_b = mask[:, None] if stacked_mask else mask
+    # mask laid out to broadcast against x: (N, 1, ..., *site) when stacked,
+    # with as many 1s as x has axes between the candidate axis and the site
+    # (a CNN's batch; an LM's batch and sequence)
+    m_b = mask
+    if stacked_mask:
+        lead = max(x.dim() - 1 - nd, 1)
+        m_b = mask.reshape((mask.shape[0],) + (1,) * lead + tuple(site.shape))
     if soft:
         return ref.masked_act_ref(x, torch.clamp(m_b, 0.0, 1.0),
                                   kind=site.kind, poly=p)

@@ -130,6 +130,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.masked_act_conv3x3_launch.restype = i
     lib.masked_act_conv3x3_launch.argtypes = [
         vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, i, i, ll, ll, i, i, vp]
+    lib.masked_act_matmul_launch.restype = i
+    lib.masked_act_matmul_launch.argtypes = [
+        vp, vp, vp, vp, vp, i, ll, i, i, ll, ll, ll, i, i, vp]
     lib.masked_act_error_string.restype = ctypes.c_char_p
     lib.masked_act_error_string.argtypes = [i]
 

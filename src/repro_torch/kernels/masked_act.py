@@ -1,4 +1,5 @@
-"""Wrappers of the hand-written CUDA kernels (``csrc/masked_act.cu``).
+"""Wrappers of the hand-written CUDA kernels (``csrc/masked_act.cu`` and
+``csrc/masked_act_matmul.cu``).
 
 Counterpart of ``repro/kernels/masked_act.py``.  Each wrapper checks device,
 type, shape and contiguity, allocates its output with ``torch.empty``,
@@ -9,8 +10,10 @@ The wrappers take CUDA tensors only; CPU tensors are served by
 
 Layouts are the reference's: activations ``(rows, C)`` / ``(N, rows, C)`` for
 the gate, NHWC ``(B, H, W, Cin)`` / ``(N, B, H, W, Cin)`` and HWIO weights
-for the fused convolution.  A stacked ``x`` may be an ``expand``-ed view with
-candidate stride 0: the kernel then reads the one shared copy N times.
+for the fused convolution, ``(rows, K)`` / ``(N, rows, K)`` activations and
+``(K, N_out)`` weights for the fused matrix product.  A stacked ``x`` (and
+the fused product's ``mul``) may be an ``expand``-ed view with candidate
+stride 0: the kernel then reads the one shared copy N times.
 """
 from __future__ import annotations
 
@@ -30,6 +33,8 @@ launch_counts = {
     "masked_act_2d_batched": 0,
     "masked_act_conv3x3": 0,
     "masked_act_conv3x3_batched": 0,
+    "masked_act_matmul_2d": 0,
+    "masked_act_matmul_2d_batched": 0,
 }
 
 
@@ -217,3 +222,94 @@ def masked_act_conv3x3_batched(x: torch.Tensor, mask: torch.Tensor,
     xs = 0 if n == 1 else x.stride(0)
     return _launch_conv(name, x, _f32_on(mask, x, "mask"), w, n, b, h, wd,
                         cin, xs, h * wd * cin, stride, kind, (n, b))
+
+
+def _cand_stride(name, what, t, n, per):
+    """Candidate stride of an (N, rows, K) operand that is contiguous per
+    candidate: ``per`` (stacked) or 0 (an ``expand``-ed shared tensor)."""
+    if not t[0].is_contiguous() or not (n == 1 or t.stride(0) in (0, per)):
+        raise ValueError(f"{name}: {what} must be contiguous per candidate "
+                         f"with candidate stride {per} or 0, got strides "
+                         f"{t.stride()}")
+    return 0 if n == 1 else t.stride(0)
+
+
+def _launch_matmul(name, x, mask, w, mul, n, rows, k, x_stride, mul_stride,
+                   mask_stride, kind, out):
+    if w.dim() != 2 or w.shape[0] != k:
+        raise ValueError(f"{name}: w must be ({k}, N_out), "
+                         f"got {tuple(w.shape)}")
+    for what, t in (("w", w), ("mul", mul)):
+        if t is not None and (t.device != x.device or t.dtype != x.dtype):
+            raise ValueError(f"{name}: {what} must share x's device and "
+                             "dtype")
+    w = w.contiguous()
+    if out.numel() == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    lib = build.load()
+    with torch.cuda.device(x.device):
+        code = lib.masked_act_matmul_launch(
+            x.data_ptr(), mask.data_ptr(),
+            None if mul is None else mul.data_ptr(), w.data_ptr(),
+            out.data_ptr(), n, rows, k, w.shape[1], x_stride, mul_stride,
+            mask_stride, KIND_CODES[kind], _DTYPE_CODES[x.dtype], _stream(x))
+    build.check(lib, code, name)
+    launch_counts[name] += 1
+    return out
+
+
+def masked_act_matmul_2d(x: torch.Tensor, mask: torch.Tensor,
+                         w: torch.Tensor, mul: Optional[torch.Tensor] = None,
+                         *, kind: str = "relu") -> torch.Tensor:
+    """Fused ``(m·act(x) + (1−m)·x) [· mul] @ w``: x (rows, K) contiguous,
+    mask (K,), w (K, N_out), mul optional (rows, K) contiguous, all but the
+    mask in x's dtype.  Returns (rows, N_out) in x's dtype; the gated tensor
+    is never written to device memory."""
+    name = "masked_act_matmul_2d"
+    _check_common(name, x, kind)
+    if x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be a contiguous (rows, K) tensor, "
+                         f"got {tuple(x.shape)} {x.stride()}")
+    rows, k = x.shape
+    if mask.shape != (k,):
+        raise ValueError(f"{name}: mask must be ({k},), "
+                         f"got {tuple(mask.shape)}")
+    if mul is not None and (mul.shape != x.shape or not mul.is_contiguous()):
+        raise ValueError(f"{name}: mul must be a contiguous {tuple(x.shape)} "
+                         f"tensor, got {tuple(mul.shape)} {mul.stride()}")
+    out = torch.empty((rows, w.shape[-1]), dtype=x.dtype, device=x.device)
+    return _launch_matmul(name, x, _f32_on(mask, x, "mask"), w, mul, 1, rows,
+                          k, 0, 0, 0, kind, out)
+
+
+def masked_act_matmul_2d_batched(x: torch.Tensor, mask: torch.Tensor,
+                                 w: torch.Tensor,
+                                 mul: Optional[torch.Tensor] = None, *,
+                                 kind: str = "relu") -> torch.Tensor:
+    """Stacked-candidate :func:`masked_act_matmul_2d`: x (N, rows, K) and
+    mul (N, rows, K), each contiguous per candidate with candidate stride
+    rows*K or 0 (an ``expand``-ed tensor the candidates share); mask (N, K),
+    row b for candidate b; w shared.  Returns a fresh (N, rows, N_out)
+    tensor."""
+    name = "masked_act_matmul_2d_batched"
+    _check_common(name, x, kind)
+    if x.dim() != 3:
+        raise ValueError(f"{name}: x must be (N, rows, K), "
+                         f"got {tuple(x.shape)}")
+    n, rows, k = x.shape
+    if mask.shape != (n, k):
+        raise ValueError(f"{name}: mask must be ({n}, {k}), "
+                         f"got {tuple(mask.shape)}")
+    xs = _cand_stride(name, "x", x, n, rows * k)
+    us = 0
+    if mul is not None:
+        if mul.shape != x.shape:
+            raise ValueError(f"{name}: mul must be {tuple(x.shape)}, "
+                             f"got {tuple(mul.shape)}")
+        us = _cand_stride(name, "mul", mul, n, rows * k)
+    out = torch.empty((n, rows, w.shape[-1]), dtype=x.dtype,
+                      device=x.device)
+    return _launch_matmul(name, x, _f32_on(mask, x, "mask"), w, mul, n, rows,
+                          k, xs, us, k, kind, out)

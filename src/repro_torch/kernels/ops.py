@@ -121,3 +121,41 @@ def masked_act_conv3x3_batched(x, masks, w, *, stride: int = 1,
     return K.masked_act_conv3x3_batched(x, masks, w, stride=stride,
                                         kind=kind)
 
+
+def masked_act_matmul(x, mask, w, mul=None, *, kind: str = "relu"):
+    """Fused ``gate(x) [· mul] @ w`` — a masked activation feeding a matrix
+    product (the LM FFN's down-projection), the gated tensor never written
+    to device memory.
+
+    x: (..., K); mask: (K,), shared by every row, including rows that
+    belong to different candidates; w: (K, N_out); mul: optional (..., K),
+    the gated FFN's up branch.  On the CPU this is the unfused pair."""
+    if not x.is_cuda:
+        return ref.masked_act_matmul_ref(x, mask, w, mul, kind=kind)
+    k = x.shape[-1]
+    out = K.masked_act_matmul_2d(
+        x.contiguous().view(-1, k), mask, w,
+        None if mul is None else mul.contiguous().view(-1, k), kind=kind)
+    return out.view(tuple(x.shape[:-1]) + (w.shape[-1],))
+
+
+def masked_act_matmul_batched(x, masks, w, mul=None, *, kind: str = "relu"):
+    """Stacked-candidate :func:`masked_act_matmul`: masks (N, K), one row
+    per candidate; x and mul (N, ..., K); w shared.
+
+    An activation that all candidates still share (the first FFN after a
+    cached prefix) is passed as ``t.expand(N, ...)`` of the one (..., K)
+    tensor: the stride-0 candidate axis reaches the kernel as it is, which
+    reads the one copy N times, so the broadcast is never written."""
+    n = masks.shape[0]
+    for what, t in (("x", x), ("mul", mul)):
+        if t is not None and t.shape[0] != n:
+            raise ValueError(f"{what} {tuple(t.shape)} and masks "
+                             f"{tuple(masks.shape)} disagree on N")
+    if not x.is_cuda:
+        return ref.masked_act_matmul_batched_ref(x, masks, w, mul, kind=kind)
+    k = x.shape[-1]
+    out = K.masked_act_matmul_2d_batched(
+        _rows_view(x, n, k), masks, w,
+        None if mul is None else _rows_view(mul, n, k), kind=kind)
+    return out.view(tuple(x.shape[:-1]) + (w.shape[-1],))

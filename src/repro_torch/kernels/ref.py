@@ -48,6 +48,30 @@ def masked_act_ref(x, mask, kind: str = "relu", poly=None):
     return m * act + (1.0 - m) * lin
 
 
+def masked_act_matmul_ref(x, mask, w, mul=None, *, kind: str = "relu"):
+    """The unfused pair of the fused gate→matmul kernel:
+    ``masked_act_ref(x, mask) [· mul] @ w`` (identity replacement only).
+
+    x: (..., K); mask: (K,); w: (K, N_out) shared; mul: optional (..., K),
+    the gated FFN's up branch, multiplied after the gate and before the
+    product.
+    """
+    g = masked_act_ref(x, mask, kind=kind)
+    if mul is not None:
+        g = g * mul
+    return g @ w
+
+
+def masked_act_matmul_batched_ref(x, masks, w, mul=None, *,
+                                  kind: str = "relu"):
+    """Stacked-candidate :func:`masked_act_matmul_ref`: masks (N, K), one row
+    per candidate; x and mul (N, ..., K), where a candidate axis of stride 0
+    (an ``expand``-ed shared activation) broadcasts as it stands."""
+    n = masks.shape[0]
+    m = masks.reshape((n,) + (1,) * (x.dim() - 2) + (masks.shape[-1],))
+    return masked_act_matmul_ref(x, m, w, mul, kind=kind)
+
+
 def same_pads(size: int, stride: int, window: int = 3):
     """XLA SAME-padding geometry for one spatial dim: (out, lo, hi)."""
     out = -(-size // stride)

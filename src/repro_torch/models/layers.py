@@ -1,0 +1,185 @@
+"""Shared transformer layers: norms, RoPE, GQA attention, gated FFN.
+
+Counterpart of ``repro/models/layers.py``, eval path (no KV cache).
+Parameters are nested dicts of tensors with the reference's keys and layouts
+(``x @ w`` with ``w`` as ``(in, out)``); the rounding order of every function
+follows the reference's, so a bfloat16 model rounds where the reference
+rounds.
+
+Activations are ``(B, S, D)``, or ``(N, B, S, D)`` once N stacked candidates'
+activations differ.  Attention folds every leading axis into its batch; the
+FFN's masked gate takes one mask ``(F,)`` or N stacked masks ``(N, F)``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core import linearize
+from repro_torch.kernels import ops
+
+# ---------------------------------------------------------------- init
+
+
+def normal(gen: torch.Generator, shape, scale: float, dtype, device):
+    """N(0, 1)·scale in float32 from ``gen``, rounded to ``dtype`` and
+    placed on ``device`` (the reference draws in float32 and casts too)."""
+    w = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (w * scale).to(dtype).to(device)
+
+
+# ---------------------------------------------------------------- norms
+
+
+def rmsnorm_init(d, device="cuda"):
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
+def rmsnorm(p, x, eps=1e-6):
+    # the variance in float32, everything after it in the stream's dtype,
+    # in the reference's order
+    var = torch.mean(torch.square(x.to(torch.float32)), dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * p["scale"].to(x.dtype)
+
+
+# ---------------------------------------------------------------- rope
+
+
+def rope(x, positions, theta: float):
+    """x: (..., S, H, hd); positions: (S,) or (..., S) integers.  Computed
+    in float32, returned in x's dtype."""
+    hd = x.shape[-1]
+    half = hd // 2
+    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32))
+    freqs = torch.exp(-log_theta * torch.arange(
+        0, half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., None].to(torch.float32) * freqs   # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                     # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------- attention
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnCfg:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qk_norm: bool = False
+    window: Optional[int] = None        # sliding-window size (None = full)
+    rope_theta: float = 1e4
+
+
+def attn_init(gen, c: AttnCfg, dtype=torch.bfloat16, device="cuda"):
+    d, h, kvh, hd = c.d_model, c.n_heads, c.n_kv_heads, c.head_dim
+    s = d ** -0.5
+    p = {"wq": normal(gen, (d, h * hd), s, dtype, device),
+         "wk": normal(gen, (d, kvh * hd), s, dtype, device),
+         "wv": normal(gen, (d, kvh * hd), s, dtype, device),
+         "wo": normal(gen, (h * hd, d), (h * hd) ** -0.5, dtype, device)}
+    if c.qk_norm:
+        p["q_norm"] = rmsnorm_init(hd, device)
+        p["k_norm"] = rmsnorm_init(hd, device)
+    return p
+
+
+def _attend(q, k, v, *, window, scale):
+    """Causal attention, q (B, S, H, hd), k and v (B, S, KV, hd): scores in
+    float32, masked with -1e30, softmax cast back to q's dtype before the
+    product with v — the reference's ``_attend`` at offset 0."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qh = q.reshape(B, S, KV, H // KV, hd)
+    scores = torch.einsum("bqkrh,bskh->bkrqs", qh, k).to(torch.float32)
+    scores = scores * scale
+    qi = torch.arange(S, device=q.device)[:, None]
+    kj = torch.arange(S, device=q.device)[None, :]
+    mask = kj <= qi
+    if window is not None:
+        mask &= kj > qi - window
+    scores = torch.where(mask, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkrqs,bskh->bqkrh", probs, v)
+    return out.reshape(B, S, H, hd)
+
+
+def attention(p, c: AttnCfg, x, positions):
+    """Causal self-attention over x (..., S, D) without a cache; every
+    leading axis (batch, and the candidate axis of stacked activations)
+    folds into the batch.  positions: (S,) integers."""
+    lead, (S, d) = x.shape[:-2], x.shape[-2:]
+    x = x.reshape(-1, S, d)
+    B = x.shape[0]
+    h, kvh, hd = c.n_heads, c.n_kv_heads, c.head_dim
+    q = (x @ p["wq"]).reshape(B, S, h, hd)
+    k = (x @ p["wk"]).reshape(B, S, kvh, hd)
+    v = (x @ p["wv"]).reshape(B, S, kvh, hd)
+    if c.qk_norm:
+        q = rmsnorm(p["q_norm"], q)
+        k = rmsnorm(p["k_norm"], k)
+    q = rope(q, positions, c.rope_theta)
+    k = rope(k, positions, c.rope_theta)
+    out = _attend(q, k, v, window=c.window, scale=hd ** -0.5)
+    out = out.reshape(B, S, h * hd) @ p["wo"]
+    return out.reshape(tuple(lead) + (S, out.shape[-1]))
+
+
+# ---------------------------------------------------------------- gated FFN
+
+
+def ffn_init(gen, d, f, *, gated=True, dtype=torch.bfloat16, device="cuda"):
+    s = d ** -0.5
+    p = {"w_up": normal(gen, (d, f), s, dtype, device),
+         "w_down": normal(gen, (f, d), f ** -0.5, dtype, device)}
+    if gated:
+        p["w_gate"] = normal(gen, (d, f), s, dtype, device)
+    return p
+
+
+def ffn(p, x, mask, site: linearize.MaskSite, *, poly=None, soft=False,
+        fused=False, ties=True):
+    """Gated (SwiGLU-style) or plain FFN with the *masked* activation: act(h)
+    at kept channels, identity (or poly2) at linearized ones; for a gated FFN
+    the gate branch is the mask site.
+
+    x: (B, S, D), or (N, B, S, D) stacked; mask: (F,), or (N, F) for N
+    stacked candidates.  Under stacked masks an un-stacked x is still shared
+    by the candidates: its gate and up projections run once and reach the
+    gate as stride-0 candidate views.
+
+    ``fused`` (the port's counterpart of the reference's fused route): a
+    hard mask without poly2 and without share ties runs gate, up-branch
+    product and down-projection as one kernel
+    (``kernels.ops.masked_act_matmul[_batched]``).  Every other case keeps
+    the unfused route, the gate followed by ``torch.matmul``."""
+    gated = "w_gate" in p
+    h = x @ (p["w_gate"] if gated else p["w_up"])
+    mul = x @ p["w_up"] if gated else None
+    stacked = mask.dim() == len(site.shape) + 1
+    if stacked and x.dim() == 3:
+        n = mask.shape[0]
+        h = h.unsqueeze(0).expand((n,) + tuple(h.shape))
+        if mul is not None:
+            mul = mul.unsqueeze(0).expand((n,) + tuple(mul.shape))
+    if fused and not soft and poly is None and not ties:
+        if stacked:
+            return ops.masked_act_matmul_batched(h, mask, p["w_down"], mul,
+                                                 kind=site.kind)
+        return ops.masked_act_matmul(h, mask, p["w_down"], mul,
+                                     kind=site.kind)
+    a = linearize.apply_masked_act(h, mask, site, poly=poly, soft=soft,
+                                   ties=ties)
+    if mul is not None:
+        a = a * mul
+    return a @ p["w_down"]
+

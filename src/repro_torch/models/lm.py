@@ -1,0 +1,447 @@
+"""Unified LM backbone, dense blocks (eval path).
+
+Counterpart of ``repro/models/lm.py``.  A model is ``head_blocks`` + a stack
+of ``n_repeats`` copies of ``cfg.pattern`` + a ``tail`` (the pattern
+remainder).  Parameters keep the reference's tree: ``params["stack"][pos]``
+leaves carry a leading repeat axis ``(R, ...)``, so a converted reference
+tree (``repro_torch.convert.params_from_reference``) maps one to one.  The
+reference's ``lax.scan`` over repeats is a Python loop here; its
+compilation fences have no counterpart in eager PyTorch.
+
+Every FFN's elementwise nonlinearity is a mask site: ``h<i>.ffn`` and
+``t<i>.ffn`` of shape ``(d_ff,)``, ``s<pos>.ffn`` of shape ``(R, d_ff)``.
+
+**The candidate axis is explicit.**  A mask tree is one candidate (leaves
+of the site shapes) or N stacked ones (leaves ``(N, ...)``).  The activation
+stays ``(B, S, D)`` while the candidates share it and becomes
+``(N, B, S, D)`` at the first stacked gate: attention and the gate and up
+projections of the first layer after a cached prefix run once, not N times,
+and attention folds ``N·B`` into its batch after that.
+
+Block kinds ``moe``, ``mamba``, ``rwkv`` and ``attn_only`` and the KV cache
+are not ported yet (``ROADMAP.md`` Queue A9 and A10) and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+
+import repro_torch
+from repro_torch.configs.base import ArchConfig, Block
+from repro_torch.convert import to_device
+from repro_torch.core import linearize, masks as M
+from . import layers
+
+
+def _attn_cfg(cfg: ArchConfig, blk: Block) -> layers.AttnCfg:
+    return layers.AttnCfg(
+        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, qk_norm=cfg.qk_norm, window=blk.window,
+        rope_theta=blk.rope_theta)
+
+
+def _sites_for(cfg: ArchConfig, blk: Block) -> Dict[str, linearize.MaskSite]:
+    if blk.kind == "dense":
+        return {"ffn": linearize.MaskSite((cfg.d_ff,), cfg.act,
+                                          cfg.act_when_masked)}
+    raise NotImplementedError(
+        f"block kind {blk.kind!r} is not ported yet: the port's LM runs "
+        "dense blocks; moe, mamba, rwkv and attn_only blocks come with "
+        "ROADMAP.md Queue A9")
+
+
+def token_accuracy(logits, labels):
+    """Next-token accuracy in percent: a 0-d tensor for (B, S, V) logits, an
+    (N,) tensor for stacked (N, B, S, V) ones.  The hit count is divided by
+    the position count once, as the reference's mean is, so the value is
+    the same float32 number.  Stays on the device."""
+    hit = (logits.argmax(-1) == labels).to(torch.float32)
+    return hit.sum(dim=(-2, -1)) / float(labels.numel()) * 100.0
+
+
+class LM:
+    """Dense-block LM: plain functions over a parameter tree.
+
+    Building one turns TF32 off process-wide
+    (:func:`repro_torch.use_full_float32`): the fused kernels accumulate in
+    exact float32, and every evaluation path must rank candidates alike."""
+
+    def __init__(self, cfg: ArchConfig):
+        blocks = tuple(cfg.head_blocks) + tuple(cfg.pattern) + tuple(cfg.tail)
+        for blk in blocks:
+            _sites_for(cfg, blk)          # raises for kinds not ported yet
+        repro_torch.use_full_float32()
+        self.cfg = cfg
+        self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" \
+            else torch.float32
+
+    # ------------------------------------------------------------ init
+
+    def _layer_init(self, gen, blk: Block, device):
+        cfg, dt = self.cfg, self.dtype
+        d = cfg.d_model
+        return {"ln1": layers.rmsnorm_init(d, device),
+                "attn": layers.attn_init(gen, _attn_cfg(cfg, blk), dt,
+                                         device),
+                "ln2": layers.rmsnorm_init(d, device),
+                "ffn": layers.ffn_init(gen, d, cfg.d_ff,
+                                       gated=cfg.gated_ffn, dtype=dt,
+                                       device=device)}
+
+    def init(self, generator: torch.Generator, device="cuda"):
+        """Random parameters drawn from an explicit generator and placed on
+        ``device`` (the draws happen on the generator's device).  Same tree,
+        keys, shapes and dtypes as the reference's ``LM.init``; not the same
+        numbers — tests that compare the two packages convert the
+        reference's parameters instead of re-initialising."""
+        cfg, g = self.cfg, generator
+        params = {
+            "embed": layers.normal(g, (cfg.vocab, cfg.d_model),
+                                   cfg.d_model ** -0.5, self.dtype, device),
+            "final_norm": layers.rmsnorm_init(cfg.d_model, device),
+            "head": [self._layer_init(g, blk, device)
+                     for blk in cfg.head_blocks],
+            "tail": [self._layer_init(g, blk, device) for blk in cfg.tail],
+        }
+        stack = {}
+        for pos, blk in enumerate(cfg.pattern):
+            reps = [self._layer_init(g, blk, device)
+                    for _ in range(cfg.n_repeats)]
+            stack[str(pos)] = _stack_trees(reps)
+        params["stack"] = stack
+        return params
+
+    # ------------------------------------------------------------ masks
+
+    def mask_sites(self) -> Dict[str, linearize.MaskSite]:
+        cfg = self.cfg
+        out = {}
+        for i, blk in enumerate(cfg.head_blocks):
+            for suf, site in _sites_for(cfg, blk).items():
+                out[f"h{i}.{suf}"] = site
+        for pos, blk in enumerate(cfg.pattern):
+            for suf, site in _sites_for(cfg, blk).items():
+                out[f"s{pos}.{suf}"] = dataclasses.replace(
+                    site, shape=(cfg.n_repeats,) + site.shape)
+        for i, blk in enumerate(cfg.tail):
+            for suf, site in _sites_for(cfg, blk).items():
+                out[f"t{i}.{suf}"] = site
+        return out
+
+    def relu_count(self) -> int:
+        """Number of maskable nonlinearities (every mask coordinate)."""
+        total = 0
+        for s in self.mask_sites().values():
+            n = 1
+            for d in s.shape:
+                n *= d
+            total += n
+        return total
+
+    # ------------------------------------------------------------ blocks
+
+    def _layer_apply(self, blk: Block, p, x, masks, name, opt, positions,
+                     repeat=None):
+        """One dense block.  ``name``: the block's mask site; ``repeat``:
+        the stack row its (R, ·) mask and poly arrays are read at."""
+        poly, soft, fused, ties = opt
+        site = _sites_for(self.cfg, blk)["ffn"]
+        m = masks[name]
+        ply = poly.get(name)
+        if repeat is not None:
+            stacked = m.dim() == 3              # (N, R, F)
+            m = m[:, repeat] if stacked else m[repeat]
+            if ply is not None:                 # (3, R, F)
+                ply = ply[:, repeat]
+        h = layers.rmsnorm(p["ln1"], x)
+        x = x + layers.attention(p["attn"], _attn_cfg(self.cfg, blk), h,
+                                 positions)
+        h = layers.rmsnorm(p["ln2"], x)
+        return x + layers.ffn(p["ffn"], h, m, site, poly=ply, soft=soft,
+                              fused=fused, ties=ties)
+
+    # The forward is a fold over segments: 0 = the embedding (done before
+    # the fold), 1..H = head blocks, 1+H..H+R = stack repeats, then the tail
+    # blocks; the final norm and the logits follow the last one.  forward,
+    # forward_prefix and forward_suffix fold the same list, so
+    # prefix ∘ suffix == forward by construction.
+
+    def _n_segments(self) -> int:
+        cfg = self.cfg
+        return 1 + len(cfg.head_blocks) + cfg.n_repeats + len(cfg.tail)
+
+    def _fold(self, params, masks, x, lo: int, hi: int, opt):
+        """Run segments ``[lo, hi)`` (lo >= 1) on the hidden state x."""
+        cfg = self.cfg
+        H, R = len(cfg.head_blocks), cfg.n_repeats
+        positions = torch.arange(x.shape[-2], device=x.device)
+        for seg in range(max(lo, 1), hi):
+            if seg <= H:
+                i = seg - 1
+                x = self._layer_apply(cfg.head_blocks[i], params["head"][i],
+                                      x, masks, f"h{i}.ffn", opt, positions)
+            elif seg <= H + R:
+                r = seg - 1 - H
+                for pos, blk in enumerate(cfg.pattern):
+                    lp = _index(params["stack"][str(pos)], r)
+                    x = self._layer_apply(blk, lp, x, masks, f"s{pos}.ffn",
+                                          opt, positions, repeat=r)
+            else:
+                i = seg - 1 - H - R
+                x = self._layer_apply(cfg.tail[i], params["tail"][i], x,
+                                      masks, f"t{i}.ffn", opt, positions)
+        return x
+
+    def _logits(self, params, x):
+        x = layers.rmsnorm(params["final_norm"], x)
+        return x @ params["embed"].T.to(x.dtype)
+
+    def _embed(self, params, tokens):
+        return params["embed"][tokens.long()]
+
+    # ------------------------------------------------------------ forward
+
+    def forward(self, params, masks, tokens, *, prefix_embeds=None,
+                poly=None, soft=False, cache=None, pre=None, fused=False,
+                ties=True):
+        """Logits ``(B, S, V)``, or ``(N, B, S, V)`` for stacked masks.
+
+        ``pre``: a cached :meth:`forward_pre` result (the mask-independent
+        embedding) — ``tokens`` is then ignored.  ``prefix_embeds``:
+        ``(B, P, D)`` stub-frontend embeddings put before the tokens'.
+        ``fused``: every hard-mask FFN runs gate → down-projection as one
+        kernel.  ``ties=False`` promises that no mask coordinate is
+        share-tied (decided on the host, ``linearize.has_share_ties``)."""
+        if cache is not None:
+            raise NotImplementedError(
+                "the KV cache (decode) is not ported yet: it comes with "
+                "serving, ROADMAP.md Queue A10")
+        opt = (poly or {}, soft, fused, ties)
+        if pre is not None:
+            x = pre
+        else:
+            x = self._embed(params, tokens)
+            if prefix_embeds is not None:
+                x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        x = self._fold(params, masks, x, 1, self._n_segments(), opt)
+        return self._logits(params, x)
+
+    def forward_pre(self, params, tokens):
+        """The mask-independent head of the network, the token embedding:
+        computed once per evaluator context and fed back through
+        ``forward(..., pre=...)``."""
+        return self._embed(params, tokens)
+
+    # ------------------------------------------------------- split forward
+    #
+    # Segment boundaries for prefix-reuse candidate evaluation
+    # (core.engine.SuffixEvaluator): embed | head block i … | stack repeat 0
+    # … stack repeat R-1 | tail block i … | final norm + logits.  Stack
+    # sites are addressed two ways: the real mask name ("s0.ffn", whose
+    # (R, ·) array spans every repeat) maps to its repeat-0 segment, and
+    # virtual repeat-qualified names ("s0.ffn@r") address the per-repeat
+    # segments — a cut at repeat r resumes the stack loop at repeat r.
+
+    def _segment_of_site(self) -> Dict[str, int]:
+        cfg = self.cfg
+        H = len(cfg.head_blocks)
+        R = cfg.n_repeats
+        out = {}
+        for i, blk in enumerate(cfg.head_blocks):
+            for suf in _sites_for(cfg, blk):
+                out[f"h{i}.{suf}"] = 1 + i
+        for pos, blk in enumerate(cfg.pattern):
+            for suf in _sites_for(cfg, blk):
+                out[f"s{pos}.{suf}"] = 1 + H
+                for r in range(R):
+                    out[f"s{pos}.{suf}@{r}"] = 1 + H + r
+        for i, blk in enumerate(cfg.tail):
+            for suf in _sites_for(cfg, blk):
+                out[f"t{i}.{suf}"] = 1 + H + R + i
+        return out
+
+    def site_repeats(self) -> Dict[str, int]:
+        """Real stack mask name -> repeat count its (R, ·) array spans.
+
+        A stack site's per-repeat segments are consecutive from its base
+        (repeat-0) segment, and its flat mask coordinates are laid out
+        repeat-major, so a coordinate's segment is
+        ``base + local_offset // (size // R)``
+        (``masks.group_blocks_by_site`` ``repeat_sites=``)."""
+        cfg = self.cfg
+        return {f"s{pos}.{suf}": cfg.n_repeats
+                for pos, blk in enumerate(cfg.pattern)
+                for suf in _sites_for(cfg, blk)}
+
+    def site_order(self) -> Tuple[str, ...]:
+        """All mask sites in forward order: stack sites once per repeat
+        under their virtual name (``"s0.ffn@1"``), head and tail sites under
+        their real name; real stack names are absent."""
+        seg = self._segment_of_site()
+        reps = self.site_repeats()
+        return tuple(sorted((s for s in seg if s not in reps),
+                            key=lambda s: (seg[s], s)))
+
+    def site_segments(self) -> Dict[str, int]:
+        """site -> segment index, under both namings of stack sites: real
+        mask names at their repeat-0 segment (mask-tree diffing, grouping)
+        and virtual ``@r`` names at repeat r's segment (cuts)."""
+        return self._segment_of_site()
+
+    def suffix_sites(self, site: str) -> Tuple[str, ...]:
+        """Real mask names consumed by :meth:`forward_suffix` for this cut:
+        those whose DEEPEST segment is at or after it.  A stack site's
+        (R, ·) array reaches repeat R-1, so a cut at any repeat ships the
+        whole array (the rows before the cut are not read)."""
+        seg = self._segment_of_site()
+        cut = seg[site]
+        reps = self.site_repeats()
+
+        def deepest(s):
+            return seg[s] + (reps[s] - 1 if s in reps else 0)
+        return tuple(s for s in sorted((k for k in seg if "@" not in k),
+                                       key=lambda s: (seg[s], s))
+                     if deepest(s) >= cut)
+
+    def forward_prefix(self, params, masks, tokens, site, *, poly=None,
+                       soft=False, from_site=None, cached=None, fused=False,
+                       ties=True):
+        """Forward up to (excluding) the segment applying ``site``; returns
+        the (B, S, D) hidden state at that boundary.  A cut at repeat r
+        (``"s0.ffn@r"``) stops the stack after repeat r-1.
+
+        ``from_site``/``cached`` resume from an earlier prefix's boundary
+        state instead of the embedding, folding only the segments in
+        ``[seg(from_site), seg(site))`` — the prefix-trie extension
+        contract ``prefix_ext(a, b, m, prefix(a)) == prefix(b)``."""
+        opt = (poly or {}, soft, fused, ties)
+        seg = self._segment_of_site()
+        if from_site is None:
+            x, lo = self._embed(params, tokens), 1
+        else:
+            x, lo = cached, seg[from_site]
+        return self._fold(params, masks, x, lo, seg[site], opt)
+
+    def forward_suffix(self, params, masks, cached, site, *, poly=None,
+                       soft=False, fused=False, ties=True):
+        """Finish the forward from a :meth:`forward_prefix` state: the
+        segment applying ``site`` and everything after it, to logits.  With
+        stacked masks the shared ``cached`` state is read by every candidate
+        and never broadcast in memory."""
+        opt = (poly or {}, soft, fused, ties)
+        cut = self._segment_of_site()[site]
+        x = self._fold(params, masks, cached, cut, self._n_segments(), opt)
+        return self._logits(params, x)
+
+    def site_prefix_fractions(self, *, seq_len: int = 64) -> Dict[str, float]:
+        """site -> fraction of forward FLOPs strictly before its segment
+        (``analysis.roofline.lm_segment_fwd_flops``, per sample, prefill),
+        under both namings of stack sites."""
+        from repro_torch.analysis import roofline
+        seg_flops = roofline.lm_segment_fwd_flops(self.cfg, seq_len=seq_len)
+        total = max(sum(seg_flops), 1.0)
+        before, cum = [], 0.0
+        for v in seg_flops:
+            before.append(cum / total)
+            cum += v
+        return {s: before[i] for s, i in self._segment_of_site().items()}
+
+    # ------------------------------------------------------- eval closures
+    #
+    # Same contract as models.resnet.CNN: a device closure that takes one
+    # mask tree or N stacked ones and returns accuracy tensors without
+    # synchronising, and a host callable for the sequential engine.  The
+    # metric is next-token accuracy [%] on a fixed token batch
+    # (``batch["tokens"]`` (B, S+1): inputs tokens[:, :-1], labels
+    # tokens[:, 1:]).
+
+    def make_param_eval_fn(self, batch, device="cuda"):
+        """``(mask_tree, params, ties=True) -> accuracy[%]`` on ``device``,
+        params as evaluator context (they change between BCD steps when a
+        run finetunes)."""
+        tokens = to_device(batch["tokens"], device)
+
+        def eval_fn(masks, params, ties=True):
+            logits = self.forward(params, masks, tokens[:, :-1], ties=ties)
+            return token_accuracy(logits, tokens[:, 1:])
+        return eval_fn
+
+    def make_eval_fn(self, params, batch, device="cuda"):
+        fn = self.make_param_eval_fn(batch, device)
+        return lambda masks, ties=True: fn(masks, params, ties=ties)
+
+    def make_joint_eval_fn(self):
+        """``(mask_tree, ctx, ties=True) -> accuracy[%]`` with
+        ``ctx = {"params": ..., "batch": ...}``; ``ctx["pre"]`` (optional)
+        is the embedding, computed once per context by the evaluator."""
+        def eval_fn(masks, ctx, ties=True):
+            tokens = ctx["batch"]["tokens"]
+            logits = self.forward(ctx["params"], masks, tokens[:, :-1],
+                                  pre=ctx.get("pre"), ties=ties)
+            return token_accuracy(logits, tokens[:, 1:])
+        return eval_fn
+
+    def make_suffix_eval_fns(self):
+        """Split-forward closure bundle for ``engine.SuffixEvaluator`` —
+        the contract of ``CNN.make_suffix_eval_fns``, with the per-repeat
+        stack cuts described by ``site_repeats``."""
+        from repro_torch.core import engine
+
+        def prefix_fn(site, masks, ctx, ties=True):
+            return self.forward_prefix(ctx["params"], masks,
+                                       ctx["batch"]["tokens"][:, :-1], site,
+                                       ties=ties)
+
+        def prefix_ext_fn(from_site, site, masks, cached, ctx, ties=True):
+            return self.forward_prefix(ctx["params"], masks,
+                                       ctx["batch"]["tokens"][:, :-1], site,
+                                       from_site=from_site, cached=cached,
+                                       ties=ties)
+
+        def suffix_fn(site, masks, cached, ctx, fused=False, ties=True):
+            logits = self.forward_suffix(ctx["params"], masks, cached, site,
+                                         fused=fused, ties=ties)
+            return token_accuracy(logits, ctx["batch"]["tokens"][:, 1:])
+
+        def pre_fn(ctx):
+            return self.forward_pre(ctx["params"],
+                                    ctx["batch"]["tokens"][:, :-1])
+
+        return engine.SplitEval(
+            prefix=prefix_fn, suffix=suffix_fn,
+            full=self.make_joint_eval_fn(),
+            site_order=self.site_order(),
+            site_segment=self.site_segments(),
+            suffix_sites=self.suffix_sites,
+            prefix_fraction=self.site_prefix_fractions(),
+            prefix_ext=prefix_ext_fn,
+            pre=pre_fn,
+            site_repeats=self.site_repeats())
+
+    def make_eval_acc(self, params, batch, device="cuda"):
+        """Host callable ``mask_tree -> float`` (one candidate); reads the
+        result back, so it synchronises once per call."""
+        fn = self.make_eval_fn(params, batch, device)
+
+        def eval_acc(masks):
+            ties = linearize.has_share_ties(masks)
+            with torch.no_grad():
+                return float(fn(M.as_device(masks, device), ties=ties))
+        return eval_acc
+
+
+def _stack_trees(trees):
+    """A list of equal parameter trees -> one tree of stacked leaves."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def _index(tree, r: int):
+    """Row ``r`` of every leaf of a stacked parameter tree."""
+    if isinstance(tree, dict):
+        return {k: _index(v, r) for k, v in tree.items()}
+    return tree[r]

@@ -44,19 +44,23 @@ def reference():
     from repro.analysis import roofline
     from repro.core import bcd, engine, linearize, masks
     from repro.kernels import masked_act, ops, ref
-    from repro.models import resnet
+    from repro.models import layers, lm, resnet
+    import repro.configs as configs
     import repro.data as data
     _REFERENCE = types.SimpleNamespace(
         jax=jax, jnp=jnp, bcd=bcd, engine=engine, linearize=linearize,
         masks=masks, masked_act=masked_act, ops=ops, ref=ref, resnet=resnet,
-        data=data, roofline=roofline)
+        data=data, roofline=roofline, lm=lm, layers=layers, configs=configs)
     return _REFERENCE
 
 
 def to_numpy_tree(tree):
-    """A pytree of jax arrays -> the same nested dict of numpy arrays."""
+    """A pytree of jax arrays -> the same nested dicts and lists of numpy
+    arrays."""
     if isinstance(tree, dict):
         return {k: to_numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_numpy_tree(v) for v in tree)
     return np.asarray(tree)
 
 
@@ -80,6 +84,9 @@ def test_port_imports_neither_jax_nor_reference_package():
         names = [m.name for m in pkgutil.walk_packages(
             repro_torch.__path__, "repro_torch.")]
         assert len(names) >= 15, names
+        assert {"repro_torch.configs", "repro_torch.configs.base",
+                "repro_torch.configs.stablelm_1p6b", "repro_torch.models.lm",
+                "repro_torch.models.layers"} <= set(names), names
         for n in names:
             importlib.import_module(n)
         bad = [m for m in sys.modules
