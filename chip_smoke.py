@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout, holds each one
-against its plain PyTorch version on the card, and drives the port's two
+against its plain PyTorch version on the card, and drives the port's three
 paths, BCD candidate evaluation through ``bcd.run_bcd`` with the
 sequential, batched, pipelined and suffix engines:
 
@@ -12,7 +12,10 @@ sequential, batched, pipelined and suffix engines:
      ``sited`` lines);
   2. StableLM-2-1.6B at its published widths, float32, random weights, on
      eval tokens that the full-mask model continues greedily from a Markov
-     prompt (``lm_batch``, ``lm_forward``, ``lm_bcd``, ``lm_sited`` lines).
+     prompt (``lm_batch``, ``lm_forward``, ``lm_bcd``, ``lm_sited`` lines);
+  3. RWKV-6 3B the same way (``rwkv_batch``, ``rwkv_forward``, ``rwkv_bcd``,
+     ``rwkv_sited`` lines), its time-mix scan on the ``rwkv6_scan`` kernel,
+     its channel-mix gate on the gate kernels; no fused route.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; the script checks that each went through its kernels and that the
@@ -43,9 +46,14 @@ Tolerances (stated again in the output):
   * ResNet logits: 2e-3 absolute between fused/unfused and
     stacked/un-stacked forwards, and between the card and the CPU —
     BatchNorm's rsqrt amplifies conv rounding through 17 gated layers.
-  * LM logits: 1e-3 absolute, the same comparisons — 24 layers of sums of
-    up to 5632 products in other orders; logits are O(1) and a float32 sum
-    of that length is off by about 1e-5 relative.
+  * RWKV-6 scan, float32: |err| <= 3e-4 + 3e-4*|ref|, the reference's own
+    tolerance — the plain version is the chunked form, which divides by
+    in-chunk decay products; the error of both against the token-serial
+    recurrence in float64 is printed too.
+  * LM logits: 1e-3 absolute, the same comparisons — 24 or 32 layers of
+    sums of up to 8960 products in other orders; logits are O(1) and a
+    float32 sum of that length is off by about 1e-5 relative.  The RWKV
+    card-vs-CPU check runs the first 8 of its 32 repeats.
 
 Times are CUDA-event times over repeated launches after a warm-up, at the
 shapes the main path uses, without flushing the L2 cache between launches
@@ -53,11 +61,13 @@ shapes the main path uses, without flushing the L2 cache between launches
 (each input read once, each output written once) and operations/67 TFLOP/s
 (float32 outside the tensor cores, which is what these kernels use) — for
 the fused matmul in bfloat16 operations/989 TFLOP/s, the tensor cores' rate,
-the least time the card could take for that work.
+the least time the card could take for that work.  The scan's operations
+are 5·K·V a token and row (r·S, the state update) plus the bonus.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -82,6 +92,7 @@ SOURCE = {
     "masked_act_conv3x3_batched": _CSRC + "masked_act.cu",
     "masked_act_matmul_2d": _CSRC + "masked_act_matmul.cu",
     "masked_act_matmul_2d_batched": _CSRC + "masked_act_matmul.cu",
+    "rwkv6_scan": _CSRC + "rwkv6_scan.cu",
 }
 REPLACES = {
     "masked_act_2d": "src/repro/kernels/masked_act.py:55",
@@ -90,6 +101,7 @@ REPLACES = {
     "masked_act_conv3x3_batched": "src/repro/kernels/masked_act.py:424",
     "masked_act_matmul_2d": "src/repro/kernels/masked_act.py:235",
     "masked_act_matmul_2d_batched": "src/repro/kernels/masked_act.py:299",
+    "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:69",
 }
 # the kernels each main path must launch
 PATH_KERNELS = {
@@ -98,6 +110,7 @@ PATH_KERNELS = {
     "stablelm_1p6b": ("masked_act_2d", "masked_act_2d_batched",
                       "masked_act_matmul_2d",
                       "masked_act_matmul_2d_batched"),
+    "rwkv6_3b": ("masked_act_2d", "masked_act_2d_batched", "rwkv6_scan"),
 }
 TOL = {
     ("gate", torch.float32): (1e-6, 1e-6),
@@ -106,16 +119,15 @@ TOL = {
     ("conv", torch.bfloat16): (1e-2, 1e-2),
     ("matmul", torch.float32): (2e-4, 2e-4),
     ("matmul", torch.bfloat16): (1e-2, 1e-2),
+    ("scan", torch.float32): (3e-4, 3e-4),
 }
 LOGIT_TOL = 2e-3
 SEED = 0            # weights, data and masks
-LM_ARCH = "stablelm_1p6b"
-LM_BATCH, LM_SEQ = 8, 128   # eval sequences x tokens (inputs: LM_SEQ - 1)
+LM_BATCH = 8                # eval sequences on the LM paths
 LM_PROMPT = 16              # Markov tokens before the greedy continuation
 LM_CHUNK = 4                # candidates per chunk on the LM path
 LM_STEPS = 2                # BCD outer steps per engine on the LM path
 LM_DRC = 256                # nonlinearities removed per BCD step
-LM_SITED = ("s0.ffn@8", "s0.ffn@20")
 LM_SITED_DRC = 32
 LM_LOGIT_TOL = 1e-3
 LM_CPU_TOKENS = 32          # the card-vs-CPU check: 1 sequence x 32 tokens
@@ -176,7 +188,8 @@ def ptxas_summary(log: str) -> dict:
         if "Compiling entry function" in ln:
             name = "gate_conv3x3_kernel" if "gate_conv3x3" in ln else \
                 "gate_matmul_kernel" if "gate_matmul" in ln else \
-                "gate_kernel" if "gate_kernel" in ln else "other"
+                "gate_kernel" if "gate_kernel" in ln else \
+                "rwkv6_scan_kernel" if "rwkv6_scan" in ln else "other"
             out.setdefault(name, {"instantiations": 0, "registers": [],
                                   "smem_bytes": [], "spill_bytes": 0})
             out[name]["instantiations"] += 1
@@ -354,6 +367,59 @@ def matmul_case(name, dtype, kind, n, rows, k, nout, with_mul, shared_x,
                        library=library)
 
 
+def scan_case(bh, T, K, V, chunk, heads, shared_state, primary, seed,
+              timed=False):
+    """One comparison of the RWKV-6 scan kernel with its chunked plain
+    version, and of both with the token-serial recurrence in float64.
+    ``heads``: u is an (H, K) per-head table (the path's layout); 0: a
+    full (BH, K) u; 1: one row expanded with stride 0.  ``shared_state``:
+    the initial state is one zero (K, V) expanded with stride 0, as the
+    path passes it; otherwise a random state per row."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+    r, k = randn(bh, T, K, scale=0.5), randn(bh, T, K, scale=0.5)
+    v = randn(bh, T, V)
+    # the reference test's decays (tests/test_kernels.py:233)
+    w = 0.7 + 0.299 * torch.rand((bh, T, K), generator=g, device="cuda")
+    u = randn(heads or bh, K, scale=0.3)
+    if heads == 1:
+        u = u.expand(bh, K)
+    state = torch.zeros((1, K, V), device="cuda").expand(bh, K, V) \
+        if shared_state else randn(bh, K, V, scale=0.1)
+
+    def kernel():
+        return rwkv6_scan(r, k, v, w, u, state, chunk=chunk)
+
+    def plain():
+        return ref.rwkv6_scan_ref(r, k, v, w, u, state, chunk=chunk)
+
+    def flat(pair):
+        return torch.cat([pair[0].flatten(), pair[1].flatten()])
+    out, want = kernel(), plain()
+    torch.cuda.synchronize()
+    exact = flat(ref.rwkv6_serial_ref(*(t.double() for t in
+                                        (r, k, v, w, u, state))))
+    extra = dict(shape=[bh, T, K, V], chunk=chunk,
+                 u="(H, K) table" if heads > 1 else
+                 "stride-0 row" if heads == 1 else "(BH, K)",
+                 state="shared zeros" if shared_state else "random",
+                 kernel_err_vs_f64=float((flat(out).double() - exact)
+                                         .abs().max()),
+                 plain_err_vs_f64=float((flat(want).double() - exact)
+                                        .abs().max()))
+    del exact
+    byts = nbytes(r, k, v, w, u, state) + 4 * (bh * T * V + bh * K * V)
+    # per token and row: r.S (2KV), the state update (3KV), the bonus
+    flops = bh * T * (5.0 * K * V + 3 * K + 2 * V)
+    return finish_case("rwkv6_scan", "scan", torch.float32, flat(out),
+                       flat(want), kernel, plain, False, byts, flops,
+                       primary, extra, timed)
+
+
 def finish_case(name, family, dtype, out, want, kernel, plain,
                 plain_is_library, byts, flops, primary, extra, timed=False,
                 library=None):
@@ -480,7 +546,7 @@ def run_kernel_cases():
     # ---- masked_act_matmul_2d_batched: every FFN of a fused suffix forward
     # at the path's shape: rows = B·S, K = d_ff, N_out = d_model of
     # StableLM-2-1.6B, chunks of LM_CHUNK candidates
-    rows, k, nout = LM_BATCH * (LM_SEQ - 1), 5632, 2048
+    rows, k, nout = LM_BATCH * (LM_PATHS[0].seq - 1), 5632, 2048
     m2, m2b = "masked_act_matmul_2d", "masked_act_matmul_2d_batched"
     cases.append(matmul_case(m2, f32, "silu", 1, rows, k, nout, True, False,
                              primary=True, seed=100))
@@ -504,6 +570,24 @@ def run_kernel_cases():
             cases.append(matmul_case(m2b, dt, kind, 3, 37, k2, 72 + 5 * i,
                                      i % 2 == 1, i < 2, primary=False,
                                      seed=120 + 2 * i, timed=True))
+
+    # ---- rwkv6_scan: every time-mix of the RWKV-6 3B path (40 heads of 64,
+    # 128 tokens) stacked over a chunk of LM_CHUNK candidates and un-stacked;
+    # the reference test's shapes; a chunk of the whole sequence; a random
+    # initial state with a stride-0 u
+    H3, T3 = 40, LM_PATHS[1].seq - 1
+    cases.append(scan_case(LM_CHUNK * LM_BATCH * H3, T3, 64, 64, 32, H3,
+                           True, primary=True, seed=130))
+    cases.append(scan_case(LM_BATCH * H3, T3, 64, 64, 32, H3, True,
+                           primary=False, seed=131, timed=True))
+    for i, (T, K, V, chunk) in enumerate(((32, 8, 8, 8), (64, 16, 32, 16),
+                                          (64, 8, 16, 32))):
+        cases.append(scan_case(4, T, K, V, chunk, 0, False, primary=False,
+                               seed=132 + i))
+    cases.append(scan_case(6, 17, 16, 16, 17, 2, False, primary=False,
+                           seed=135))
+    cases.append(scan_case(64, 96, 64, 64, 32, 1, False, primary=False,
+                           seed=136, timed=True))
     return cases
 
 
@@ -573,7 +657,7 @@ def run_forward(model, params, batch, seed: int):
 
 def run_bcd_phase(model, params, batch, steps: int):
     from repro_torch.core import bcd, linearize, masks as M
-    from repro_torch.kernels import masked_act as K
+    from repro_torch.kernels import build
     from repro_torch.launch.sweep import make_bcd_evaluator
     masks0 = linearize.init_masks(model.mask_sites())
     total = model.relu_count()
@@ -595,14 +679,14 @@ def run_bcd_phase(model, params, batch, steps: int):
             cfg = bcd.BCDConfig(b_target=total - drc * steps, drc=drc, rt=rt,
                                 adt=adt, finetune_every_step=False, seed=0,
                                 chunk_size=chunk, moves=moves)
-            before = dict(K.launch_counts)
+            before = dict(build.launch_counts)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = bcd.run_bcd(masks0, cfg, eval_acc, evaluator=evaluator)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = {k: K.launch_counts[k] - before[k]
-                        for k in K.launch_counts}
+            launches = {k: build.launch_counts[k] - before[k]
+                        for k in build.launch_counts}
             if M.relu_cost(res.masks) != total - drc * steps:
                 fail(f"bcd {backend}: budget {M.relu_cost(res.masks)}")
             accs = [h.acc_before for h in res.history]
@@ -643,7 +727,7 @@ def run_sited_phase(model, params, batch):
     the suffix engine (unfused and fused): equal accuracies, and the rates
     the prefix reuse and the fused kernels are there for."""
     from repro_torch.core import engine as E, linearize, masks as M
-    from repro_torch.kernels import masked_act as K
+    from repro_torch.kernels import build
     from repro_torch.launch.sweep import make_bcd_evaluator
     masks0 = linearize.init_masks(model.mask_sites())
     fractions = model.site_prefix_fractions()
@@ -665,10 +749,10 @@ def run_sited_phase(model, params, batch):
             if backend == "suffix":
                 ev.begin_step(masks0)
                 items = [E.SitedChunk(site, c) for c in chunks]
-            before = dict(K.launch_counts)
+            before = dict(build.launch_counts)
             accs[label] = np.concatenate([ev.evaluate(it) for it in items])
-            launches = {k: K.launch_counts[k] - before[k]
-                        for k in K.launch_counts}
+            launches = {k: build.launch_counts[k] - before[k]
+                        for k in build.launch_counts}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(reps):
@@ -691,25 +775,59 @@ def run_sited_phase(model, params, batch):
     return dict(model="resnet18", batch=128, timed_passes=reps, rows=out)
 
 
-# ---------------------------------------------------------------- LM path
+# ---------------------------------------------------------------- LM paths
 #
-# StableLM-2-1.6B at its published widths (d_model 2048, d_ff 5632, 32
-# heads of 64, vocab 100 352, 24 layers), random weights from the port's
-# own init, run in float32 (a cut of dtype, not of width).  A network with
-# random weights scores about 0 % next-token accuracy on Markov tokens, so
-# every trial would tie; the eval tokens are therefore a short Markov prompt
-# continued greedily by the full-mask model itself, and the positions after
-# the prompt carry the model's own argmax as their label.
+# StableLM-2-1.6B (d_model 2048, d_ff 5632, 32 heads of 64, vocab 100 352, 24
+# layers) and RWKV-6 3B (d_model 2560, d_ff 8960, 40 heads of 64, vocab
+# 65 536, 32 layers) at their published widths, random weights from the
+# port's own init, run in float32 (a cut of dtype, not of width).  A network
+# with random weights scores about 0 % next-token accuracy on Markov tokens,
+# so every trial would tie; the eval tokens are therefore a short Markov
+# prompt continued greedily by the full-mask model itself, and the positions
+# after the prompt carry the model's own argmax as their label.
 
 
-def make_lm(seed: int, device="cuda", cfg=None, dtype="float32"):
-    import dataclasses
+@dataclasses.dataclass(frozen=True)
+class LMPath:
+    arch: str
+    tag: str            # prefix of the path's output lines
+    seq: int            # tokens per eval sequence (inputs: seq - 1)
+    pad: int            # greedy forwards pad their inputs to a multiple
+    fused: bool         # the config has the fused gate→matmul route
+    sited: tuple        # per-repeat sites of the ``<tag>_sited`` line
+    cpu_repeats: int    # depth of the card-vs-CPU check (0: every layer)
+    w_o_scale: float = 1.0   # factor on the init's RWKV time-mix w_o
+
+
+LM_PATHS = (
+    LMPath("stablelm_1p6b", "lm", 128, 1, True, ("s0.ffn@8", "s0.ffn@20"),
+           0),
+    # the RWKV time-mix scan needs S % min(32, S) == 0, as the reference
+    # does: 128 inputs, and greedy forwards padded to multiples of 32; the
+    # card-vs-CPU check runs the first 8 of 32 repeats (3.6 GB on the host).
+    # At the init's own scales the random 32-block RWKV-6 is chaotic in
+    # float32: its time-mix output is cubic in the block's input (r, k and v
+    # are each linear in it) and the per-head norm keeps the relative error,
+    # so rounding differences grow from block to block, and stacked and
+    # un-stacked forwards of the same masks differ by O(1) in the logits.
+    # So the time-mix w_o is drawn at 1/32 of the init's scale;
+    # ``rwkv_forward`` measures both (``rounding_growth``).
+    LMPath("rwkv6_3b", "rwkv", 129, 32, False, ("s0.rwkv@8", "s0.rwkv@24"),
+           8, w_o_scale=1 / 32),
+)
+
+
+def make_lm(seed: int, spec, device="cuda", cfg=None, dtype="float32"):
     from repro_torch.configs import get_config
     from repro_torch.models.lm import LM
-    cfg = dataclasses.replace(cfg or get_config(LM_ARCH), dtype=dtype)
+    cfg = dataclasses.replace(cfg or get_config(spec.arch), dtype=dtype)
     model = LM(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
-    return model, model.init(gen, device)
+    params = model.init(gen, device)
+    if spec.w_o_scale != 1.0:
+        for layer in params["stack"].values():
+            layer["tmix"]["w_o"].mul_(spec.w_o_scale)
+    return model, params
 
 
 def labelled_margins(logits, prompt: int):
@@ -719,41 +837,73 @@ def labelled_margins(logits, prompt: int):
     return top2[..., 0] - top2[..., 1]
 
 
-def make_lm_batch(model, params, seed: int, device="cuda"):
-    """``2 * LM_BATCH`` Markov prompts continued greedily to ``LM_SEQ``
+def last_logits(model, params, masks, toks, pad: int):
+    """Logits at the last position of ``toks``, from a forward over the
+    tokens padded with zeros to a multiple of ``pad``.  Exact: the models
+    are causal — attention is masked, the RWKV token shift and scan look
+    back only — so the logits at a position do not depend on the tokens
+    after it."""
+    n = toks.shape[1]
+    width = -(-n // pad) * pad
+    x = torch.cat([toks, toks.new_zeros((toks.shape[0], width - n))], dim=1)
+    return model.forward(params, masks, x, ties=False)[:, n - 1]
+
+
+def make_lm_batch(model, params, seed: int, spec, device="cuda"):
+    """``2 * LM_BATCH`` Markov prompts continued greedily to ``spec.seq``
     tokens by the full-mask model (one full forward per new token, no
     cache); the ``LM_BATCH`` sequences whose smallest top-2 logit margin at
     the labelled positions is largest form the eval batch, so that rounding
     differences between evaluation paths stay far below the margins."""
     from repro_torch.core import linearize, masks as M
     from repro_torch.data import MarkovTokens
-    n_seq, seq, prompt, pool = LM_BATCH, LM_SEQ, LM_PROMPT, 2 * LM_BATCH
+    n_seq, prompt, pool = LM_BATCH, LM_PROMPT, 2 * LM_BATCH
     full = M.as_device(linearize.init_masks(model.mask_sites()), device)
     start = MarkovTokens(model.cfg.vocab, seed=seed).batch(pool, prompt, 0)
     toks = torch.from_numpy(start["tokens"]).long().to(device)
     with torch.no_grad():
-        while toks.shape[1] < seq:
-            logits = model.forward(params, full, toks, ties=False)
-            toks = torch.cat([toks, logits[:, -1].argmax(-1, keepdim=True)],
-                             dim=1)
+        while toks.shape[1] < spec.seq:
+            nxt = last_logits(model, params, full, toks, spec.pad).argmax(-1)
+            toks = torch.cat([toks, nxt[:, None]], dim=1)
         logits = model.forward(params, full, toks[:, :-1], ties=False)
         margin = labelled_margins(logits, prompt).amin(-1)
         keep = margin.argsort(descending=True)[:n_seq]
         tokens = toks[keep]
         hit = logits[keep].argmax(-1) == tokens[:, 1:]
     return {"tokens": tokens.to(torch.int32).cpu().numpy()}, dict(
-        pool=pool, sequences=n_seq, tokens=seq, prompt=prompt,
+        model=model.cfg.name, pool=pool, sequences=n_seq, tokens=spec.seq,
+        prompt=prompt, pad_greedy_forwards_to=spec.pad,
         min_label_margin=float(margin[keep].min()),
         full_mask_accuracy=float(hit.float().mean() * 100.0),
         greedy_positions_reproduced=float(
             hit[:, prompt - 1:].float().mean()))
 
 
-def run_lm_forward(model, params, batch, seed: int, device="cuda"):
-    """Un-stacked unfused vs fused (kernel 3), stacked vs un-stacked and
-    stacked fused from the cached embedding (kernel 4), card vs CPU on
-    1 x ``LM_CPU_TOKENS`` tokens, and one bfloat16 forward fused vs
-    unfused."""
+def first_repeats(model, params, tree, n: int):
+    """The model cut to its first ``n`` stack repeats (0: as it is), with
+    the parameter rows and mask rows of those repeats (views on the
+    card)."""
+    from repro_torch.models.lm import LM
+    cfg = model.cfg
+    if not n or n >= cfg.n_repeats:
+        return model, params, tree
+    if cfg.head_blocks or cfg.tail:
+        raise ValueError("first_repeats: the config has head or tail blocks")
+    cut = LM(dataclasses.replace(cfg, n_layers=n * len(cfg.pattern)))
+
+    def rows(t):
+        return {k: rows(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t[:n]
+    sub = dict(params, stack=rows(params["stack"]))
+    reps = model.site_repeats()
+    return cut, sub, {k: v[:n] if k in reps else v for k, v in tree.items()}
+
+
+def run_lm_forward(model, params, batch, seed: int, spec, device="cuda"):
+    """Stacked vs un-stacked and stacked from the cached embedding (kernel
+    2, and kernel 4 where the config has the fused route), un-stacked
+    unfused vs fused (kernel 3) where it has, card vs CPU on 1 x
+    ``LM_CPU_TOKENS`` tokens, and one bfloat16 forward."""
     from repro_torch.convert import to_device
     from repro_torch.core import masks as M
     rng = np.random.default_rng(seed)
@@ -761,83 +911,133 @@ def run_lm_forward(model, params, batch, seed: int, device="cuda"):
     trees = [{k: (rng.random(s.shape) < 0.9).astype(np.float32)
               for k, s in sites.items()} for _ in range(2)]
     tokens = to_device(batch["tokens"], device)
-    x, labels = tokens[:, :-1], tokens[:, 1:]
+    x = tokens[:, :-1]
+    fused = spec.fused
     with torch.no_grad():
         dev = [M.as_device(t, device) for t in trees]
         plain = [model.forward(params, d, x, ties=False) for d in dev]
-        fused = [model.forward(params, d, x, fused=True, ties=False)
-                 for d in dev]
         stacked = M.as_device(M.stack_trees(trees), device)
         st_plain = model.forward(params, stacked, x, ties=False)
         pre = model.forward_pre(params, x)
-        st_fused = model.forward(params, stacked, None, pre=pre, fused=True,
-                                 ties=False)
-        diffs = {
-            "fused_vs_unfused": max(float((a - b).abs().max())
-                                    for a, b in zip(plain, fused)),
-            "stacked_vs_unstacked": max(float((st_plain[i] - plain[i])
-                                              .abs().max())
-                                        for i in range(2)),
-            "stacked_fused_pre_vs_unstacked": max(
-                float((st_fused[i] - plain[i]).abs().max())
-                for i in range(2)),
-        }
-        finite = all(bool(torch.isfinite(t).all())
-                     for t in plain + fused + [st_plain, st_fused])
+        st_pre = model.forward(params, stacked, None, pre=pre, fused=fused,
+                               ties=False)
+        diffs = {}
+        outs = plain + [st_plain, st_pre]
+        if fused:
+            fz = [model.forward(params, d, x, fused=True, ties=False)
+                  for d in dev]
+            diffs["fused_vs_unfused"] = max(float((a - b).abs().max())
+                                            for a, b in zip(plain, fz))
+            outs += fz
+        diffs["stacked_vs_unstacked"] = max(
+            float((st_plain[i] - plain[i]).abs().max()) for i in range(2))
+        diffs["stacked_fused_pre_vs_unstacked" if fused else
+              "stacked_pre_vs_unstacked"] = max(
+            float((st_pre[i] - plain[i]).abs().max()) for i in range(2))
+        finite = all(bool(torch.isfinite(t).all()) for t in outs)
         margin = float(labelled_margins(plain[0], LM_PROMPT).min())
         shapes = [list(plain[0].shape), list(st_plain.shape)]
-        del plain, fused, st_plain, st_fused, pre
-        # the same network on the CPU (plain versions)
+        ref_logits = plain[0]
+        del outs, plain, st_plain, st_pre, pre
+        # the same network (or its first spec.cpu_repeats repeats) on the
+        # CPU, through the plain versions
         small = x[:1, :LM_CPU_TOKENS]
-        cpu_params = to_device(params, "cpu")
-        want = model.forward(cpu_params, M.as_device(trees[0], "cpu"),
-                             small.cpu(), ties=False)
+        cut, cut_params, cut_tree = first_repeats(model, params, trees[0],
+                                                  spec.cpu_repeats)
+        cpu_params = to_device(cut_params, "cpu")
+        want = cut.forward(cpu_params, M.as_device(cut_tree, "cpu"),
+                           small.cpu(), ties=False)
         del cpu_params
-        got = model.forward(params, dev[0], small, fused=True, ties=False)
+        got = cut.forward(cut_params, M.as_device(cut_tree, device), small,
+                          fused=fused, ties=False)
         diffs["card_vs_cpu"] = float((got.cpu() - want).abs().max())
         finite = finite and bool(torch.isfinite(got).all())
-    if shapes != [[LM_BATCH, LM_SEQ - 1, model.cfg.vocab],
-                  [2, LM_BATCH, LM_SEQ - 1, model.cfg.vocab]]:
-        fail(f"lm_forward: logits shapes {shapes}")
+    seq = spec.seq - 1
+    if shapes != [[LM_BATCH, seq, model.cfg.vocab],
+                  [2, LM_BATCH, seq, model.cfg.vocab]]:
+        fail(f"{spec.tag}_forward: logits shapes {shapes}")
     if not finite:
-        fail("lm_forward: non-finite logits")
+        fail(f"{spec.tag}_forward: non-finite logits")
     for k, v in diffs.items():
         if not v <= LM_LOGIT_TOL:
-            fail(f"lm_forward: {k} = {v} exceeds {LM_LOGIT_TOL}")
+            fail(f"{spec.tag}_forward: {k} = {v} exceeds {LM_LOGIT_TOL}")
     out = dict(model=model.cfg.name, dtype="float32", batch=LM_BATCH,
-               tokens=LM_SEQ - 1, nonlinearities=model.relu_count(),
+               tokens=seq, nonlinearities=model.relu_count(),
                mask_density=0.9, logit_tol=LM_LOGIT_TOL,
                max_abs_diff=diffs, cpu_check=f"1 x {LM_CPU_TOKENS} tokens, "
-               f"{model.cfg.n_layers} layers",
+               f"{cut.cfg.n_layers} of {model.cfg.n_layers} layers",
                min_top2_margin_labelled=margin)
-    out["bfloat16"] = run_lm_bf16(model.cfg, trees[0], x, device)
+    out["bfloat16"] = run_lm_bf16(model.cfg, trees[0], x, spec, ref_logits,
+                                  device)
+    if spec.w_o_scale != 1.0:
+        out["w_o_scale"] = spec.w_o_scale
+        out["rounding_growth"] = rounding_growth(model, params, trees, x,
+                                                 spec, device)
     return out
 
 
-def run_lm_bf16(cfg, tree, x, device="cuda"):
-    """One forward at the config's own dtype, fused against unfused."""
+def rounding_growth(model, params, trees, x, spec, device="cuda"):
+    """Why the path scales the time-mix w_o: the largest logit difference
+    between a stacked and an un-stacked forward of the same masks, and
+    under 1e-7 relative noise on the embedding, at the path's scale and at
+    the init's own (w_o restored afterwards)."""
     from repro_torch.core import masks as M
-    model, params = make_lm(SEED, device, cfg=cfg, dtype="bfloat16")
+    w_os = [layer["tmix"]["w_o"] for layer in params["stack"].values()]
+    saved = [w.clone() for w in w_os]
+    g = torch.Generator(device=device).manual_seed(SEED)
+    out = {}
+    with torch.no_grad():
+        one = M.as_device(trees[0], device)
+        stacked = M.as_device(M.stack_trees(trees), device)
+        pre = model.forward_pre(params, x)
+        noisy = pre * (1 + 1e-7 * torch.randn(pre.shape, generator=g,
+                                              device=device))
+        for label, factor in (("path_scale", 1.0),
+                              ("init_scale", 1.0 / spec.w_o_scale)):
+            for w, w0 in zip(w_os, saved):
+                w.copy_(w0 * factor)
+            a = model.forward(params, one, None, pre=pre, ties=False)
+            st = model.forward(params, stacked, None, pre=pre, ties=False)
+            nz = model.forward(params, one, None, pre=noisy, ties=False)
+            out[label] = {
+                "stacked_vs_unstacked": float((st[0] - a).abs().max()),
+                "embedding_noise_1e-7": float((nz - a).abs().max())}
+            del a, st, nz
+        for w, w0 in zip(w_os, saved):
+            w.copy_(w0)
+    return out
+
+
+def run_lm_bf16(cfg, tree, x, spec, f32_logits, device="cuda"):
+    """One forward at the config's own dtype (the same random draws,
+    rounded): fused against unfused where the config has the fused route,
+    otherwise against the float32 forward's logits."""
+    from repro_torch.core import masks as M
+    model, params = make_lm(SEED, spec, device, cfg=cfg, dtype="bfloat16")
     with torch.no_grad():
         d = M.as_device(tree, device)
         plain = model.forward(params, d, x, ties=False)
-        fused = model.forward(params, d, x, fused=True, ties=False)
-        agree = float((plain.argmax(-1) == fused.argmax(-1)).float().mean())
-        diff = float((plain.float() - fused.float()).abs().max())
-        ok = bool(torch.isfinite(plain).all() and torch.isfinite(fused).all())
-    del params, plain, fused
+        other = model.forward(params, d, x, fused=True, ties=False) \
+            if spec.fused else f32_logits
+        agree = float((plain.argmax(-1) == other.argmax(-1)).float().mean())
+        diff = float((plain.float() - other.float()).abs().max())
+        ok = bool(torch.isfinite(plain).all() and torch.isfinite(other).all())
+    del params, plain, other
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     if not ok:
-        fail("lm_forward bfloat16: non-finite logits")
-    return dict(top1_agreement=agree, max_abs_logit_diff=diff)
+        fail(f"{spec.tag}_forward bfloat16: non-finite logits")
+    return dict(compared="fused vs unfused" if spec.fused else
+                "bfloat16 vs float32", top1_agreement=agree,
+                max_abs_logit_diff=diff)
 
 
-def run_lm_bcd(model, params, batch, steps: int, drc: int, device="cuda"):
+def run_lm_bcd(model, params, batch, steps: int, drc: int, spec,
+               device="cuda"):
     """``bcd.run_bcd`` on the LM through the four engines: identical
     selections, and at least one step whose trials did not all tie."""
     from repro_torch.core import bcd, linearize, masks as M
-    from repro_torch.kernels import masked_act as K
+    from repro_torch.kernels import build
     from repro_torch.launch.sweep import make_bcd_evaluator
     masks0 = linearize.init_masks(model.mask_sites())
     total = model.relu_count()
@@ -847,7 +1047,7 @@ def run_lm_bcd(model, params, batch, steps: int, drc: int, device="cuda"):
         holder = {"params": params}
         evaluator, eval_acc, _ = make_bcd_evaluator(
             backend, model, batch, holder, chunk_size=LM_CHUNK, rt=rt,
-            prefetch=2, fused_kernels=True, device=device)
+            prefetch=2, fused_kernels=spec.fused, device=device)
         if backend == "batched":
             # record every trial accuracy (rt per step, in order)
             inner = evaluator.evaluate_staged
@@ -860,19 +1060,20 @@ def run_lm_bcd(model, params, batch, steps: int, drc: int, device="cuda"):
         cfg = bcd.BCDConfig(b_target=total - drc * steps, drc=drc, rt=rt,
                             adt=-100.0, finetune_every_step=False, seed=0,
                             chunk_size=LM_CHUNK, moves=("remove",))
-        before = dict(K.launch_counts)
+        before = dict(build.launch_counts)
         sync(device)
         t0 = time.perf_counter()
         res = bcd.run_bcd(masks0, cfg, eval_acc, evaluator=evaluator)
         sync(device)
         wall = time.perf_counter() - t0
-        launches = {k: K.launch_counts[k] - before[k]
-                    for k in K.launch_counts}
+        launches = {k: build.launch_counts[k] - before[k]
+                    for k in build.launch_counts}
         if M.relu_cost(res.masks) != total - drc * steps:
-            fail(f"lm_bcd {backend}: budget {M.relu_cost(res.masks)}")
+            fail(f"{spec.tag}_bcd {backend}: budget "
+                 f"{M.relu_cost(res.masks)}")
         accs = [h.acc_before for h in res.history]
         if not all(np.isfinite(a) and 0.0 <= a <= 100.0 for a in accs):
-            fail(f"lm_bcd {backend}: accuracies {accs}")
+            fail(f"{spec.tag}_bcd {backend}: accuracies {accs}")
         trials = sum(h.trials for h in res.history)
         prints[backend] = M.fingerprint(res.masks)
         run = dict(backend=backend, steps=len(res.history), trials=trials,
@@ -888,30 +1089,35 @@ def run_lm_bcd(model, params, batch, steps: int, drc: int, device="cuda"):
                                misses=trie.misses)
         runs.append(run)
     if len(set(prints.values())) != 1:
-        fail(f"lm_bcd: engines selected different blocks: {prints}")
+        fail(f"{spec.tag}_bcd: engines selected different blocks: {prints}")
     distinct = [len(set(step_accs[i:i + rt]))
                 for i in range(0, len(step_accs), rt)]
     if not distinct or max(distinct) < 2:
-        fail(f"lm_bcd: every step's trials tied ({distinct} distinct "
-             "accuracies per step): the parity would be vacuous")
+        fail(f"{spec.tag}_bcd: every step's trials tied ({distinct} "
+             "distinct accuracies per step): the parity would be vacuous")
     return dict(model=model.cfg.name, dtype="float32", batch=LM_BATCH,
-                tokens=LM_SEQ - 1, drc=drc, rt=rt, chunk_size=LM_CHUNK,
+                tokens=spec.seq - 1, drc=drc, rt=rt, chunk_size=LM_CHUNK,
                 adt=-100.0, moves=["remove"], steps=steps,
                 distinct_trial_accs_per_step=distinct, runs=runs)
 
 
-def run_lm_sited(model, params, batch, sites, drc: int, device="cuda"):
+def run_lm_sited(model, params, batch, drc: int, spec, device="cuda"):
     """Site-local candidates at mid-scan per-repeat sites through the
-    batched engine and the suffix engine, unfused and fused: equal
-    accuracies, prefix reuse in the trie, and the rates."""
+    batched engine and the suffix engine, unfused and (where the config has
+    the fused route) fused: equal accuracies, prefix reuse in the trie,
+    and the rates."""
     from repro_torch.core import engine as E, linearize, masks as M
-    from repro_torch.kernels import masked_act as K
+    from repro_torch.kernels import build
     from repro_torch.launch.sweep import make_bcd_evaluator
     masks0 = linearize.init_masks(model.mask_sites())
     fractions = model.site_prefix_fractions()
     rng = np.random.default_rng(0)
     n_cand, reps, out = 16, 2, []
-    for site in sites:
+    engines = [("batched", "batched", False),
+               ("suffix_unfused", "suffix", False)]
+    if spec.fused:
+        engines.append(("suffix_fused", "suffix", True))
+    for site in spec.sited:
         idx = M.sample_removal_indices_within(
             rng, masks0, drc, n_cand, [site],
             repeat_sites=model.site_repeats())
@@ -919,9 +1125,7 @@ def run_lm_sited(model, params, batch, sites, drc: int, device="cuda"):
                   for i in range(0, n_cand, LM_CHUNK)]
         accs, row = {}, dict(site=site, prefix_fraction=fractions[site],
                              candidates=n_cand, chunk_size=LM_CHUNK, drc=drc)
-        for label, backend, fused in (("batched", "batched", False),
-                                      ("suffix_unfused", "suffix", False),
-                                      ("suffix_fused", "suffix", True)):
+        for label, backend, fused in engines:
             ev, _, _ = make_bcd_evaluator(
                 backend, model, batch, {"params": params},
                 chunk_size=LM_CHUNK, rt=n_cand, prefetch=0,
@@ -930,10 +1134,10 @@ def run_lm_sited(model, params, batch, sites, drc: int, device="cuda"):
             if backend == "suffix":
                 ev.begin_step(masks0)
                 items = [E.SitedChunk(site, c) for c in chunks]
-            before = dict(K.launch_counts)
+            before = dict(build.launch_counts)
             accs[label] = np.concatenate([ev.evaluate(it) for it in items])
-            launches = {k: K.launch_counts[k] - before[k]
-                        for k in K.launch_counts}
+            launches = {k: build.launch_counts[k] - before[k]
+                        for k in build.launch_counts}
             sync(device)
             t0 = time.perf_counter()
             for _ in range(reps):
@@ -950,24 +1154,45 @@ def run_lm_sited(model, params, batch, sites, drc: int, device="cuda"):
                                           extensions=t.extensions,
                                           misses=t.misses)
                 if t.misses + t.extensions == 0:
-                    fail(f"lm_sited {site} {label}: no prefix was "
+                    fail(f"{spec.tag}_sited {site} {label}: no prefix was "
                          f"computed (trie {row[label]['trie']})")
             if fused and device == "cuda" and \
                     launches["masked_act_matmul_2d_batched"] == 0:
-                fail(f"lm_sited {site}: the fused suffix did not launch "
-                     "masked_act_matmul_2d_batched")
+                fail(f"{spec.tag}_sited {site}: the fused suffix did not "
+                     "launch masked_act_matmul_2d_batched")
         for label, a in accs.items():
             if not np.array_equal(a, accs["batched"]):
-                fail(f"lm_sited {site}: {label} accuracies {a} differ from "
-                     f"batched {accs['batched']}")
+                fail(f"{spec.tag}_sited {site}: {label} accuracies {a} "
+                     f"differ from batched {accs['batched']}")
         row["accs"] = [float(a) for a in accs["batched"]]
         row["suffix_vs_batched"] = {
             lab: row[lab]["candidates_per_s"] /
             row["batched"]["candidates_per_s"]
-            for lab in ("suffix_unfused", "suffix_fused")}
+            for lab, _, _ in engines[1:]}
         out.append(row)
     return dict(model=model.cfg.name, dtype="float32", batch=LM_BATCH,
-                tokens=LM_SEQ - 1, timed_passes=reps, rows=out)
+                tokens=spec.seq - 1, timed_passes=reps, rows=out)
+
+
+def run_lm_path(spec, by_path, device="cuda"):
+    """One LM path: the eval tokens are built first (set-up), then the
+    launch counts are set to 0 just before the path and read just after."""
+    from repro_torch.kernels import build
+    model, params = make_lm(SEED, spec, device)
+    batch, batch_info = make_lm_batch(model, params, SEED, spec, device)
+    emit({f"{spec.tag}_batch": batch_info})
+    build.reset_launch_counts()
+    forward = run_lm_forward(model, params, batch, SEED, spec, device)
+    bcd_report = run_lm_bcd(model, params, batch, LM_STEPS, LM_DRC, spec,
+                            device)
+    sited = run_lm_sited(model, params, batch, LM_SITED_DRC, spec, device)
+    by_path[spec.arch] = dict(build.launch_counts)
+    emit({f"{spec.tag}_forward": forward})
+    emit({f"{spec.tag}_bcd": bcd_report})
+    emit({f"{spec.tag}_sited": sited})
+    del model, params
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def sync(device) -> None:
@@ -986,7 +1211,7 @@ def main() -> None:
         fail("no CUDA device: torch.cuda.is_available() is False")
 
     import repro_torch
-    from repro_torch.kernels import build, masked_act as K
+    from repro_torch.kernels import build
     repro_torch.use_full_float32()
 
     smi = subprocess.run(
@@ -1015,30 +1240,20 @@ def main() -> None:
 
     # ---- path 1, ResNet18: counts set to 0 just before, read just after
     model, params, batch = make_model_and_batch(SEED)
-    K.reset_launch_counts()
+    build.reset_launch_counts()
     forward = run_forward(model, params, batch, SEED)
     bcd_report = run_bcd_phase(model, params, batch, BCD_STEPS)
     sited = run_sited_phase(model, params, batch)
-    by_path = {"resnet18": dict(K.launch_counts)}
+    by_path = {"resnet18": dict(build.launch_counts)}
     emit({"forward": forward})
     emit({"bcd": bcd_report})
     emit({"sited": sited})
     del model, params, batch
     torch.cuda.empty_cache()
 
-    # ---- path 2, StableLM-2-1.6B: the eval tokens are built first (set-up),
-    # then the counts are set to 0 just before the path and read just after
-    lm, lm_params = make_lm(SEED)
-    lm_batch, batch_info = make_lm_batch(lm, lm_params, SEED)
-    emit({"lm_batch": batch_info})
-    K.reset_launch_counts()
-    lm_forward = run_lm_forward(lm, lm_params, lm_batch, SEED)
-    lm_bcd = run_lm_bcd(lm, lm_params, lm_batch, LM_STEPS, LM_DRC)
-    lm_sited = run_lm_sited(lm, lm_params, lm_batch, LM_SITED, LM_SITED_DRC)
-    by_path[LM_ARCH] = dict(K.launch_counts)
-    emit({"lm_forward": lm_forward})
-    emit({"lm_bcd": lm_bcd})
-    emit({"lm_sited": lm_sited})
+    # ---- paths 2 and 3, StableLM-2-1.6B and RWKV-6 3B
+    for spec in LM_PATHS:
+        run_lm_path(spec, by_path)
 
     for path, names in PATH_KERNELS.items():
         missing = [k for k in names if by_path[path][k] == 0]
@@ -1046,10 +1261,10 @@ def main() -> None:
             fail(f"the {path} path launched these kernels no time: "
                  f"{missing}")
     launches = {k: sum(p[k] for p in by_path.values())
-                for k in K.launch_counts}
+                for k in build.launch_counts}
 
     kernels = []
-    for name in K.launch_counts:
+    for name in build.launch_counts:
         mine = [c for c in cases if c["name"] == name]
         prim = next(c for c in mine if c["primary"])
         kernels.append({
@@ -1058,8 +1273,10 @@ def main() -> None:
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": max(c["max_abs_err"] for c in mine
                                if c["dtype"] == "float32"),
-            "max_abs_err_bf16": max(c["max_abs_err"] for c in mine
-                                    if c["dtype"] == "bfloat16"),
+            # null for the float32-only scan
+            "max_abs_err_bf16": max((c["max_abs_err"] for c in mine
+                                     if c["dtype"] == "bfloat16"),
+                                    default=None),
             "ms": prim["ms"], "plain_ms": prim["plain_ms"],
             "bound_ms": prim["bound_ms"], "bound_by": prim["bound_by"],
             "library_ms": prim["library_ms"],

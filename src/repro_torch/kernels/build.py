@@ -1,5 +1,6 @@
-"""Builds the CUDA sources under ``csrc/`` into one shared library and loads
-it with ``ctypes``.
+"""Builds the CUDA sources under ``csrc/`` into one shared library, loads
+it with ``ctypes``, and keeps the one registry of kernel launches
+(:data:`launch_counts`) that every wrapper adds to.
 
 The library is built at first use, from the sources in this package and
 nothing else, with::
@@ -31,6 +32,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+
+# kernel launches per wrapper since the last reset_launch_counts(); each
+# wrapper adds one where it launches its kernel, and nowhere else
+launch_counts = {
+    "masked_act_2d": 0,
+    "masked_act_2d_batched": 0,
+    "masked_act_conv3x3": 0,
+    "masked_act_conv3x3_batched": 0,
+    "masked_act_matmul_2d": 0,
+    "masked_act_matmul_2d_batched": 0,
+    "rwkv6_scan": 0,
+}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
 
 
 class KernelBuildError(RuntimeError):
@@ -133,6 +151,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.masked_act_matmul_launch.restype = i
     lib.masked_act_matmul_launch.argtypes = [
         vp, vp, vp, vp, vp, i, ll, i, i, ll, ll, ll, i, i, vp]
+    lib.rwkv6_scan_launch.restype = i
+    lib.rwkv6_scan_launch.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, ll, vp]
     lib.masked_act_error_string.restype = ctypes.c_char_p
     lib.masked_act_error_string.argtypes = [i]
 

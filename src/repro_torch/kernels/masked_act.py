@@ -4,7 +4,8 @@
 Counterpart of ``repro/kernels/masked_act.py``.  Each wrapper checks device,
 type, shape and contiguity, allocates its output with ``torch.empty``,
 launches on PyTorch's current stream, raises if the launch was refused, and
-adds one to its entry in :data:`launch_counts` — there and nowhere else.
+adds one to its entry in :data:`build.launch_counts` — there and nowhere
+else.
 The wrappers take CUDA tensors only; CPU tensors are served by
 ``kernels.ops`` through the plain versions in ``kernels.ref``.
 
@@ -26,21 +27,6 @@ from .ref import same_pads
 
 KIND_CODES = {"relu": 0, "gelu": 1, "silu": 2, "sqrelu": 3}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-# kernel launches per wrapper since the last reset_launch_counts()
-launch_counts = {
-    "masked_act_2d": 0,
-    "masked_act_2d_batched": 0,
-    "masked_act_conv3x3": 0,
-    "masked_act_conv3x3_batched": 0,
-    "masked_act_matmul_2d": 0,
-    "masked_act_matmul_2d_batched": 0,
-}
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
 
 
 def _same_pads(size: int, stride: int):
@@ -91,7 +77,7 @@ def _launch_gate(name, x, mask2, poly, out, n, rows, cols, x_cand_stride,
             n, rows, cols, x_cand_stride, KIND_CODES[kind], dtype,
             _stream(x))
     build.check(lib, code, name)
-    launch_counts[name] += 1
+    build.launch_counts[name] += 1
     return out
 
 
@@ -176,7 +162,7 @@ def _launch_conv(name, x, mask, w, n, b, h, wd, cin, x_cand_stride,
             x_cand_stride, mask_cand_stride, KIND_CODES[kind], dtype,
             _stream(x))
     build.check(lib, code, name)
-    launch_counts[name] += 1
+    build.launch_counts[name] += 1
     return out
 
 
@@ -256,7 +242,7 @@ def _launch_matmul(name, x, mask, w, mul, n, rows, k, x_stride, mul_stride,
             out.data_ptr(), n, rows, k, w.shape[1], x_stride, mul_stride,
             mask_stride, KIND_CODES[kind], _DTYPE_CODES[x.dtype], _stream(x))
     build.check(lib, code, name)
-    launch_counts[name] += 1
+    build.launch_counts[name] += 1
     return out
 
 

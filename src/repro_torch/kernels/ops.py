@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from . import ref
 from . import masked_act as K
+from . import rwkv6_scan as RS
 
 MASKED_ACT_FUSED_KINDS = ("relu", "gelu", "silu", "sqrelu")
 
@@ -159,3 +160,16 @@ def masked_act_matmul_batched(x, masks, w, mul=None, *, kind: str = "relu"):
         _rows_view(x, n, k), masks, w,
         None if mul is None else _rows_view(mul, n, k), kind=kind)
     return out.view(tuple(x.shape[:-1]) + (w.shape[-1],))
+
+
+def rwkv6(r, k, v, w, u, state, *, chunk: int = 32):
+    """The RWKV-6 linear-attention scan over (BH, T, K/V), float32.
+
+    r, k, w: (BH, T, K); v: (BH, T, V); u: (BH, K), or the (H, K) per-head
+    table when BH folds B·H heads; state: (BH, K, V).  Returns y
+    (BH, T, V) and the new state.  T must be a multiple of ``chunk``, as
+    in the reference.  A CPU tensor takes the chunked plain version, a
+    CUDA tensor the hand-written kernel (``csrc/rwkv6_scan.cu``)."""
+    if not r.is_cuda:
+        return ref.rwkv6_scan_ref(r, k, v, w, u, state, chunk=chunk)
+    return RS.rwkv6_scan(r, k, v, w, u, state, chunk=chunk)

@@ -101,6 +101,91 @@ def conv_same_nhwc(x, w, stride: int = 1):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def linattn_chunked_ref(r, k, v, w, u, s0, *, chunk: int,
+                        decay_first: bool = False):
+    """Chunked decayed linear attention over any leading axes: the
+    arithmetic of the TPU scan kernel (``rwkv6_scan.py:42-62``) and of the
+    reference's ``ssm.linattn_chunked``.
+
+    decay_first=False (RWKV):  y_t = r_t·S_{t-1} + (r_t·(u⊙k_t))·v_t,
+                               S_t = diag(w_t)·S_{t-1} + k_tᵀv_t
+    decay_first=True (SSD):    S_t as above, y_t = r_t·S_t (u unused)
+
+    r, k, w: (..., T, K); v: (..., T, V); u: broadcastable against
+    (..., K), or None; s0: (..., K, V).  Within a chunk, with the inclusive
+    decay product P_t, y = tril(R'K'ᵀ + diag(bonus))·V + R'·S₀ with
+    R' = r⊙P/w (r⊙P for SSD), K' = k/P; the state is carried from chunk to
+    chunk in float32.  Returns y (..., T, V) in r's dtype and the final
+    state.  T must be a multiple of ``chunk``.
+    """
+    T = r.shape[-2]
+    if chunk < 1 or T % chunk:
+        raise ValueError(f"sequence length {T} is not a multiple of the "
+                         f"scan chunk {chunk}")
+    n, dev = T // chunk, r.device
+    ti = torch.arange(chunk, device=dev)[:, None]
+    si = torch.arange(chunk, device=dev)[None, :]
+    tri = (si <= ti) if decay_first else (si < ti)
+    eye = torch.eye(chunk, dtype=torch.float32, device=dev)
+    S = s0.to(torch.float32)
+    ys = []
+    for j in range(n):
+        sl = slice(j * chunk, (j + 1) * chunk)
+        rj, kj, vj, wj = (t[..., sl, :] for t in (r, k, v, w))
+        p_incl = torch.cumprod(wj, dim=-2)
+        r_p = rj * (p_incl if decay_first else p_incl / wj)
+        k_p = kj / p_incl
+        scores = torch.where(tri, r_p @ k_p.transpose(-1, -2), 0.0)
+        if u is not None and not decay_first:
+            bonus = (rj * u[..., None, :] * kj).sum(-1)
+            scores = scores + bonus[..., None] * eye
+        ys.append(scores @ vj + r_p @ S)
+        p_end = p_incl[..., -1, :]
+        k_end = kj * (p_end[..., None, :] / p_incl)
+        S = p_end[..., None] * S + k_end.transpose(-1, -2) @ vj
+    return torch.cat(ys, dim=-2).to(r.dtype), S
+
+
+def _rwkv6_u_rows(u, bh: int):
+    """u as one row per (batch·head) row: ``(BH, K)`` as it is, or an
+    ``(H, K)`` per-head table with BH a multiple of H (row bh reads
+    ``u[bh % H]``, the fold of B·H heads)."""
+    if u.dim() != 2 or u.shape[0] < 1 or bh % u.shape[0]:
+        raise ValueError(f"u must be ({bh}, K) or (H, K) with H dividing "
+                         f"{bh}, got {tuple(u.shape)}")
+    return u.repeat(bh // u.shape[0], 1) if u.shape[0] != bh else u
+
+
+def rwkv6_scan_ref(r, k, v, w, u, state, *, chunk: int = 32):
+    """The plain version of the RWKV-6 scan kernel: the TPU kernel's
+    chunked arithmetic, vectorised over BH.
+
+    r, k, w: (BH, T, K); v: (BH, T, V); u: (BH, K) or an (H, K) table
+    (:func:`_rwkv6_u_rows`); state: (BH, K, V).  Returns y (BH, T, V) and
+    the new state (BH, K, V), float32.  T must be a multiple of ``chunk``.
+    """
+    return linattn_chunked_ref(r, k, v, w, _rwkv6_u_rows(u, r.shape[0]),
+                               state, chunk=chunk)
+
+
+def rwkv6_serial_ref(r, k, v, w, u, state):
+    """The token-serial RWKV-6 recurrence (the reference's oracles
+    ``ops._rwkv6_scan_jnp`` and ``ref.rwkv6_chunk_ref``), in the inputs'
+    own dtype: ``chip_smoke.py`` runs it in float64 as the yardstick of
+    both the kernel and the chunked plain version.  Shapes as
+    :func:`rwkv6_scan_ref`."""
+    u = _rwkv6_u_rows(u, r.shape[0])
+    S = state.clone()
+    ys = []
+    for t in range(r.shape[1]):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]
+        y = (rt[:, None, :] @ S)[:, 0] + \
+            (rt * (u * kt)).sum(-1, keepdim=True) * vt
+        S = wt[..., None] * S + kt[..., None] * vt[:, None, :]
+        ys.append(y)
+    return torch.stack(ys, dim=1), S
+
+
 def masked_act_conv3x3_ref(x, mask, w, *, stride: int = 1,
                            kind: str = "relu"):
     """The unfused pair: full-site gate, then the SAME 3x3 convolution.

@@ -1,0 +1,85 @@
+"""Wrapper of the hand-written RWKV-6 scan kernel (``csrc/rwkv6_scan.cu``).
+
+Counterpart of ``repro/kernels/rwkv6_scan.py``.  The wrapper checks device,
+type and shapes, allocates its outputs with ``torch.empty``, launches on
+PyTorch's current stream, raises if the launch was refused, and adds one to
+``build.launch_counts["rwkv6_scan"]`` — there and nowhere else.  It takes
+CUDA tensors only; CPU tensors are served by ``kernels.ops.rwkv6`` through
+the plain version ``kernels.ref.rwkv6_scan_ref``.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+# K and V at most: one thread per value column, its S[:, v] in registers
+MAX_WIDTH = 64
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, state: torch.Tensor, *,
+               chunk: int = 32):
+    """The RWKV-6 recurrence over (BH, T, ·) CUDA tensors, float32 only.
+
+    r, k, w: (BH, T, K); v: (BH, T, V); u: (BH, K) — its rows may be a
+    stride-0 expand — or an (H, K) per-head table with H dividing BH (row
+    bh reads ``u[bh % H]``); state: (BH, K, V), whose rows may be a stride-0
+    expand of one shared state.  K and V at most 64.  ``chunk`` is the
+    reference's: T must be a multiple of it, though the kernel itself runs
+    token by token.  Returns y (BH, T, V) and the new state (BH, K, V).
+    """
+    name = "rwkv6_scan"
+    for what, t in dict(r=r, k=k, v=v, w=w, u=u, state=state).items():
+        if not t.is_cuda:
+            raise ValueError(f"{name}: {what} must be a CUDA tensor (CPU "
+                             "tensors go through kernels.ops, which uses "
+                             "the plain version)")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {what} must be float32, got {t.dtype}")
+        if t.device != r.device:
+            raise ValueError(f"{name}: {what} lies on {t.device}, r on "
+                             f"{r.device}")
+    if r.dim() != 3:
+        raise ValueError(f"{name}: r must be (BH, T, K), got "
+                         f"{tuple(r.shape)}")
+    bh, T, K = r.shape
+    V = v.shape[-1]
+    if k.shape != r.shape or w.shape != r.shape or \
+            v.shape != (bh, T, V) or state.shape != (bh, K, V):
+        raise ValueError(
+            f"{name}: shapes r {tuple(r.shape)} k {tuple(k.shape)} "
+            f"v {tuple(v.shape)} w {tuple(w.shape)} state "
+            f"{tuple(state.shape)} do not fit (BH, T, K), (BH, T, V), "
+            "(BH, K, V)")
+    if u.dim() != 2 or u.shape[1] != K or u.shape[0] < 1 or \
+            bh % u.shape[0]:
+        raise ValueError(f"{name}: u must be ({bh}, {K}) or (H, {K}) with "
+                         f"H dividing {bh}, got {tuple(u.shape)}")
+    if chunk < 1 or T % chunk:
+        raise ValueError(f"{name}: T = {T} is not a multiple of chunk = "
+                         f"{chunk}")
+    if not (1 <= K <= MAX_WIDTH and 1 <= V <= MAX_WIDTH):
+        raise ValueError(f"{name}: K = {K} and V = {V} must lie in "
+                         f"[1, {MAX_WIDTH}]")
+    # a stride-0 expand of one row is handed over as that one row
+    if bh > 1 and u.stride(0) == 0:
+        u = u[:1]
+    u = u.contiguous()
+    shared_state = bh > 1 and state.stride(0) == 0
+    s0 = (state[:1] if shared_state else state).contiguous()
+    r, k, v, w = (t.contiguous() for t in (r, k, v, w))
+    y = torch.empty((bh, T, V), dtype=torch.float32, device=r.device)
+    s_out = torch.empty((bh, K, V), dtype=torch.float32, device=r.device)
+    if bh == 0:
+        return y, s_out
+    lib = build.load()
+    with torch.cuda.device(r.device):
+        code = lib.rwkv6_scan_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), s0.data_ptr(), y.data_ptr(), s_out.data_ptr(),
+            bh, T, K, V, u.shape[0], 0 if shared_state else K * V,
+            torch.cuda.current_stream(r.device).cuda_stream)
+    build.check(lib, code, name)
+    build.launch_counts[name] += 1
+    return y, s_out

@@ -1,4 +1,4 @@
-"""Unified LM backbone, dense blocks (eval path).
+"""Unified LM backbone, dense and RWKV-6 blocks (eval path).
 
 Counterpart of ``repro/models/lm.py``.  A model is ``head_blocks`` + a stack
 of ``n_repeats`` copies of ``cfg.pattern`` + a ``tail`` (the pattern
@@ -8,18 +8,23 @@ tree (``repro_torch.convert.params_from_reference``) maps one to one.  The
 reference's ``lax.scan`` over repeats is a Python loop here; its
 compilation fences have no counterpart in eager PyTorch.
 
-Every FFN's elementwise nonlinearity is a mask site: ``h<i>.ffn`` and
-``t<i>.ffn`` of shape ``(d_ff,)``, ``s<pos>.ffn`` of shape ``(R, d_ff)``.
+Every block has one mask site, its elementwise nonlinearity: a dense
+block's FFN activation (suffix ``ffn``), an RWKV-6 block's channel-mix
+``sqrelu`` (suffix ``rwkv``) — ``h<i>.<suf>`` and ``t<i>.<suf>`` of shape
+``(d_ff,)``, ``s<pos>.<suf>`` of shape ``(R, d_ff)``.
 
 **The candidate axis is explicit.**  A mask tree is one candidate (leaves
 of the site shapes) or N stacked ones (leaves ``(N, ...)``).  The activation
 stays ``(B, S, D)`` while the candidates share it and becomes
 ``(N, B, S, D)`` at the first stacked gate: attention and the gate and up
 projections of the first layer after a cached prefix run once, not N times,
-and attention folds ``N·B`` into its batch after that.
+and attention and the RWKV time-mix scan fold ``N·B`` into their batch after
+that.  RWKV blocks stay on the gate route under ``fused=``, as the
+reference routes them.
 
-Block kinds ``moe``, ``mamba``, ``rwkv`` and ``attn_only`` and the KV cache
-are not ported yet (``ROADMAP.md`` Queue A9 and A10) and raise.
+Block kinds ``moe``, ``mamba`` and ``attn_only`` and the KV cache and
+recurrent decode state are not ported yet (``ROADMAP.md`` Queue A9 and A10)
+and raise.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ import repro_torch
 from repro_torch.configs.base import ArchConfig, Block
 from repro_torch.convert import to_device
 from repro_torch.core import linearize, masks as M
-from . import layers
+from . import layers, ssm
 
 
 def _attn_cfg(cfg: ArchConfig, blk: Block) -> layers.AttnCfg:
@@ -42,13 +47,20 @@ def _attn_cfg(cfg: ArchConfig, blk: Block) -> layers.AttnCfg:
         rope_theta=blk.rope_theta)
 
 
+def _rwkv_cfg(cfg: ArchConfig) -> ssm.RWKVCfg:
+    return ssm.RWKVCfg(d_model=cfg.d_model, d_ff=cfg.d_ff,
+                       head_dim=cfg.rwkv_head_dim)
+
+
 def _sites_for(cfg: ArchConfig, blk: Block) -> Dict[str, linearize.MaskSite]:
+    rep = cfg.act_when_masked
     if blk.kind == "dense":
-        return {"ffn": linearize.MaskSite((cfg.d_ff,), cfg.act,
-                                          cfg.act_when_masked)}
+        return {"ffn": linearize.MaskSite((cfg.d_ff,), cfg.act, rep)}
+    if blk.kind == "rwkv":
+        return {"rwkv": linearize.MaskSite((cfg.d_ff,), "sqrelu", rep)}
     raise NotImplementedError(
         f"block kind {blk.kind!r} is not ported yet: the port's LM runs "
-        "dense blocks; moe, mamba, rwkv and attn_only blocks come with "
+        "dense and rwkv blocks; moe, mamba and attn_only blocks come with "
         "ROADMAP.md Queue A9")
 
 
@@ -62,7 +74,7 @@ def token_accuracy(logits, labels):
 
 
 class LM:
-    """Dense-block LM: plain functions over a parameter tree.
+    """Dense- and RWKV-block LM: plain functions over a parameter tree.
 
     Building one turns TF32 off process-wide
     (:func:`repro_torch.use_full_float32`): the fused kernels accumulate in
@@ -82,6 +94,10 @@ class LM:
     def _layer_init(self, gen, blk: Block, device):
         cfg, dt = self.cfg, self.dtype
         d = cfg.d_model
+        if blk.kind == "rwkv":
+            return {"ln1": layers.rmsnorm_init(d, device),
+                    "ln2": layers.rmsnorm_init(d, device),
+                    "tmix": ssm.rwkv_init(gen, _rwkv_cfg(cfg), dt, device)}
         return {"ln1": layers.rmsnorm_init(d, device),
                 "attn": layers.attn_init(gen, _attn_cfg(cfg, blk), dt,
                                          device),
@@ -142,12 +158,14 @@ class LM:
 
     # ------------------------------------------------------------ blocks
 
-    def _layer_apply(self, blk: Block, p, x, masks, name, opt, positions,
+    def _layer_apply(self, blk: Block, p, x, masks, prefix, opt, positions,
                      repeat=None):
-        """One dense block.  ``name``: the block's mask site; ``repeat``:
+        """One block.  ``prefix``: its place (``"h0"``, ``"s0"``, ``"t1"``),
+        which with the block's site suffix names its mask site; ``repeat``:
         the stack row its (R, ·) mask and poly arrays are read at."""
         poly, soft, fused, ties = opt
-        site = _sites_for(self.cfg, blk)["ffn"]
+        (suf, site), = _sites_for(self.cfg, blk).items()
+        name = f"{prefix}.{suf}"
         m = masks[name]
         ply = poly.get(name)
         if repeat is not None:
@@ -156,6 +174,12 @@ class LM:
             if ply is not None:                 # (3, R, F)
                 ply = ply[:, repeat]
         h = layers.rmsnorm(p["ln1"], x)
+        if blk.kind == "rwkv":
+            rc = _rwkv_cfg(self.cfg)
+            x = x + ssm.rwkv_time_mix(p["tmix"], rc, h)
+            h = layers.rmsnorm(p["ln2"], x)
+            return x + ssm.rwkv_channel_mix(p["tmix"], rc, h, m, site,
+                                            poly=ply, soft=soft, ties=ties)
         x = x + layers.attention(p["attn"], _attn_cfg(self.cfg, blk), h,
                                  positions)
         h = layers.rmsnorm(p["ln2"], x)
@@ -181,17 +205,17 @@ class LM:
             if seg <= H:
                 i = seg - 1
                 x = self._layer_apply(cfg.head_blocks[i], params["head"][i],
-                                      x, masks, f"h{i}.ffn", opt, positions)
+                                      x, masks, f"h{i}", opt, positions)
             elif seg <= H + R:
                 r = seg - 1 - H
                 for pos, blk in enumerate(cfg.pattern):
                     lp = _index(params["stack"][str(pos)], r)
-                    x = self._layer_apply(blk, lp, x, masks, f"s{pos}.ffn",
-                                          opt, positions, repeat=r)
+                    x = self._layer_apply(blk, lp, x, masks, f"s{pos}", opt,
+                                          positions, repeat=r)
             else:
                 i = seg - 1 - H - R
                 x = self._layer_apply(cfg.tail[i], params["tail"][i], x,
-                                      masks, f"t{i}.ffn", opt, positions)
+                                      masks, f"t{i}", opt, positions)
         return x
 
     def _logits(self, params, x):

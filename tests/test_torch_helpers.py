@@ -43,14 +43,15 @@ def reference():
         lax_internal.optimization_barrier_p = saved
     from repro.analysis import roofline
     from repro.core import bcd, engine, linearize, masks
-    from repro.kernels import masked_act, ops, ref
-    from repro.models import layers, lm, resnet
+    from repro.kernels import masked_act, ops, ref, rwkv6_scan
+    from repro.models import layers, lm, resnet, ssm
     import repro.configs as configs
     import repro.data as data
     _REFERENCE = types.SimpleNamespace(
         jax=jax, jnp=jnp, bcd=bcd, engine=engine, linearize=linearize,
         masks=masks, masked_act=masked_act, ops=ops, ref=ref, resnet=resnet,
-        data=data, roofline=roofline, lm=lm, layers=layers, configs=configs)
+        data=data, roofline=roofline, lm=lm, layers=layers, configs=configs,
+        ssm=ssm, rwkv6_scan=rwkv6_scan)
     return _REFERENCE
 
 
@@ -152,7 +153,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     """The CUDA wrappers never serve a CPU tensor (ops does, through the
     plain version), and say so instead of falling back."""
     import torch
-    from repro_torch.kernels import masked_act as K
+    from repro_torch.kernels import build, masked_act as K
     x = torch.zeros(4, 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         K.masked_act_2d(x, torch.ones(8))
@@ -165,7 +166,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         K.masked_act_conv3x3_batched(torch.zeros(1, 1, 4, 4, 2),
                                      torch.ones(1, 4, 4, 2),
                                      torch.zeros(3, 3, 2, 2))
-    assert all(v == 0 for v in K.launch_counts.values())
+    assert all(v == 0 for v in build.launch_counts.values())
 
 
 def test_build_without_compiler_raises(tmp_path, monkeypatch):

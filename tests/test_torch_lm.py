@@ -77,7 +77,7 @@ def _ref_logits(ref, rmodel, rparams, tree, toks, pe=None):
     return np.asarray(out)
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["gemma3_27b@window3"])
+@pytest.mark.parametrize("arch", ARCHS + ["gemma3_27b@window3", "rwkv6_3b"])
 def test_logits_match_reference(arch):
     name, _, w = arch.partition("@window")
     ref, rmodel, rparams, tmodel, tparams = _build(
@@ -143,7 +143,7 @@ def test_fused_forward_matches_reference_fused_route(arch):
 
 
 @pytest.mark.parametrize("arch", ["stablelm_1p6b", "gemma3_27b",
-                                  "stablelm_1p6b@6"])
+                                  "stablelm_1p6b@6", "rwkv6_3b"])
 def test_site_bookkeeping_equals_reference(arch):
     name, _, nl = arch.partition("@")
     ref, rmodel, rparams, tmodel, tparams = _build(
@@ -207,7 +207,8 @@ def test_full_size_stablelm_sites():
     assert m.site_order()[0] == "s0.ffn@0" and len(m.site_order()) == 24
 
 
-@pytest.mark.parametrize("arch", ["stablelm_1p6b@6", "gemma3_27b"])
+@pytest.mark.parametrize("arch", ["stablelm_1p6b@6", "gemma3_27b",
+                                  "rwkv6_3b"])
 def test_prefix_suffix_at_every_site(arch):
     """prefix ∘ suffix == forward (exactly: the same fold), prefix_ext(a →
     b) == prefix(b), prefixes against the reference's, and the stacked
@@ -442,8 +443,7 @@ def test_params_from_reference_carries_lists_and_bfloat16():
 def test_unported_parts_raise_and_name_the_queue():
     from repro_torch.configs import get_config
     from repro_torch.models.lm import LM
-    for arch in ("mixtral_8x22b", "rwkv6_3b", "zamba2_2p7b",
-                 "deepseek_moe_16b"):
+    for arch in ("mixtral_8x22b", "zamba2_2p7b", "deepseek_moe_16b"):
         with pytest.raises(NotImplementedError, match="Queue A9"):
             LM(get_config(arch).reduced())
     m = LM(get_config("stablelm_1p6b").reduced())

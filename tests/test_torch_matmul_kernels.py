@@ -133,17 +133,17 @@ def test_batched_entry_rejects_mismatched_candidate_axis():
 def test_wrappers_refuse_cpu_tensors_and_count_nothing():
     """The CUDA wrappers never serve a CPU tensor — ops does, through the
     plain version — and a refused call adds nothing to the launch counts."""
-    from repro_torch.kernels import masked_act as K
+    from repro_torch.kernels import build, masked_act as K
     assert {"masked_act_matmul_2d",
-            "masked_act_matmul_2d_batched"} <= set(K.launch_counts)
-    before = dict(K.launch_counts)
+            "masked_act_matmul_2d_batched"} <= set(build.launch_counts)
+    before = dict(build.launch_counts)
     with pytest.raises(ValueError, match="CUDA tensor"):
         K.masked_act_matmul_2d(torch.zeros(4, 8), torch.ones(8),
                                torch.zeros(8, 3))
     with pytest.raises(ValueError, match="CUDA tensor"):
         K.masked_act_matmul_2d_batched(torch.zeros(2, 4, 8),
                                        torch.ones(2, 8), torch.zeros(8, 3))
-    assert K.launch_counts == before
+    assert build.launch_counts == before
 
 
 def test_candidate_stride_of_shared_and_stacked_operands():
