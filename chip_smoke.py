@@ -38,11 +38,18 @@ Tolerances (stated again in the output):
     are summed in another order than cuDNN's full-float32 algorithms
     (TF32 is off), some of which (Winograd, FFT) round more than a direct
     sum; the error of both against a float64 convolution is printed too.
-  * fused matmul, float32: |err| <= 2e-4 + 2e-4*|ref| — a 5632-term sum
-    in another order than cuBLAS's, each term a gated product rounded on its
-    own; the error of both against a float64 product is printed too.  In
-    bfloat16 the gate and the sum run in float32 and the result is held to
-    the float32 plain version rounded once, at the bfloat16 tolerance.
+  * fused matmul, float32 (route B, ``fma``): |err| <= 2e-4 + 2e-4*|ref| —
+    a 5632-term sum in another order than cuBLAS's, each term a gated
+    product rounded on its own; the error of both against a float64 product
+    is printed too.  bfloat16 (route A, ``wgmma``, where the shape allows,
+    else route B): the kernel rounds the gate, and its product with mul, to
+    bfloat16 as the reference does, and sums in float32; it is held at the
+    bfloat16 tolerance to the plain version run in bfloat16 on the same
+    tensors (each elementwise step rounded to bfloat16, as the reference's
+    kernel rounds), and to the unfused route on the card (gate kernel,
+    ``* mul``, ``torch.matmul`` in bfloat16), which feeds the product the
+    same bfloat16 operands, so only the order of the sum differs.  Every
+    bfloat16 case at an LM shape must take route A.
   * ResNet logits: 2e-3 absolute between fused/unfused and
     stacked/un-stacked forwards, and between the card and the CPU —
     BatchNorm's rsqrt amplifies conv rounding through 17 gated layers.
@@ -92,6 +99,9 @@ SOURCE = {
     "masked_act_conv3x3_batched": _CSRC + "masked_act.cu",
     "masked_act_matmul_2d": _CSRC + "masked_act_matmul.cu",
     "masked_act_matmul_2d_batched": _CSRC + "masked_act_matmul.cu",
+    # the fused matmul's routes (kernels.masked_act.matmul_route)
+    "fma": _CSRC + "masked_act_matmul.cu",
+    "wgmma": _CSRC + "masked_act_matmul_sm90.cu",
     "rwkv6_scan": _CSRC + "rwkv6_scan.cu",
 }
 REPLACES = {
@@ -112,6 +122,15 @@ PATH_KERNELS = {
                       "masked_act_matmul_2d_batched"),
     "rwkv6_3b": ("masked_act_2d", "masked_act_2d_batched", "rwkv6_scan"),
 }
+# ... and the fused matmul routes (build.route_counts): the float32 path on
+# route B, its bfloat16 forward on route A
+PATH_ROUTES = {
+    "stablelm_1p6b": ("masked_act_matmul_2d:fma", "masked_act_matmul_2d:wgmma",
+                      "masked_act_matmul_2d_batched:fma"),
+}
+# (rows, K, N_out) of the LM paths' fused products: every bfloat16 case at
+# one of these must take route A
+LM_MATMUL_SHAPES = {(1016, 5632, 2048)}
 TOL = {
     ("gate", torch.float32): (1e-6, 1e-6),
     ("gate", torch.bfloat16): (1e-2, 1e-2),
@@ -132,6 +151,13 @@ LM_SITED_DRC = 32
 LM_LOGIT_TOL = 1e-3
 LM_CPU_TOKENS = 32          # the card-vs-CPU check: 1 sequence x 32 tokens
 BCD_STEPS = 3       # outer steps per engine (b_target 300 below the start)
+
+
+def counts() -> dict:
+    """Every kernel's launches and the fused matmul's by route, as they
+    stand."""
+    from repro_torch.kernels import build
+    return {**build.launch_counts, **build.route_counts}
 
 
 def emit(obj) -> None:
@@ -180,16 +206,21 @@ def valid_taps(size: int, stride: int) -> int:
                if 0 <= o * stride - lo + k < size)
 
 
+KERNEL_TEMPLATES = ("gate_conv3x3_kernel", "gate_matmul_fma_kernel",
+                    "gate_matmul_wgmma_kernel", "gate_kernel",
+                    "rwkv6_scan_kernel")
+
+
 def ptxas_summary(log: str) -> dict:
     """Registers, shared memory and spills per ``__global__`` template, from
     what ``nvcc -Xptxas -v`` printed (ranges over the instantiations)."""
     out, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            name = "gate_conv3x3_kernel" if "gate_conv3x3" in ln else \
-                "gate_matmul_kernel" if "gate_matmul" in ln else \
-                "gate_kernel" if "gate_kernel" in ln else \
-                "rwkv6_scan_kernel" if "rwkv6_scan" in ln else "other"
+            name = next((t for t in KERNEL_TEMPLATES if t in ln), "other")
+            # the template arguments, as mangled
+            entry = ln.split(name)[-1].split("EEEv")[0] \
+                if name != "other" else ""
             out.setdefault(name, {"instantiations": 0, "registers": [],
                                   "smem_bytes": [], "spill_bytes": 0})
             out[name]["instantiations"] += 1
@@ -197,6 +228,8 @@ def ptxas_summary(log: str) -> dict:
             nums = [int(t) for t in ln.replace(",", " ").split()
                     if t.isdigit()]
             out[name]["spill_bytes"] += sum(nums[1:3])
+            if sum(nums[1:3]):
+                out[name].setdefault("spilling", []).append(entry)
         elif name and "Used" in ln and "registers" in ln:
             toks = ln.replace(",", " ").split()
             out[name]["registers"].append(int(toks[toks.index("Used") + 1]))
@@ -334,13 +367,13 @@ def matmul_case(name, dtype, kind, n, rows, k, nout, with_mul, shared_x,
         return f(x, mask, wt, mul, kind=kind)
 
     def plain(double=False):
+        # in x's dtype: in bfloat16 every elementwise step rounds to
+        # bfloat16, as the reference's kernel rounds
         f = ref.masked_act_matmul_batched_ref if batched else \
             ref.masked_act_matmul_ref
-        if double or dtype != torch.float32:
-            t = torch.float64 if double else torch.float32
-            out = f(x.to(t), mask.to(t), wt.to(t),
-                    None if mul is None else mul.to(t), kind=kind)
-            return out if double else out.to(dtype)
+        if double:
+            return f(x.double(), mask.double(), wt.double(),
+                     None if mul is None else mul.double(), kind=kind)
         return f(x, mask, wt, mul, kind=kind)
 
     def library():
@@ -350,13 +383,34 @@ def matmul_case(name, dtype, kind, n, rows, k, nout, with_mul, shared_x,
             gate = gate * mul
         return torch.matmul(gate, wt)
 
-    out, want = kernel(), plain()
+    from repro_torch.kernels import build
+    before = dict(build.route_counts)
+    out = kernel()
+    routes = [r.split(":")[1] for r, v in build.route_counts.items()
+              if v != before[r]]
+    want = plain()
     torch.cuda.synchronize()
+    if len(routes) != 1:
+        fail(f"{name}: one launch took routes {routes}")
+    if dtype == torch.bfloat16 and (rows, k, nout) in LM_MATMUL_SHAPES and \
+            routes[0] != "wgmma":
+        fail(f"{name} bfloat16 at the LM shape took route {routes[0]}")
     cands = n if batched else 1
     byts = nbytes(x, mask, mul, wt) + out.numel() * out.element_size()
     flops = 2.0 * cands * rows * k * nout
-    extra = dict(kind=kind, shape=list(x.shape), n_out=nout,
-                 mul=with_mul, shared_x=shared_x)
+    extra = dict(matmul_route=routes[0], kind=kind, shape=list(x.shape),
+                 n_out=nout, mul=with_mul, shared_x=shared_x)
+    if dtype == torch.bfloat16:
+        # the unfused route feeds the product the same bfloat16 operands
+        unf = library()
+        torch.cuda.synchronize()
+        atol, rtol = TOL[("matmul", dtype)]
+        err = (out.float() - unf.float()).abs()
+        extra["max_abs_err_vs_unfused"] = float(err.max())
+        if bool((err > atol + rtol * unf.float().abs()).any()):
+            fail(f"{name} {extra}: differs from the unfused route by "
+                 f"{float(err.max())}")
+        del unf, err
     if dtype == torch.float32 and (primary or timed):
         exact = plain(double=True)
         extra["kernel_err_vs_f64"] = float((out.double() - exact).abs().max())
@@ -458,6 +512,29 @@ def finish_case(name, family, dtype, out, want, kernel, plain,
     return case
 
 
+def matmul_routes(name, mine, by_path) -> dict:
+    """The fused matmul's two routes side by side: each one's source, its
+    launches on the main paths, and the times of its silu case at the
+    path's shape, un-shared (float32 for route B, bfloat16 for route A)."""
+    out = {}
+    for route, dtype in (("fma", "float32"), ("wgmma", "bfloat16")):
+        timed = [c for c in mine if c.get("matmul_route") == route and
+                 c["dtype"] == dtype and "ms" in c and not c["shared_x"]
+                 and c["kind"] == "silu"]
+        c = max(timed, key=lambda c: c["flops"])
+        out[route] = {
+            "source": SOURCE[route],
+            "launches": sum(p[f"{name}:{route}"] for p in by_path.values()),
+            **{k: c[k] for k in ("dtype", "shape", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")},
+            **{key: max((x["max_abs_err"] for x in mine
+                         if x.get("matmul_route") == route and
+                         x["dtype"] == dt), default=None)
+               for key, dt in (("max_abs_err", "float32"),
+                               ("max_abs_err_bf16", "bfloat16"))}}
+    return out
+
+
 def run_kernel_cases():
     """Every kernel at the shapes the main path gives it (eval batch 128,
     chunks of 8 candidates, the four ResNet18 stages) and at ragged small
@@ -557,6 +634,14 @@ def run_kernel_cases():
     cases.append(matmul_case(m2b, bf16, "silu", LM_CHUNK, rows, k, nout,
                              True, False, primary=False, seed=103,
                              timed=True))
+    cases.append(matmul_case(m2b, bf16, "silu", LM_CHUNK, rows, k, nout,
+                             True, True, primary=False, seed=105,
+                             timed=True))
+    # the same products behind the cheapest gate: what the silu gate costs
+    for dt, seed in ((f32, 106), (bf16, 107)):
+        cases.append(matmul_case(m2b, dt, "relu", LM_CHUNK, rows, k, nout,
+                                 True, False, primary=False, seed=seed,
+                                 timed=True))
     cases.append(matmul_case(m2, bf16, "silu", 1, rows, k, nout, True, False,
                              primary=False, seed=104, timed=True))
     for i, kind in enumerate(kinds):
@@ -1037,7 +1122,6 @@ def run_lm_bcd(model, params, batch, steps: int, drc: int, spec,
     """``bcd.run_bcd`` on the LM through the four engines: identical
     selections, and at least one step whose trials did not all tie."""
     from repro_torch.core import bcd, linearize, masks as M
-    from repro_torch.kernels import build
     from repro_torch.launch.sweep import make_bcd_evaluator
     masks0 = linearize.init_masks(model.mask_sites())
     total = model.relu_count()
@@ -1060,14 +1144,13 @@ def run_lm_bcd(model, params, batch, steps: int, drc: int, spec,
         cfg = bcd.BCDConfig(b_target=total - drc * steps, drc=drc, rt=rt,
                             adt=-100.0, finetune_every_step=False, seed=0,
                             chunk_size=LM_CHUNK, moves=("remove",))
-        before = dict(build.launch_counts)
+        before = counts()
         sync(device)
         t0 = time.perf_counter()
         res = bcd.run_bcd(masks0, cfg, eval_acc, evaluator=evaluator)
         sync(device)
         wall = time.perf_counter() - t0
-        launches = {k: build.launch_counts[k] - before[k]
-                    for k in build.launch_counts}
+        launches = {k: v - before[k] for k, v in counts().items()}
         if M.relu_cost(res.masks) != total - drc * steps:
             fail(f"{spec.tag}_bcd {backend}: budget "
                  f"{M.relu_cost(res.masks)}")
@@ -1107,7 +1190,6 @@ def run_lm_sited(model, params, batch, drc: int, spec, device="cuda"):
     the fused route) fused: equal accuracies, prefix reuse in the trie,
     and the rates."""
     from repro_torch.core import engine as E, linearize, masks as M
-    from repro_torch.kernels import build
     from repro_torch.launch.sweep import make_bcd_evaluator
     masks0 = linearize.init_masks(model.mask_sites())
     fractions = model.site_prefix_fractions()
@@ -1134,10 +1216,9 @@ def run_lm_sited(model, params, batch, drc: int, spec, device="cuda"):
             if backend == "suffix":
                 ev.begin_step(masks0)
                 items = [E.SitedChunk(site, c) for c in chunks]
-            before = dict(build.launch_counts)
+            before = counts()
             accs[label] = np.concatenate([ev.evaluate(it) for it in items])
-            launches = {k: build.launch_counts[k] - before[k]
-                        for k in build.launch_counts}
+            launches = {k: v - before[k] for k, v in counts().items()}
             sync(device)
             t0 = time.perf_counter()
             for _ in range(reps):
@@ -1186,7 +1267,7 @@ def run_lm_path(spec, by_path, device="cuda"):
     bcd_report = run_lm_bcd(model, params, batch, LM_STEPS, LM_DRC, spec,
                             device)
     sited = run_lm_sited(model, params, batch, LM_SITED_DRC, spec, device)
-    by_path[spec.arch] = dict(build.launch_counts)
+    by_path[spec.arch] = counts()
     emit({f"{spec.tag}_forward": forward})
     emit({f"{spec.tag}_bcd": bcd_report})
     emit({f"{spec.tag}_sited": sited})
@@ -1228,10 +1309,19 @@ def main() -> None:
                            "matmul": torch.backends.cuda.matmul.allow_tf32}}})
 
     t0 = time.perf_counter()
-    build.load()
-    emit({"build": {"seconds": time.perf_counter() - t0,
-                    "library": str(build.build()),
-                    "ptxas": ptxas_summary(build.build_log())}})
+    lib = build.load()
+    seconds = time.perf_counter() - t0
+    # the silu gate's branch-free reciprocal against 1 / y, every float of
+    # [1, 2^126]
+    bad = torch.zeros(1, dtype=torch.int64, device="cuda")
+    build.check(lib, lib.masked_act_rcp_check(
+        bad.data_ptr(), torch.cuda.current_stream().cuda_stream),
+        "masked_act_rcp_check")
+    if int(bad.item()) != 0:
+        fail(f"rcp_rn_fast differs from 1 / y for {int(bad.item())} floats")
+    emit({"build": {"seconds": seconds, "library": str(build.build()),
+                    "ptxas": ptxas_summary(build.build_log()),
+                    "rcp_rn_fast_mismatches_of_1056964609": 0}})
 
     cases = run_kernel_cases()
     emit({"kernel_cases": cases})
@@ -1244,7 +1334,7 @@ def main() -> None:
     forward = run_forward(model, params, batch, SEED)
     bcd_report = run_bcd_phase(model, params, batch, BCD_STEPS)
     sited = run_sited_phase(model, params, batch)
-    by_path = {"resnet18": dict(build.launch_counts)}
+    by_path = {"resnet18": counts()}
     emit({"forward": forward})
     emit({"bcd": bcd_report})
     emit({"sited": sited})
@@ -1255,7 +1345,8 @@ def main() -> None:
     for spec in LM_PATHS:
         run_lm_path(spec, by_path)
 
-    for path, names in PATH_KERNELS.items():
+    for path in PATH_KERNELS:
+        names = PATH_KERNELS[path] + PATH_ROUTES.get(path, ())
         missing = [k for k in names if by_path[path][k] == 0]
         if missing:
             fail(f"the {path} path launched these kernels no time: "
@@ -1282,6 +1373,8 @@ def main() -> None:
             "library_ms": prim["library_ms"],
             "shape": prim["shape"], "dtype": prim["dtype"],
             "tolerance": {"atol": prim["atol"], "rtol": prim["rtol"]}})
+        if name.startswith("masked_act_matmul"):
+            kernels[-1]["by_route"] = matmul_routes(name, mine, by_path)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True,

@@ -44,11 +44,19 @@ launch_counts = {
     "masked_act_matmul_2d_batched": 0,
     "rwkv6_scan": 0,
 }
+# the fused matmul's launches by route (kernels.masked_act.matmul_route),
+# reset with launch_counts
+route_counts = {f"{name}:{route}": 0
+                for name in ("masked_act_matmul_2d",
+                             "masked_act_matmul_2d_batched")
+                for route in ("fma", "wgmma")}
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+    for k in route_counts:
+        route_counts[k] = 0
 
 
 class KernelBuildError(RuntimeError):
@@ -150,7 +158,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, i, i, ll, ll, i, i, vp]
     lib.masked_act_matmul_launch.restype = i
     lib.masked_act_matmul_launch.argtypes = [
-        vp, vp, vp, vp, vp, i, ll, i, i, ll, ll, ll, i, i, vp]
+        vp, vp, vp, vp, vp, i, ll, i, i, ll, ll, ll, i, i, i, vp]
+    lib.masked_act_rcp_check.restype = i
+    lib.masked_act_rcp_check.argtypes = [vp, vp]
     lib.rwkv6_scan_launch.restype = i
     lib.rwkv6_scan_launch.argtypes = [
         vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, ll, vp]

@@ -12,6 +12,27 @@ namespace {
 
 enum Kind { kRelu = 0, kGelu = 1, kSilu = 2, kSqrelu = 3 };
 
+// 1/y correctly rounded for 1 <= y <= 2^126: the hardware's approximate
+// reciprocal and one FMA refinement, with no branch (a division's slow
+// path is a branch per element, which keeps the compiler from
+// interleaving the elements).  masked_act_rcp_check (masked_act_matmul.cu)
+// holds it to 1.0f / y for every float in that range; chip_smoke.py runs it.
+__device__ __forceinline__ float rcp_rn_fast(float y) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(y));
+  return __fmaf_rn(r, __fmaf_rn(-y, r, 1.0f), r);
+}
+constexpr float kRcpFastMax = 0x1p126f;
+
+// 1/y for y >= 1 (or not a number), without a call: above 2^126 the
+// quotient is below the normal range and is taken as rcp(y/4)/4, which may
+// differ from 1/y in its last (subnormal) bit; 1/inf = 0.
+__device__ __forceinline__ float rcp_ge1(float y) {
+  const bool fast = y <= kRcpFastMax;
+  const float r = rcp_rn_fast(fast ? y : 0.25f * y);
+  return fast ? r : (isinf(y) ? 0.0f : 0.25f * r);
+}
+
 template <int KIND>
 __device__ __forceinline__ float act(float x) {
   if (KIND == kRelu) return fmaxf(x, 0.0f);
@@ -20,7 +41,11 @@ __device__ __forceinline__ float act(float x) {
     const float c = 0.7978845608028654f;
     return 0.5f * x * (1.0f + tanhf(c * (x + 0.044715f * x * x * x)));
   }
-  if (KIND == kSilu) return x * (1.0f / (1.0f + expf(-x)));
+  if (KIND == kSilu) {
+    // x * (1 / (1 + exp(-x))), each step rounded on its own
+    const float y = __fadd_rn(1.0f, expf(-x));
+    return __fmul_rn(x, rcp_ge1(y));
+  }
   const float r = fmaxf(x, 0.0f);
   return r * r;
 }
@@ -34,6 +59,32 @@ __device__ __forceinline__ float blend(float m, float y, float lin) {
 template <int KIND>
 __device__ __forceinline__ float gate(float x, float m) {
   return blend(m, act<KIND>(x), x);
+}
+
+// gate<KIND> of N values at once, bit for bit: silu's reciprocal takes the
+// short path for all N, and the rare value out of its range (x below about
+// -87, or not a number) sends the N through rcp_ge1
+template <int KIND, int N>
+__device__ __forceinline__ void gate_n(float (&v)[N], const float (&m)[N]) {
+  if (KIND == kSilu) {
+    float a[N];
+    bool rare = false;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float y = __fadd_rn(1.0f, expf(-v[i]));
+      rare |= !(y <= kRcpFastMax);
+      a[i] = __fmul_rn(v[i], rcp_rn_fast(y));
+    }
+    if (rare) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) a[i] = act<kSilu>(v[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = blend(m[i], a[i], v[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = gate<KIND>(v[i], m[i]);
+  }
 }
 
 __device__ __forceinline__ float to_f(float v) { return v; }

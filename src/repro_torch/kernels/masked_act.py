@@ -1,5 +1,5 @@
-"""Wrappers of the hand-written CUDA kernels (``csrc/masked_act.cu`` and
-``csrc/masked_act_matmul.cu``).
+"""Wrappers of the hand-written CUDA kernels (``csrc/masked_act.cu``,
+``csrc/masked_act_matmul.cu`` and ``csrc/masked_act_matmul_sm90.cu``).
 
 Counterpart of ``repro/kernels/masked_act.py``.  Each wrapper checks device,
 type, shape and contiguity, allocates its output with ``torch.empty``,
@@ -15,6 +15,11 @@ for the fused convolution, ``(rows, K)`` / ``(N, rows, K)`` activations and
 ``(K, N_out)`` weights for the fused matrix product.  A stacked ``x`` (and
 the fused product's ``mul``) may be an ``expand``-ed view with candidate
 stride 0: the kernel then reads the one shared copy N times.
+
+The fused matrix product has two routes, picked by :func:`matmul_route` and
+nothing else: ``"wgmma"`` (bfloat16 on the tensor cores) and ``"fma"``
+(float32 FMA, every other call).  A route the kernel library cannot take
+raises; no call falls back to another route or to the plain version.
 """
 from __future__ import annotations
 
@@ -27,6 +32,8 @@ from .ref import same_pads
 
 KIND_CODES = {"relu": 0, "gelu": 1, "silu": 2, "sqrelu": 3}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MATMUL_ROUTES = {"fma": 0, "wgmma": 1}
+_TMA_ROWS = 2 ** 31         # a TMA coordinate is a signed 32-bit integer
 
 
 def _same_pads(size: int, stride: int):
@@ -220,6 +227,31 @@ def _cand_stride(name, what, t, n, per):
     return 0 if n == 1 else t.stride(0)
 
 
+def matmul_route(dtype, k: int, n_out: int, rows: int, n_cand: int,
+                 ptrs) -> str:
+    """The route of a fused gate→matmul call on the card, by one rule.
+
+    ``"wgmma"`` (route A, ``csrc/masked_act_matmul_sm90.cu``): bfloat16, K
+    and N_out multiples of 8 (TMA copies rows whose pitch is a multiple of
+    16 bytes), every operand's address in ``ptrs`` (x, mask, w, out and mul
+    where given; None is skipped) 16-byte aligned, and the stacked rows
+    ``n_cand * rows`` within a TMA coordinate.  ``"fma"`` (route B,
+    ``csrc/masked_act_matmul.cu``): every float32 call, and every bfloat16
+    call route A cannot take.  Raises TypeError for another dtype and
+    ValueError for an empty K or N_out, which no route takes."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused matmul: dtype must be float32 or bfloat16, "
+                        f"got {dtype}")
+    if k < 1 or n_out < 1 or rows < 0 or n_cand < 1:
+        raise ValueError(f"fused matmul: no route takes K={k}, "
+                         f"N_out={n_out}, rows={rows}, n_cand={n_cand}")
+    if (dtype == torch.bfloat16 and k % 8 == 0 and n_out % 8 == 0
+            and n_cand * rows < _TMA_ROWS
+            and all(p % 16 == 0 for p in ptrs if p is not None)):
+        return "wgmma"
+    return "fma"
+
+
 def _launch_matmul(name, x, mask, w, mul, n, rows, k, x_stride, mul_stride,
                    mask_stride, kind, out):
     if w.dim() != 2 or w.shape[0] != k:
@@ -234,15 +266,20 @@ def _launch_matmul(name, x, mask, w, mul, n, rows, k, x_stride, mul_stride,
         return out
     if k == 0:
         return out.zero_()
+    route = matmul_route(x.dtype, k, w.shape[1], rows, n, (
+        x.data_ptr(), mask.data_ptr(), w.data_ptr(), out.data_ptr(),
+        None if mul is None else mul.data_ptr()))
     lib = build.load()
     with torch.cuda.device(x.device):
         code = lib.masked_act_matmul_launch(
             x.data_ptr(), mask.data_ptr(),
             None if mul is None else mul.data_ptr(), w.data_ptr(),
             out.data_ptr(), n, rows, k, w.shape[1], x_stride, mul_stride,
-            mask_stride, KIND_CODES[kind], _DTYPE_CODES[x.dtype], _stream(x))
-    build.check(lib, code, name)
+            mask_stride, KIND_CODES[kind], _DTYPE_CODES[x.dtype],
+            MATMUL_ROUTES[route], _stream(x))
+    build.check(lib, code, f"{name} ({route} route)")
     build.launch_counts[name] += 1
+    build.route_counts[f"{name}:{route}"] += 1
     return out
 
 
