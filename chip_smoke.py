@@ -37,7 +37,11 @@ Tolerances (stated again in the output):
   * fused conv, float32: |err| <= 2e-4 + 2e-4*|ref| — up to 9*512 products
     are summed in another order than cuDNN's full-float32 algorithms
     (TF32 is off), some of which (Winograd, FFT) round more than a direct
-    sum; the error of both against a float64 convolution is printed too.
+    sum.  Route T (``tf32x3``) takes each product as three TF32 products
+    of split operands; at ResNet18's batch its error against a float64
+    convolution must stay within 4x the plain version's (TF32 products
+    alone keep 11 significant bits), and route F, forced beside it, is
+    held to the same tolerance.
   * fused matmul, float32 (route B, ``fma``): |err| <= 2e-4 + 2e-4*|ref| —
     a 5632-term sum in another order than cuBLAS's, each term a gated
     product rounded on its own; the error of both against a float64 product
@@ -66,8 +70,10 @@ Times are CUDA-event times over repeated launches after a warm-up, at the
 shapes the main path uses, without flushing the L2 cache between launches
 (the big shapes exceed it).  ``bound_ms`` is the larger of bytes/3.35 TB/s
 (each input read once, each output written once) and operations/67 TFLOP/s
-(float32 outside the tensor cores, which is what these kernels use) — for
-the fused matmul in bfloat16 operations/989 TFLOP/s, the tensor cores' rate,
+(float32 outside the tensor cores) — for the fused matmul in bfloat16
+operations/989 TFLOP/s, the tensor cores' rate, and for the fused conv on
+route T 3 * operations/495 TFLOP/s, three TF32 products per float32 one
+(``bound_fma_ms`` and ``bound_tf32x3_ms`` give both for every conv case);
 the least time the card could take for that work.  The scan's operations
 are 5·K·V a token and row (r·S, the state update) plus the bonus.
 """
@@ -90,13 +96,14 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
 BF16_FLOP_PER_S = 989e12       # H100 SXM bfloat16 tensor cores, dense
+TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 
 _CSRC = "src/repro_torch/kernels/csrc/"
 SOURCE = {
     "masked_act_2d": _CSRC + "masked_act.cu",
     "masked_act_2d_batched": _CSRC + "masked_act.cu",
-    "masked_act_conv3x3": _CSRC + "masked_act.cu",
-    "masked_act_conv3x3_batched": _CSRC + "masked_act.cu",
+    "masked_act_conv3x3": _CSRC + "masked_act_conv_sm90.cu",
+    "masked_act_conv3x3_batched": _CSRC + "masked_act_conv_sm90.cu",
     "masked_act_matmul_2d": _CSRC + "masked_act_matmul.cu",
     "masked_act_matmul_2d_batched": _CSRC + "masked_act_matmul.cu",
     # the fused matmul's routes (kernels.masked_act.matmul_route)
@@ -104,6 +111,9 @@ SOURCE = {
     "wgmma": _CSRC + "masked_act_matmul_sm90.cu",
     "rwkv6_scan": _CSRC + "rwkv6_scan.cu",
 }
+# the fused conv's routes (kernels.masked_act.conv_route)
+CONV_SOURCE = {"tf32x3": _CSRC + "masked_act_conv_sm90.cu",
+               "fma": _CSRC + "masked_act.cu"}
 REPLACES = {
     "masked_act_2d": "src/repro/kernels/masked_act.py:55",
     "masked_act_2d_batched": "src/repro/kernels/masked_act.py:140",
@@ -122,15 +132,24 @@ PATH_KERNELS = {
                       "masked_act_matmul_2d_batched"),
     "rwkv6_3b": ("masked_act_2d", "masked_act_2d_batched", "rwkv6_scan"),
 }
-# ... and the fused matmul routes (build.route_counts): the float32 path on
-# route B, its bfloat16 forward on route A
+# ... and the fused routes (build.route_counts): ResNet18's float32 convs on
+# route T (tensor cores); StableLM's float32 path on route B, its bfloat16
+# forward on route A
 PATH_ROUTES = {
+    "resnet18": ("masked_act_conv3x3:tf32x3",
+                 "masked_act_conv3x3_batched:tf32x3"),
     "stablelm_1p6b": ("masked_act_matmul_2d:fma", "masked_act_matmul_2d:wgmma",
                       "masked_act_matmul_2d_batched:fma"),
 }
 # (rows, K, N_out) of the LM paths' fused products: every bfloat16 case at
 # one of these must take route A
 LM_MATMUL_SHAPES = {(1016, 5632, 2048)}
+# ResNet18's eval batch and its four stages (H = W, C): every float32 conv
+# case at this batch must take route T and keep its error against a float64
+# convolution within CONV_ERR_RATIO times the plain version's
+RESNET_BATCH = 128
+STAGES = ((32, 64), (16, 128), (8, 256), (4, 512))
+CONV_ERR_RATIO = 4.0
 TOL = {
     ("gate", torch.float32): (1e-6, 1e-6),
     ("gate", torch.bfloat16): (1e-2, 1e-2),
@@ -206,7 +225,8 @@ def valid_taps(size: int, stride: int) -> int:
                if 0 <= o * stride - lo + k < size)
 
 
-KERNEL_TEMPLATES = ("gate_conv3x3_kernel", "gate_matmul_fma_kernel",
+KERNEL_TEMPLATES = ("gate_conv3x3_kernel", "gate_conv3x3_tf32x3_kernel",
+                    "split_weights_kernel", "gate_matmul_fma_kernel",
                     "gate_matmul_wgmma_kernel", "gate_kernel",
                     "rwkv6_scan_kernel")
 
@@ -287,10 +307,31 @@ def gate_case(name, dtype, kind, n, rows, cols, poly, shared_x, primary,
                             shared_x=shared_x), timed)
 
 
+class forced_conv_route:
+    """Within the block, every fused conv call takes ``route`` whatever
+    ``conv_route`` says: chip_smoke.py times route F at the path's shapes
+    beside route T with it.  The port itself never forces a route."""
+
+    def __init__(self, route):
+        self.route = route
+
+    def __enter__(self):
+        from repro_torch.kernels import masked_act as K
+        self.rule = K.conv_route
+        K.conv_route = lambda *a, **k: self.route
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import masked_act as K
+        K.conv_route = self.rule
+
+
 def conv_case(name, dtype, kind, n, b, h, w_, cin, cout, stride, shared_x,
               primary, seed, timed=False):
-    """One comparison of the fused gate→conv kernel with the unfused pair."""
-    from repro_torch.kernels import masked_act as K, ref
+    """One comparison of the fused gate→conv kernel with the unfused pair.
+    At the path's batch in float32 the case must take route T and keep its
+    error against a float64 convolution within ``CONV_ERR_RATIO`` times the
+    plain version's; route F is run, checked and timed there too."""
+    from repro_torch.kernels import build, masked_act as K, ref
     g = torch.Generator(device="cuda").manual_seed(seed)
     batched = name == "masked_act_conv3x3_batched"
     base = torch.randn((1 if shared_x or not batched else n, b, h, w_, cin),
@@ -317,24 +358,59 @@ def conv_case(name, dtype, kind, n, b, h, w_, cin, cout, stride, shared_x,
         return ref.masked_act_conv3x3_ref(
             x.float(), mask, wt.float(), stride=stride, kind=kind).to(dtype)
 
-    out, want = kernel(), plain()
+    before = dict(build.route_counts)
+    out = kernel()
+    routes = [r.split(":")[1] for r, v in build.route_counts.items()
+              if v != before[r]]
+    want = plain()
     torch.cuda.synchronize()
+    if len(routes) != 1:
+        fail(f"{name}: one launch took routes {routes}")
     byts = nbytes(x, mask, wt) + out.numel() * out.element_size()
     cands = n if batched else 1
     flops = 2.0 * cands * b * valid_taps(h, stride) * \
         valid_taps(w_, stride) * cin * cout
-    extra = dict(kind=kind, shape=list(x.shape), cout=cout, stride=stride,
-                 shared_x=shared_x)
-    if dtype == torch.float32 and primary:
+    extra = dict(conv_route=routes[0], kind=kind, shape=list(x.shape),
+                 cout=cout, stride=stride, shared_x=shared_x)
+    path_shaped = dtype == torch.float32 and b == RESNET_BATCH
+    if path_shaped and routes[0] != "tf32x3":
+        fail(f"{name} {extra}: a float32 case at the path's batch took "
+             f"route {routes[0]}")
+    if path_shaped or (dtype == torch.float32 and primary):
         exact = ref.masked_act_conv3x3_ref(
             x.double(), mask.double(), wt.double(), stride=stride, kind=kind)
         extra["kernel_err_vs_f64"] = float((out.double() - exact).abs().max())
         extra["plain_err_vs_f64"] = float((want.double() - exact).abs().max())
+        if path_shaped:
+            with forced_conv_route("fma"):
+                fma = kernel()
+            torch.cuda.synchronize()
+            extra["fma_err_vs_f64"] = float((fma.double() - exact).abs()
+                                            .max())
+            atol, rtol = TOL[("conv", dtype)]
+            err = (fma - want).abs()
+            extra["fma_max_abs_err"] = float(err.max())
+            if bool((err > atol + rtol * want.abs()).any()):
+                fail(f"{name} {extra}: route F misses the tolerance")
+            del fma, err
+            if not extra["kernel_err_vs_f64"] <= \
+                    CONV_ERR_RATIO * extra["plain_err_vs_f64"]:
+                fail(f"{name} {extra}: route T's error against float64 is "
+                     f"above {CONV_ERR_RATIO}x the plain version's")
         del exact
+    if path_shaped and (primary or timed):
+        with forced_conv_route("fma"):
+            extra["fma_ms"] = time_ms(kernel)
+    extra["bound_fma_ms"] = max(byts / HBM_BYTES_PER_S,
+                                flops / FP32_FLOP_PER_S) * 1e3
+    extra["bound_tf32x3_ms"] = max(byts / HBM_BYTES_PER_S,
+                                   3 * flops / TF32_FLOP_PER_S) * 1e3
     # library yardstick: the gate, then the one library call (F.conv2d) that
     # computes the product — which is what the plain version is
     return finish_case(name, "conv", dtype, out, want, kernel, plain,
-                       True, byts, flops, primary, extra, timed)
+                       True, byts, flops, primary, extra, timed,
+                       rate=TF32_FLOP_PER_S / 3 if routes[0] == "tf32x3"
+                       else None)
 
 
 def matmul_case(name, dtype, kind, n, rows, k, nout, with_mul, shared_x,
@@ -476,7 +552,7 @@ def scan_case(bh, T, K, V, chunk, heads, shared_state, primary, seed,
 
 def finish_case(name, family, dtype, out, want, kernel, plain,
                 plain_is_library, byts, flops, primary, extra, timed=False,
-                library=None):
+                library=None, rate=None):
     atol, rtol = TOL[(family, dtype)]
     if out.shape != want.shape or out.dtype != want.dtype:
         fail(f"{name} {extra}: shape/dtype {tuple(out.shape)} {out.dtype} "
@@ -494,9 +570,10 @@ def finish_case(name, family, dtype, out, want, kernel, plain,
                 **extra)
     if primary or timed:
         t_bytes = byts / HBM_BYTES_PER_S * 1e3
-        rate = BF16_FLOP_PER_S if (family == "matmul" and
-                                   dtype == torch.bfloat16) \
-            else FP32_FLOP_PER_S
+        if rate is None:
+            rate = BF16_FLOP_PER_S if (family == "matmul" and
+                                       dtype == torch.bfloat16) \
+                else FP32_FLOP_PER_S
         t_ops = flops / rate * 1e3
         plain_ms = time_ms(plain)
         library_ms = plain_ms if plain_is_library else None
@@ -535,6 +612,28 @@ def matmul_routes(name, mine, by_path) -> dict:
     return out
 
 
+def conv_routes(name, mine, by_path) -> dict:
+    """The fused conv's two routes side by side (each one's source and
+    launches on the main paths), and its float32 cases at the path's batch
+    stage by stage: route T's and route F's times, gate + cuDNN's, both
+    bounds, and the errors against a float64 convolution."""
+    by_route = {route: {
+        "source": CONV_SOURCE[route],
+        "launches": sum(p[f"{name}:{route}"] for p in by_path.values()),
+        "max_abs_err": max((c["max_abs_err"] for c in mine
+                            if c["conv_route"] == route), default=None)}
+        for route in ("tf32x3", "fma")}
+    by_stage = []
+    for hw, c in STAGES:
+        case = next(x for x in mine if "fma_ms" in x and not x["shared_x"]
+                    and x["shape"][-3:] == [hw, hw, c] and x["stride"] == 1)
+        by_stage.append({k: case[k] for k in (
+            "shape", "conv_route", "ms", "fma_ms", "library_ms",
+            "bound_tf32x3_ms", "bound_fma_ms", "kernel_err_vs_f64",
+            "fma_err_vs_f64", "plain_err_vs_f64")})
+    return {"by_route": by_route, "by_stage": by_stage}
+
+
 def run_kernel_cases():
     """Every kernel at the shapes the main path gives it (eval batch 128,
     chunks of 8 candidates, the four ResNet18 stages) and at ragged small
@@ -543,7 +642,7 @@ def run_kernel_cases():
     into the ``kernels`` line; ``timed`` cases are timed as well."""
     f32, bf16 = torch.float32, torch.bfloat16
     kinds = ("relu", "gelu", "silu", "sqrelu")
-    stages = ((32, 64), (16, 128), (8, 256), (4, 512))      # (H = W, C)
+    stages = STAGES
     cases = []
 
     # ---- masked_act_2d: the sequential engine's gate
@@ -578,12 +677,14 @@ def run_kernel_cases():
                                poly=i % 2 == 0, shared_x=i % 2 == 1,
                                primary=False, seed=40 + i))
 
-    # ---- masked_act_conv3x3: un-stacked fused forward, relu1 -> conv2
+    # ---- masked_act_conv3x3: un-stacked fused forward, relu1 -> conv2, at
+    # the four stages
     c3 = "masked_act_conv3x3"
-    for i, (hw, c) in enumerate((stages[0], stages[3])):
-        cases.append(conv_case(c3, f32, "relu", n=1, b=128, h=hw, w_=hw,
-                               cin=c, cout=c, stride=1, shared_x=False,
-                               primary=i == 0, seed=6 + i))
+    for i, (hw, c) in enumerate(stages):
+        cases.append(conv_case(c3, f32, "relu", n=1, b=RESNET_BATCH, h=hw,
+                               w_=hw, cin=c, cout=c, stride=1,
+                               shared_x=False, primary=i == 0, seed=6 + i,
+                               timed=True))
     cases.append(conv_case(c3, f32, "relu", n=1, b=128, h=16, w_=16, cin=128,
                            cout=128, stride=2, shared_x=False, primary=False,
                            seed=8))
@@ -596,13 +697,19 @@ def run_kernel_cases():
         cases.append(conv_case(c3, bf16, kind, n=1, b=4, h=8, w_=8, cin=16,
                                cout=24, stride=1 + i % 2, shared_x=False,
                                primary=False, seed=60 + i))
+        # route T off the path's shapes: 64 images, a partial channel step
+        # (Cin 40 = 32 + 8), Cout 72 in a 128-column tile, odd sizes
+        cases.append(conv_case(c3, f32, kind, n=1, b=64, h=7, w_=9, cin=40,
+                               cout=72, stride=1 + i % 2, shared_x=False,
+                               primary=False, seed=140 + i))
 
     # ---- masked_act_conv3x3_batched: the suffix engine's fused forwards
     c3b = "masked_act_conv3x3_batched"
     for i, (hw, c) in enumerate(stages):
-        cases.append(conv_case(c3b, f32, "relu", n=8, b=128, h=hw, w_=hw,
-                               cin=c, cout=c, stride=1, shared_x=False,
-                               primary=i == 0, seed=70 + i, timed=True))
+        cases.append(conv_case(c3b, f32, "relu", n=8, b=RESNET_BATCH, h=hw,
+                               w_=hw, cin=c, cout=c, stride=1,
+                               shared_x=False, primary=i == 0, seed=70 + i,
+                               timed=True))
     cases.append(conv_case(c3b, f32, "relu", n=8, b=128, h=32, w_=32, cin=64,
                            cout=64, stride=1, shared_x=True, primary=False,
                            seed=75, timed=True))
@@ -618,6 +725,12 @@ def run_kernel_cases():
                                cout=24, stride=2 - i % 2,
                                shared_x=i % 2 == 1, primary=False,
                                seed=90 + i))
+        # route T: 192 images (a half-empty second image tile), Cout 264 in
+        # two 256-column tiles, stacked and shared x
+        cases.append(conv_case(c3b, f32, kind, n=3, b=192, h=6, w_=5, cin=24,
+                               cout=264, stride=2 - i % 2,
+                               shared_x=i % 2 == 0, primary=False,
+                               seed=150 + i))
 
     # ---- masked_act_matmul_2d: the un-stacked fused LM forward, and
     # ---- masked_act_matmul_2d_batched: every FFN of a fused suffix forward
@@ -1375,6 +1488,8 @@ def main() -> None:
             "tolerance": {"atol": prim["atol"], "rtol": prim["rtol"]}})
         if name.startswith("masked_act_matmul"):
             kernels[-1]["by_route"] = matmul_routes(name, mine, by_path)
+        if name.startswith("masked_act_conv3x3"):
+            kernels[-1].update(conv_routes(name, mine, by_path))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True,

@@ -44,12 +44,15 @@ launch_counts = {
     "masked_act_matmul_2d_batched": 0,
     "rwkv6_scan": 0,
 }
-# the fused matmul's launches by route (kernels.masked_act.matmul_route),
-# reset with launch_counts
-route_counts = {f"{name}:{route}": 0
-                for name in ("masked_act_matmul_2d",
-                             "masked_act_matmul_2d_batched")
-                for route in ("fma", "wgmma")}
+# the fused matmul's and the fused conv's launches by route
+# (kernels.masked_act.matmul_route and conv_route), reset with launch_counts
+route_counts = {
+    **{f"{name}:{route}": 0
+       for name in ("masked_act_matmul_2d", "masked_act_matmul_2d_batched")
+       for route in ("fma", "wgmma")},
+    **{f"{name}:{route}": 0
+       for name in ("masked_act_conv3x3", "masked_act_conv3x3_batched")
+       for route in ("fma", "tf32x3")}}
 
 
 def reset_launch_counts() -> None:
@@ -155,7 +158,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp, ll, ll, ll, ll, i, i, vp]
     lib.masked_act_conv3x3_launch.restype = i
     lib.masked_act_conv3x3_launch.argtypes = [
-        vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, i, i, ll, ll, i, i, vp]
+        vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, i, i, ll, ll, i, i, i,
+        vp]
     lib.masked_act_matmul_launch.restype = i
     lib.masked_act_matmul_launch.argtypes = [
         vp, vp, vp, vp, vp, i, ll, i, i, ll, ll, ll, i, i, i, vp]

@@ -43,6 +43,10 @@
 //    (0 = shared), which is all that separates the stacked use from the
 //    single one.  All nine taps are computed for every output; at 4 x 4
 //    images 31 % of those products meet a zero from the padding.
+//    This is route F ("fma") of the fused conv.  Route T ("tf32x3",
+//    masked_act_conv_sm90.cu) takes every float32 call with B % 64 == 0,
+//    Cin and Cout multiples of 8 and 16-byte aligned operands, on the
+//    tensor cores; kernels/masked_act.py conv_route picks the route.
 //
 // Arithmetic is float32 whatever the storage type (float32 or bfloat16);
 // results are rounded once, on the store.
@@ -446,18 +450,35 @@ extern "C" int masked_act_gate_launch(const void* x, const void* mask,
   return (int)cudaGetLastError();
 }
 
+// route T, in masked_act_conv_sm90.cu
+int masked_act_conv3x3_tf32x3_launch(
+    const void* x, const void* mask, const void* w, void* scratch, void* out,
+    int n_cand, int B, int H, int W, int Cin, int Cout, int Ho, int Wo,
+    int stride, int pad_h, int pad_w, long long x_cand_stride,
+    long long mask_cand_stride, int kind, cudaStream_t stream);
+
+// route: 0 = F (float32 FMA, any shape, float32 or bfloat16), 1 = T (the
+// tensor cores, float32 only; scratch holds 2 * Cout * 9 * Cin floats).  A
+// route that cannot take the call is refused, never replaced.
 extern "C" int masked_act_conv3x3_launch(
-    const void* x, const void* mask, const void* w, void* out, int n_cand,
-    int B, int H, int W, int Cin, int Cout, int Ho, int Wo, int stride,
-    int pad_h, int pad_w, long long x_cand_stride,
-    long long mask_cand_stride, int kind, int dtype, void* stream) {
+    const void* x, const void* mask, const void* w, void* scratch, void* out,
+    int n_cand, int B, int H, int W, int Cin, int Cout, int Ho, int Wo,
+    int stride, int pad_h, int pad_w, long long x_cand_stride,
+    long long mask_cand_stride, int kind, int dtype, int route,
+    void* stream) {
   if (n_cand <= 0 || B <= 0 || Ho <= 0 || Wo <= 0 || Cout <= 0) return 0;
-  if (n_cand > 65535 || (Cout + 63) / 64 > 65535 ||
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (dtype != 0) return (int)cudaErrorInvalidValue;
+    return masked_act_conv3x3_tf32x3_launch(
+        x, mask, w, scratch, out, n_cand, B, H, W, Cin, Cout, Ho, Wo, stride,
+        pad_h, pad_w, x_cand_stride, mask_cand_stride, kind, s);
+  }
+  if (route != 0 || n_cand > 65535 || (Cout + 63) / 64 > 65535 ||
       (long long)B * Ho * Wo > 2147483647LL - BM)
     return (int)cudaErrorInvalidValue;
   ConvGeom g{B, H, W, Cin, Cout, Ho, Wo, stride, pad_h, pad_w,
              x_cand_stride, mask_cand_stride};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool ok = false;
   if (dtype == 0)
     ok = dispatch_conv_kind<float>(kind, x, mask, w, out, n_cand, g, s);

@@ -1,5 +1,6 @@
 """Wrappers of the hand-written CUDA kernels (``csrc/masked_act.cu``,
-``csrc/masked_act_matmul.cu`` and ``csrc/masked_act_matmul_sm90.cu``).
+``csrc/masked_act_conv_sm90.cu``, ``csrc/masked_act_matmul.cu`` and
+``csrc/masked_act_matmul_sm90.cu``).
 
 Counterpart of ``repro/kernels/masked_act.py``.  Each wrapper checks device,
 type, shape and contiguity, allocates its output with ``torch.empty``,
@@ -18,8 +19,11 @@ stride 0: the kernel then reads the one shared copy N times.
 
 The fused matrix product has two routes, picked by :func:`matmul_route` and
 nothing else: ``"wgmma"`` (bfloat16 on the tensor cores) and ``"fma"``
-(float32 FMA, every other call).  A route the kernel library cannot take
-raises; no call falls back to another route or to the plain version.
+(float32 FMA, every other call).  The fused convolution has two, picked by
+:func:`conv_route`: ``"tf32x3"`` (float32 on the tensor cores, each operand
+split into two TF32 parts) and ``"fma"`` (float32 FMA, every other call).
+A route the kernel library cannot take raises; no call falls back to
+another route or to the plain version.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from .ref import same_pads
 KIND_CODES = {"relu": 0, "gelu": 1, "silu": 2, "sqrelu": 3}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MATMUL_ROUTES = {"fma": 0, "wgmma": 1}
+CONV_ROUTES = {"fma": 0, "tf32x3": 1}
 _TMA_ROWS = 2 ** 31         # a TMA coordinate is a signed 32-bit integer
 
 
@@ -143,6 +148,34 @@ def masked_act_2d_batched(x: torch.Tensor, mask: torch.Tensor,
                         n, rows, cols, stride, kind)
 
 
+def conv_route(dtype, b: int, cin: int, cout: int, ptrs, h: int, w: int,
+               n_cand: int) -> str:
+    """The route of a fused gate→conv call on the card, by one rule.
+
+    ``"tf32x3"`` (route T, ``csrc/masked_act_conv_sm90.cu``): float32, the
+    batch B a multiple of 64 (one wgmma fragment of images), Cin and Cout
+    multiples of 8 (TMA copies rows whose pitch is a multiple of 16 bytes,
+    and the products run in 8-channel slices), every operand's address in
+    ``ptrs`` (None is skipped) 16-byte aligned, and the TMA coordinates —
+    ``h * w * cin`` along a row of x, ``n_cand * b`` rows — within a signed
+    32-bit integer.  Stride 1 and 2 alike.  ``"fma"`` (route F,
+    ``csrc/masked_act.cu``): every bfloat16 call, and every float32 call
+    route T cannot take.  Raises TypeError for another dtype and ValueError
+    for an empty batch, Cin or Cout, which no route takes."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused conv: dtype must be float32 or bfloat16, "
+                        f"got {dtype}")
+    if b < 1 or cin < 1 or cout < 1 or h < 1 or w < 1 or n_cand < 1:
+        raise ValueError(f"fused conv: no route takes B={b}, Cin={cin}, "
+                         f"Cout={cout}, H={h}, W={w}, n_cand={n_cand}")
+    if (dtype == torch.float32 and b % 64 == 0 and cin % 8 == 0
+            and cout % 8 == 0 and h * w * cin < _TMA_ROWS
+            and n_cand * b < _TMA_ROWS
+            and all(p % 16 == 0 for p in ptrs if p is not None)):
+        return "tf32x3"
+    return "fma"
+
+
 def _launch_conv(name, x, mask, w, n, b, h, wd, cin, x_cand_stride,
                  mask_cand_stride, stride, kind, out_shape):
     dtype = _DTYPE_CODES[x.dtype]
@@ -161,15 +194,25 @@ def _launch_conv(name, x, mask, w, n, b, h, wd, cin, x_cand_stride,
                       device=x.device)
     if out.numel() == 0:
         return out
+    if cin == 0:
+        return out.zero_()
+    route = conv_route(x.dtype, b, cin, cout, (
+        x.data_ptr(), mask.data_ptr(), w.data_ptr(), out.data_ptr()),
+        h, wd, n)
+    # route T's big and small TF32 parts of w, K-major: (2, Cout, 9*Cin)
+    scratch = torch.empty((2, cout, 9 * cin), dtype=torch.float32,
+                          device=x.device) if route == "tf32x3" else None
     lib = build.load()
     with torch.cuda.device(x.device):
         code = lib.masked_act_conv3x3_launch(
-            x.data_ptr(), mask.data_ptr(), w.data_ptr(), out.data_ptr(),
+            x.data_ptr(), mask.data_ptr(), w.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
             n, b, h, wd, cin, cout, ho, wo, stride, plo_h, plo_w,
             x_cand_stride, mask_cand_stride, KIND_CODES[kind], dtype,
-            _stream(x))
-    build.check(lib, code, name)
+            CONV_ROUTES[route], _stream(x))
+    build.check(lib, code, f"{name} ({route} route)")
     build.launch_counts[name] += 1
+    build.route_counts[f"{name}:{route}"] += 1
     return out
 
 

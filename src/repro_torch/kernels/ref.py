@@ -101,6 +101,58 @@ def conv_same_nhwc(x, w, stride: int = 1):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero — the card's ``cvt.rna.tf32.f32`` — on the int32 view: add
+    half of the 13 dropped bits, then clear them.  Exact for finite values
+    and infinities (a value above the largest TF32 goes to infinity)."""
+    b = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """The big and small TF32 parts of a float32 tensor: hi = tf32(x) and
+    lo = tf32(x - hi), where x - hi is exact in float32; hi + lo keeps
+    about 22 significant bits of x."""
+    hi = round_tf32(x)
+    return hi, round_tf32(x - hi)
+
+
+def masked_act_conv3x3_tf32x3_ref(x, mask, w, *, stride: int = 1,
+                                  kind: str = "relu"):
+    """A plain emulation of the fused conv's route T (``"tf32x3"``) for the
+    tests: output pixel by output pixel, the in-image taps only, each gated
+    operand and weight split into TF32 parts and every product taken as
+    hi·W_hi + hi·W_lo + lo·W_hi with float32 sums — the arithmetic of the
+    tensor-core kernel, in another order.  Shapes as
+    :func:`masked_act_conv3x3_ref`; float32 only.  The port's ``ops`` never
+    call it: a CPU tensor takes :func:`masked_act_conv3x3_ref`."""
+    m = mask.to(torch.float32)
+    if m.dim() == 4:
+        m = m[:, None]
+    x = x.to(torch.float32)
+    g_hi, g_lo = split_tf32(m * _act(x, kind) + (1.0 - m) * x)
+    w_hi, w_lo = split_tf32(w)
+    h, wd = g_hi.shape[-3], g_hi.shape[-2]
+    ho, ph, _ = same_pads(h, stride)
+    wo, pw, _ = same_pads(wd, stride)
+    out = g_hi.new_zeros(g_hi.shape[:-3] + (ho, wo, w.shape[-1]))
+    for oy in range(ho):
+        for ox in range(wo):
+            acc = out[..., oy, ox, :]
+            for ky in range(3):
+                iy = oy * stride - ph + ky
+                for kx in range(3):
+                    ix = ox * stride - pw + kx
+                    if not (0 <= iy < h and 0 <= ix < wd):
+                        continue
+                    a_hi, a_lo = g_hi[..., iy, ix, :], g_lo[..., iy, ix, :]
+                    acc += a_hi @ w_lo[ky, kx]
+                    acc += a_lo @ w_hi[ky, kx]
+                    acc += a_hi @ w_hi[ky, kx]
+    return out
+
+
 def linattn_chunked_ref(r, k, v, w, u, s0, *, chunk: int,
                         decay_first: bool = False):
     """Chunked decayed linear attention over any leading axes: the
