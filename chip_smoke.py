@@ -17,6 +17,14 @@ sequential, batched, pipelined and suffix engines:
      ``rwkv_sited`` lines), its time-mix scan on the ``rwkv6_scan`` kernel,
      its channel-mix gate on the gate kernels; no fused route.
 
+and, on path 1's model, the paper's training half (``train``, ``snl``,
+``pipeline`` lines): the train step's gradients on the card against the
+CPU's, its time with and without deterministic algorithms, then train →
+SNL → finetune → BCD with finetuning between steps through the batched and
+suffix engines, at ResNet18's full width with the schedule cut short.  The
+hard gate's gradient runs on ``gate_bwd_kernel`` (``masked_act_2d_bwd``),
+the one kernel of the port with no TPU counterpart.
+
 Each path runs with the launch counts set to 0 just before it and read just
 after; the script checks that each went through its kernels and that the
 engines select identical blocks.
@@ -31,6 +39,22 @@ CPU path here.
 Tolerances (stated again in the output):
   * gate, float32: |err| <= 1e-6 + 1e-6*|ref| — same arithmetic, rounded the
     same way; only tanhf/expf may differ from PyTorch's by an ulp.
+  * gate backward, float32: dx |err| <= 1e-6 + 1e-6*|ref|, as the gate;
+    dpoly, a sum over r rows in another order than the plain version's,
+    |err| <= 1e-7 + 2*(r - 1)*2^-24*sum|terms|, the bound of two float32
+    sums of r terms; and a second launch gives the same bits.
+  * train step, through gate_bwd_kernel vs through the plain backward,
+    both on the card: each leaf's gradient within 1e-6 of its largest
+    entry (the kernel's dx is the plain version's to the bit in every
+    case; cuDNN runs its deterministic algorithms).
+  * train step, card vs CPU: each leaf's relative L2 error
+    |g_card - g_cpu| / |g_cpu| <= 2e-3 — the forward's 2e-3 on O(1)
+    logits, carried to each leaf's norm.  Not each entry: the gradient is
+    discontinuous at a ReLU whose input lies within rounding of 0, and
+    among 17.8 million gate inputs a few take the other sign on the other
+    device (counted and printed); each moves single entries downstream of
+    it by up to one product's worth (0.5 % of a leaf's largest entry
+    seen), the leaf's norm far less.
   * gate and fused conv, bfloat16: |err| <= 1e-2 + 1e-2*|ref| against the
     plain version computed in float32 from the same bfloat16 inputs and
     rounded once — one bfloat16 ulp is 2^-8 relative.
@@ -101,6 +125,7 @@ TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 _CSRC = "src/repro_torch/kernels/csrc/"
 SOURCE = {
     "masked_act_2d": _CSRC + "masked_act.cu",
+    "masked_act_2d_bwd": _CSRC + "masked_act.cu",
     "masked_act_2d_batched": _CSRC + "masked_act.cu",
     "masked_act_conv3x3": _CSRC + "masked_act_conv_sm90.cu",
     "masked_act_conv3x3_batched": _CSRC + "masked_act_conv_sm90.cu",
@@ -116,6 +141,9 @@ CONV_SOURCE = {"tf32x3": _CSRC + "masked_act_conv_sm90.cu",
                "fma": _CSRC + "masked_act.cu"}
 REPLACES = {
     "masked_act_2d": "src/repro/kernels/masked_act.py:55",
+    # port-only: the gradient of kernel 1, which the reference takes by
+    # autodiff of the plain gate (no backward pallas_call exists)
+    "masked_act_2d_bwd": "src/repro/kernels/masked_act.py:55",
     "masked_act_2d_batched": "src/repro/kernels/masked_act.py:140",
     "masked_act_conv3x3": "src/repro/kernels/masked_act.py:393",
     "masked_act_conv3x3_batched": "src/repro/kernels/masked_act.py:424",
@@ -131,7 +159,12 @@ PATH_KERNELS = {
                       "masked_act_matmul_2d",
                       "masked_act_matmul_2d_batched"),
     "rwkv6_3b": ("masked_act_2d", "masked_act_2d_batched", "rwkv6_scan"),
+    "resnet18_train": ("masked_act_2d", "masked_act_2d_bwd"),
 }
+# kernels with no TPU counterpart
+PORT_ONLY = {"masked_act_2d_bwd": "the gradient of kernel 1 (the reference "
+             "has no backward pallas_call; JAX differentiates the plain "
+             "gate)"}
 # ... and the fused routes (build.route_counts): ResNet18's float32 convs on
 # route T (tensor cores); StableLM's float32 path on route B, its bfloat16
 # forward on route A
@@ -153,6 +186,7 @@ CONV_ERR_RATIO = 4.0
 TOL = {
     ("gate", torch.float32): (1e-6, 1e-6),
     ("gate", torch.bfloat16): (1e-2, 1e-2),
+    ("gate_bwd", torch.float32): (1e-6, 1e-6),
     ("conv", torch.float32): (2e-4, 2e-4),
     ("conv", torch.bfloat16): (1e-2, 1e-2),
     ("matmul", torch.float32): (2e-4, 2e-4),
@@ -170,6 +204,15 @@ LM_SITED_DRC = 32
 LM_LOGIT_TOL = 1e-3
 LM_CPU_TOKENS = 32          # the card-vs-CPU check: 1 sequence x 32 tokens
 BCD_STEPS = 3       # outer steps per engine (b_target 300 below the start)
+# the training half on ResNet18 (cuts of the schedule, not of the model)
+TRAIN_BATCH = 32
+TRAIN_STEPS = 20            # train_base (the example: 80)
+SNL_EPOCHS, SNL_STEPS = 2, 5  # (the example: 6 x 5)
+FT_STEPS = 5                # SNL's finetune and BCD's (the example: 15, 12)
+TRAIN_BCD_STEPS = 2         # BCD outer steps per engine
+TRAIN_TIMED = 10            # train steps per timing
+KERNEL_STEP_TOL = 1e-6      # a step's gradients, gate_bwd_kernel vs plain
+GRAD_TOL = 2e-3             # card vs CPU: each leaf's relative L2 error
 
 
 def counts() -> dict:
@@ -194,6 +237,26 @@ def time_ms(fn, reps: int = 10, warm: int = 2) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int = 20, warm: int = 2) -> float:
+    """Device time of ``fn`` without the host's share: the launches are
+    queued behind a spin kernel (``torch.cuda._sleep``) and run back to
+    back, so a wrapper whose Python takes longer than its kernel is not
+    timed by its Python.  Used beside ``ms`` for the gate kernels, whose
+    kernels are shorter than their wrappers."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -227,7 +290,8 @@ def valid_taps(size: int, stride: int) -> int:
 
 KERNEL_TEMPLATES = ("gate_conv3x3_kernel", "gate_conv3x3_tf32x3_kernel",
                     "split_weights_kernel", "gate_matmul_fma_kernel",
-                    "gate_matmul_wgmma_kernel", "gate_kernel",
+                    "gate_matmul_wgmma_kernel", "gate_bwd_kernel",
+                    "poly_reduce_kernel", "gate_kernel",
                     "rwkv6_scan_kernel")
 
 
@@ -305,6 +369,54 @@ def gate_case(name, dtype, kind, n, rows, cols, poly, shared_x, primary,
                        byts, flops, primary,
                        dict(kind=kind, shape=list(x.shape), poly=poly,
                             shared_x=shared_x), timed)
+
+
+def gate_bwd_case(kind, rows, cols, poly, primary, seed, timed=False):
+    """The gate's backward kernel against ``ref.masked_act_bwd_ref``: x with
+    exact zeros (relu′(0) = 1/2), a binary mask, and with ``poly`` the
+    poly2 replacement and its gradient, whose row sum must also come out
+    the same, bit for bit, from a second launch."""
+    from repro_torch.kernels import masked_act as K, ref
+    name = "masked_act_2d_bwd"
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((rows, cols), generator=g, device="cuda")
+    x.view(-1)[::7] = 0.0
+    mask = (torch.rand((cols,), generator=g, device="cuda") < 0.6).float()
+    grad = torch.randn((rows, cols), generator=g, device="cuda")
+    p = torch.randn((3, cols), generator=g, device="cuda") * 0.3 \
+        if poly else None
+
+    def kernel():
+        return K.masked_act_2d_bwd(x, mask, grad, p, kind=kind,
+                                   need_dpoly=poly)
+
+    def plain():
+        return ref.masked_act_bwd_ref(x, mask, grad, kind, p, poly)
+
+    (dx, dpoly), (want_dx, want_dp) = kernel(), plain()
+    torch.cuda.synchronize()
+    extra = dict(kind=kind, shape=[rows, cols], poly=poly, shared_x=False,
+                 zeros_in_x=int((x == 0).sum()))
+    if poly:
+        g1m = grad * (1.0 - mask)
+        terms = torch.stack([(g1m * x * x).abs().sum(0),
+                             (g1m * x).abs().sum(0), g1m.abs().sum(0)])
+        bound = 1e-7 + 2 * (rows - 1) * 2.0 ** -24 * terms
+        err = (dpoly - want_dp).abs()
+        extra["dpoly_max_abs_err"] = float(err.max())
+        extra["dpoly_tol"] = "1e-7 + 2*(rows-1)*2^-24*sum|terms|"
+        if not torch.isfinite(dpoly).all() or bool((err > bound).any()):
+            fail(f"{name} {extra}: dpoly misses its tolerance")
+        again = kernel()[1]
+        torch.cuda.synchronize()
+        if not torch.equal(again, dpoly):
+            fail(f"{name} {extra}: two launches gave different dpoly bits")
+        del again, err, terms, bound
+    n_el = rows * cols
+    byts = nbytes(x, mask, grad, p) + 4 * n_el + (12 * cols if poly else 0)
+    flops = n_el * (6 + (9 if poly else 0))
+    return finish_case(name, "gate_bwd", torch.float32, dx, want_dx, kernel,
+                       plain, False, byts, flops, primary, extra, timed)
 
 
 class forced_conv_route:
@@ -584,6 +696,8 @@ def finish_case(name, family, dtype, out, want, kernel, plain,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             bytes=byts, flops=flops)
+        if family in ("gate", "gate_bwd"):
+            case["queued_ms"] = queued_ms(kernel)
     del out, want
     torch.cuda.empty_cache()
     return case
@@ -658,6 +772,24 @@ def run_kernel_cases():
         cases.append(gate_case(g2, bf16, kind, n=1, rows=64, cols=1000,
                                poly=i % 2 == 1, shared_x=False,
                                primary=False, seed=20 + i))
+
+    # ---- masked_act_2d_bwd: every ResNet18 site shape of the train step
+    # at batch 32 (the stem and stage 0, then stages 1-3), relu with the
+    # identity, and relu with poly2 and its gradient; ragged small shapes
+    # in all four kinds (203 columns take the scalar loads)
+    for i, (hw, c) in enumerate(stages):
+        cases.append(gate_bwd_case("relu", TRAIN_BATCH, hw * hw * c, False,
+                                   primary=i == 0, seed=160 + i,
+                                   timed=i == 3))
+    for i, (hw, c) in enumerate((stages[0], stages[3])):
+        cases.append(gate_bwd_case("relu", TRAIN_BATCH, hw * hw * c, True,
+                                   primary=False, seed=165 + i, timed=True))
+    for i, kind in enumerate(kinds):
+        for poly in (False, True):
+            cases.append(gate_bwd_case(kind, 37, 203, poly, primary=False,
+                                       seed=170 + 2 * i + poly))
+            cases.append(gate_bwd_case(kind, 9, 96, poly, primary=False,
+                                       seed=180 + 2 * i + poly))
 
     # ---- masked_act_2d_batched: a chunk of 8 candidates
     g2b = "masked_act_2d_batched"
@@ -971,6 +1103,395 @@ def run_sited_phase(model, params, batch):
         row["accs"] = [float(a) for a in accs["batched"]]
         out.append(row)
     return dict(model="resnet18", batch=128, timed_passes=reps, rows=out)
+
+
+# ------------------------------------------------------------ training half
+
+
+class record_gate_signs:
+    """Within the block, every gate records the signs of its input
+    (``CNN._relu`` calls ``linearize.apply_masked_act``): where the card
+    and the CPU give a ReLU's input different signs, the gradient takes
+    another branch of the kink."""
+
+    def __init__(self):
+        self.signs = {}
+
+    def __enter__(self):
+        from repro_torch.core import linearize
+        self.orig = linearize.apply_masked_act
+
+        def wrapped(x, mask, site, *a, **kw):
+            # by site shape, in call order (sites of one shape share a key)
+            name = "x".join(map(str, site.shape))
+            self.signs.setdefault(name, []).append(
+                torch.sign(x.detach()).to(torch.int8).cpu())
+            return self.orig(x, mask, site, *a, **kw)
+        linearize.apply_masked_act = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import linearize
+        linearize.apply_masked_act = self.orig
+
+
+class forced_plain_bwd:
+    """Within the block the gate's backward on the card is the plain
+    version (``ref.masked_act_bwd_ref``) instead of ``gate_bwd_kernel``;
+    chip_smoke.py holds one train step's gradients through the kernel to
+    it.  The port itself never swaps it."""
+
+    def __enter__(self):
+        from repro_torch.kernels import masked_act as K, ref
+        self.orig = K.masked_act_2d_bwd
+
+        def plain(x, mask, g, poly=None, *, kind="relu", need_dpoly=False):
+            return ref.masked_act_bwd_ref(x, mask, g, kind, poly, need_dpoly)
+        K.masked_act_2d_bwd = plain
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import masked_act as K
+        K.masked_act_2d_bwd = self.orig
+
+
+def grad_check(model, params, masks, bn, device="cuda"):
+    """One train step's gradients from the same parameters, masks and
+    batch of 32: on the card through ``gate_bwd_kernel``, on the card
+    through the plain backward, and on the CPU.  Every leaf's gradient on
+    the card must be finite and not all zero; through the kernel it must
+    equal the plain backward's within ``KERNEL_STEP_TOL`` of the leaf's
+    largest entry; against the CPU's, each leaf's relative L2 error is
+    reported with the ReLU inputs whose sign differs between card and
+    CPU."""
+    from repro_torch.convert import to_device
+    from repro_torch.core import masks as M
+    from repro_torch.kernels import build
+    from repro_torch.training import optimizer as opt_lib, train
+    _, loss_fn = train.make_cnn_train_step(model, opt_lib.sgd(5e-2))
+    m_dev, b_dev = M.as_device(masks, device), to_device(bn(0), device)
+    before = build.launch_counts["masked_act_2d_bwd"]
+    with record_gate_signs() as rec_c, train.deterministic():
+        (loss_c, _), g_card = train.loss_and_grads(loss_fn, params, m_dev,
+                                                   b_dev)
+    sync(device)
+    bwd_launches = build.launch_counts["masked_act_2d_bwd"] - before
+    with forced_plain_bwd(), train.deterministic():
+        _, g_plain = train.loss_and_grads(loss_fn, params, m_dev, b_dev)
+    with record_gate_signs() as rec_h:
+        (loss_h, _), g_cpu = train.loss_and_grads(
+            loss_fn, to_device(params, "cpu"), M.as_device(masks, "cpu"),
+            to_device(bn(0), "cpu"))
+    names = opt_lib.tree_leaves(_leaf_names(params))
+    leaves = zip(names, opt_lib.tree_leaves(g_card),
+                 opt_lib.tree_leaves(g_plain), opt_lib.tree_leaves(g_cpu))
+    per_leaf, kernel_vs_plain = {}, (-1.0, "")
+    for name, gc, gp, gh in leaves:
+        if not bool(torch.isfinite(gc).all()) or not bool(gc.abs().max() > 0):
+            fail(f"train: the card's gradient of {name} is not finite or "
+                 "all zero")
+        rel = float((gc - gp).abs().max() / gp.abs().max())
+        kernel_vs_plain = max(kernel_vs_plain, (rel, name))
+        gc = gc.cpu()
+        per_leaf[name] = dict(
+            max_rel=float((gc - gh).abs().max() / gh.abs().max()),
+            l2_rel=float((gc - gh).norm() / gh.norm()))
+    if not kernel_vs_plain[0] <= KERNEL_STEP_TOL:
+        fail(f"train: the step's gradient of {kernel_vs_plain[1]} through "
+             f"the backward kernel differs from the plain backward's by "
+             f"{kernel_vs_plain[0]} of its largest entry")
+    if device != "cpu" and bwd_launches != len(masks):
+        fail(f"train: {bwd_launches} launches of the gate's backward for "
+             f"{len(masks)} sites")
+    flips = {k: int(sum(int((a != b).sum()) for a, b in zip(
+        rec_c.signs[k], rec_h.signs[k]))) for k in rec_c.signs}
+    worst_l2 = max((v["l2_rel"], k) for k, v in per_leaf.items())
+    worst_max = max((v["max_rel"], k) for k, v in per_leaf.items())
+    if not worst_l2[0] <= GRAD_TOL:
+        fail(f"train: card vs CPU gradient of {worst_l2[1]}: relative L2 "
+             f"error {worst_l2[0]} exceeds {GRAD_TOL} (ReLU sign flips "
+             f"{flips})")
+    return dict(leaves=len(per_leaf),
+                kernel_vs_plain_bwd=dict(max_rel=kernel_vs_plain[0],
+                                         leaf=kernel_vs_plain[1],
+                                         tol=KERNEL_STEP_TOL),
+                card_vs_cpu=dict(l2_tol=GRAD_TOL, worst_l2_rel=worst_l2,
+                                 worst_max_rel=worst_max,
+                                 relu_sign_flips_by_site=flips,
+                                 per_leaf=per_leaf),
+                loss_card=float(loss_c), loss_cpu=float(loss_h),
+                bwd_launches_per_step=bwd_launches)
+
+
+def _leaf_names(tree, prefix=""):
+    """The tree with each leaf replaced by its dotted path (a str leaf)."""
+    if isinstance(tree, dict):
+        return {k: _leaf_names(v, f"{prefix}{k}.") for k, v in tree.items()}
+    return prefix[:-1]
+
+
+def time_train_steps(step, params, opt, masks_dev, batches, device):
+    """Wall-clock ms per train step over ``TRAIN_TIMED`` steps after two
+    warm-up steps (a fresh optimizer state each time)."""
+    ostate = opt.init(params)
+    p = params
+    for i in range(2):
+        p, ostate, _, _ = step(p, ostate, masks_dev, batches(i))
+    sync(device)
+    t0 = time.perf_counter()
+    for i in range(TRAIN_TIMED):
+        p, ostate, _, _ = step(p, ostate, masks_dev, batches(2 + i))
+    sync(device)
+    return (time.perf_counter() - t0) / TRAIN_TIMED * 1e3
+
+
+def profile_train_steps(step, params, opt, masks_dev, batches, n=3):
+    """Device time of ``n`` train steps by kernel family, kernel launches a
+    step, and the device's busy share of the wall-clock, from
+    ``torch.profiler`` (None where it records no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    ostate = opt.init(params)
+    p, ostate, _, _ = step(params, ostate, masks_dev, batches(0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            p, ostate, _, _ = step(p, ostate, masks_dev, batches(1 + i))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fams = {"gate_bwd_kernel": 0.0, "gate_kernel": 0.0, "conv": 0.0,
+            "gemm": 0.0, "reduce": 0.0, "elementwise": 0.0, "copy": 0.0,
+            "other": 0.0}
+    launches = 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if not us or str(getattr(e, "device_type", "")).find("CUDA") < 0:
+            continue
+        launches += e.count
+        k = e.key
+        low = k.lower()
+        if "gate_bwd_kernel" in k or "poly_reduce_kernel" in k:
+            fam = "gate_bwd_kernel"
+        elif "gate_kernel" in k:
+            fam = "gate_kernel"
+        elif any(t in low for t in ("conv", "cudnn", "wgrad", "dgrad",
+                                     "implicit", "winograd", "fft")):
+            fam = "conv"
+        elif any(t in low for t in ("gemm", "sgemm", "cutlass", "cublas")):
+            fam = "gemm"
+        elif "reduce" in low:
+            fam = "reduce"
+        elif "elementwise" in low or "vectorized" in low:
+            fam = "elementwise"
+        elif "copy" in low or "memcpy" in low or "memset" in low:
+            fam = "copy"
+        else:
+            fam = "other"
+        fams[fam] += us / 1e3 / n
+    busy = sum(fams.values())
+    if busy <= 0.0:
+        return None
+    return dict(steps=n, wall_ms_per_step=wall / n * 1e3,
+                device_ms_per_step_by_family=fams,
+                device_busy_ms_per_step=busy,
+                device_busy_share=busy / (wall / n * 1e3),
+                kernel_launches_per_step=launches / n)
+
+
+def run_train_path(by_path, device="cuda", cfg=None):
+    """The paper's training half at ResNet18's full width: the card-vs-CPU
+    gradient check, the step's time with and without deterministic
+    algorithms, then train_base → SNL → finetune (twice, bit-identical) →
+    BCD with finetuning between steps through the batched and suffix
+    engines (identical blocks and parameters).  Counts set to 0 just
+    before, read just after.  ``device="cpu"`` with a reduced ``cfg``
+    rehearses the path on a machine without a card."""
+    from repro_torch.convert import to_device
+    from repro_torch.core import bcd, linearize, masks as M
+    from repro_torch.core.snl import SNLConfig, finetune, run_snl
+    from repro_torch.data import ImageDatasetCfg, SyntheticImages
+    from repro_torch.kernels import build
+    from repro_torch.launch.sweep import make_bcd_evaluator
+    from repro_torch.models.resnet import CNN, CNNConfig
+    from repro_torch.training import optimizer as opt_lib, train
+    model = CNN(cfg or CNNConfig.resnet18(10, 32))
+    data = SyntheticImages(ImageDatasetCfg(
+        n_classes=model.cfg.n_classes, image_size=model.cfg.image_size,
+        seed=SEED))
+    params0 = model.init(torch.Generator().manual_seed(SEED), device)
+    bn = data.batches("train", TRAIN_BATCH)
+
+    def batches(i):
+        return to_device(bn(i), device)
+    sites = model.mask_sites()
+    masks0 = linearize.init_masks(sites)
+    total = model.relu_count()
+    b_ref = int(0.6 * total)
+    rng = np.random.default_rng(SEED)
+    rand_masks = {k: (rng.random(s.shape) < 0.6).astype(np.float32)
+                  for k, s in sites.items()}
+    eval_b = data.train_eval_set(128)
+    test_b = to_device(data.eval_set(64), device)
+    test_acc_fn = train.make_eval_acc(
+        lambda p, m: model.forward(p, M.as_device(m, device),
+                                   test_b["images"]), test_b)
+
+    def sloss(p, a, batch, soft):
+        logits = model.forward(p, a, batch["images"], soft=soft)
+        return train.cross_entropy(logits, batch["labels"]), 0.0
+
+    build.reset_launch_counts()
+    grads = grad_check(model, params0, rand_masks, bn, device)
+
+    # ---- the step: time with and without deterministic algorithms
+    opt = opt_lib.sgd(lr=5e-2, momentum=0.9)
+    step, _ = train.make_cnn_train_step(model, opt)
+    step_nd, _ = train.make_cnn_train_step(
+        model, opt, deterministic_algorithms=False)
+    mdev = M.as_device(masks0, device)
+    times = {"deterministic": [], "not_deterministic": []}
+    for label, fn in (("deterministic", step), ("not_deterministic", step_nd),
+                      ("not_deterministic", step_nd),
+                      ("deterministic", step)):
+        if label == "not_deterministic":
+            torch.backends.cudnn.benchmark = True
+        times[label].append(time_train_steps(fn, params0, opt, mdev,
+                                             batches, device))
+        torch.backends.cudnn.benchmark = False
+    prof = None if device == "cpu" else profile_train_steps(
+        step, params0, opt, mdev, batches)
+    ms = min(times["deterministic"])
+
+    # ---- train_base
+    stages = {}
+    ostate = opt.init(params0)
+    params = params0
+    losses = []
+    sync(device)
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        params, ostate, loss, _ = step(params, ostate, mdev, batches(i))
+        losses.append(loss)
+    sync(device)
+    stages["train_base"] = _stage(time.perf_counter() - t0, TRAIN_STEPS)
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train: train_base's loss did not fall: {losses}")
+
+    # ---- SNL to B_ref, then the finetune twice
+    alphas = {k: np.ones(v.shape, np.float32) for k, v in masks0.items()}
+    sync(device)
+    t0 = time.perf_counter()
+    res = run_snl(params, alphas, sloss, batches,
+                  SNLConfig(b_target=b_ref, lam0=5e-4, kappa=1.5,
+                            epochs=SNL_EPOCHS, steps_per_epoch=SNL_STEPS,
+                            lr=3e-2, finetune_steps=FT_STEPS),
+                  device=device)
+    sync(device)
+    stages["snl"] = _stage(time.perf_counter() - t0,
+                           len(res.budget_per_epoch) * SNL_STEPS + FT_STEPS)
+    if M.count(res.masks) != b_ref:
+        fail(f"snl: {M.count(res.masks)} ReLUs kept, B_ref is {b_ref}")
+    ft = []
+    for _ in range(2):
+        sync(device)
+        t0 = time.perf_counter()
+        ft.append(finetune(res.params, res.masks, sloss, batches,
+                           steps=FT_STEPS, lr=1e-2, device=device))
+        sync(device)
+        stages.setdefault("finetune", []).append(
+            _stage(time.perf_counter() - t0, FT_STEPS))
+    same = all(torch.equal(a, b) for a, b in zip(
+        opt_lib.tree_leaves(ft[0]), opt_lib.tree_leaves(ft[1])))
+    if not same:
+        fail("snl: a finetune repeated from the same parameters and "
+             "batches gave other bits")
+    snl_line = dict(
+        b_ref=b_ref, relus=total, epochs=SNL_EPOCHS,
+        steps_per_epoch=SNL_STEPS, finetune_steps=FT_STEPS,
+        budget_per_epoch=res.budget_per_epoch,
+        lam_per_epoch=res.lam_per_epoch,
+        alpha_min=float(min(v.min() for v in res.alphas.values())),
+        alpha_mean=float(np.mean(np.concatenate(
+            [v.ravel() for v in res.alphas.values()]))),
+        finetune_repeat_bit_identical=same,
+        test_acc_at_b_ref=float(test_acc_fn(ft[0], res.masks)))
+
+    # ---- BCD from B_ref with finetuning between steps, two engines
+    drc, rt, chunk = 100, 16, 8
+    runs, prints, finals = [], {}, {}
+    for engine in ("batched", "suffix"):
+        holder = {"params": res.params}
+        evaluator, eval_acc, set_ctx = make_bcd_evaluator(
+            engine, model, eval_b, holder, chunk_size=chunk, rt=rt,
+            prefetch=2, fused_kernels=True, device=device)
+
+        def ft_cb(m, holder=holder, set_ctx=set_ctx):
+            holder["params"] = finetune(holder["params"], m, sloss, batches,
+                                        steps=FT_STEPS, lr=1e-2,
+                                        device=device)
+            set_ctx(holder["params"])
+        # no early exit: every trial of a step goes through the engine
+        cfg = bcd.BCDConfig(b_target=b_ref - drc * TRAIN_BCD_STEPS, drc=drc,
+                            rt=rt, adt=-100.0, seed=0, chunk_size=chunk)
+        sync(device)
+        t0 = time.perf_counter()
+        out = bcd.run_bcd(res.masks, cfg, eval_acc, finetune=ft_cb,
+                          evaluator=evaluator)
+        sync(device)
+        wall = time.perf_counter() - t0
+        if M.relu_cost(out.masks) != cfg.b_target:
+            fail(f"pipeline {engine}: budget {M.relu_cost(out.masks)}")
+        prints[engine] = M.fingerprint(out.masks)
+        finals[engine] = holder["params"]
+        runs.append(dict(
+            engine=engine, steps=len(out.history),
+            trials=sum(h.trials for h in out.history), wall_s=wall,
+            fingerprint=prints[engine][:16],
+            acc_before=[h.acc_before for h in out.history],
+            acc_after_finetune=[h.acc_after_finetune for h in out.history],
+            test_acc=float(test_acc_fn(holder["params"], out.masks))))
+    if len(set(prints.values())) != 1:
+        fail(f"pipeline: the engines selected different blocks after "
+             f"finetuning: {prints}")
+    if not all(torch.equal(a, b) for a, b in zip(
+            opt_lib.tree_leaves(finals["batched"]),
+            opt_lib.tree_leaves(finals["suffix"]))):
+        fail("pipeline: the engines' finetuned parameters differ")
+    by_path["resnet18_train"] = counts()
+
+    ms_nd = min(times["not_deterministic"])
+    train_line = dict(
+        model=model.cfg.name, batch=TRAIN_BATCH, relus=total,
+        cuts={"train_base_steps": [TRAIN_STEPS, 80],
+              "snl_epochs_x_steps": [[SNL_EPOCHS, SNL_STEPS], [6, 5]],
+              "finetune_steps": [FT_STEPS, "15 (SNL), 12 (BCD)"],
+              "bcd_steps": TRAIN_BCD_STEPS,
+              "note": "cuts of the schedule, not of the model; "
+                      "[this run, the example]"},
+        card_vs_cpu=grads,
+        step_ms={"deterministic": ms, "not_deterministic": ms_nd,
+                 "runs": times, "determinism_cost": ms / ms_nd - 1.0},
+        images_per_s=TRAIN_BATCH / ms * 1e3,
+        profile=prof,
+        train_base=dict(stages["train_base"], loss_first=losses[0],
+                        loss_last=losses[-1]))
+    pipeline_line = dict(
+        stages={"train_base": stages["train_base"], "snl": stages["snl"],
+                "finetune": stages["finetune"],
+                "bcd": {r["engine"]: r["wall_s"] for r in runs}},
+        bcd=dict(b_ref=b_ref, b_target=b_ref - drc * TRAIN_BCD_STEPS,
+                 drc=drc, rt=rt, adt=-100.0, chunk_size=chunk,
+                 finetune_steps=FT_STEPS, runs=runs),
+        engines_identical=True)
+    return train_line, snl_line, pipeline_line
+
+
+def _stage(seconds, steps):
+    return dict(wall_s=seconds, steps=steps,
+                images_per_s=steps * TRAIN_BATCH / seconds)
 
 
 # ---------------------------------------------------------------- LM paths
@@ -1399,6 +1920,9 @@ def main() -> None:
     ap.add_argument("--only-kernels", action="store_true",
                     help="build and compare the kernels, then stop "
                          "(prints no result line)")
+    ap.add_argument("--only-train", action="store_true",
+                    help="build and compare the kernels, run the training "
+                         "half, then stop (prints no result line)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1440,6 +1964,11 @@ def main() -> None:
     emit({"kernel_cases": cases})
     if args.only_kernels:
         return
+    if args.only_train:
+        for name, line in zip(("train", "snl", "pipeline"),
+                              run_train_path({})):
+            emit({name: line})
+        return
 
     # ---- path 1, ResNet18: counts set to 0 just before, read just after
     model, params, batch = make_model_and_batch(SEED)
@@ -1452,6 +1981,10 @@ def main() -> None:
     emit({"bcd": bcd_report})
     emit({"sited": sited})
     del model, params, batch
+    torch.cuda.empty_cache()
+
+    # ---- path 1's training half, counted on its own
+    train_lines = run_train_path(by_path)
     torch.cuda.empty_cache()
 
     # ---- paths 2 and 3, StableLM-2-1.6B and RWKV-6 3B
@@ -1467,6 +2000,8 @@ def main() -> None:
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in build.launch_counts}
 
+    for name, line in zip(("train", "snl", "pipeline"), train_lines):
+        emit({name: line})
     kernels = []
     for name in build.launch_counts:
         mine = [c for c in cases if c["name"] == name]
@@ -1481,11 +2016,18 @@ def main() -> None:
             "max_abs_err_bf16": max((c["max_abs_err"] for c in mine
                                      if c["dtype"] == "bfloat16"),
                                     default=None),
-            "ms": prim["ms"], "plain_ms": prim["plain_ms"],
+            "ms": prim["ms"], "queued_ms": prim.get("queued_ms"),
+            "plain_ms": prim["plain_ms"],
             "bound_ms": prim["bound_ms"], "bound_by": prim["bound_by"],
             "library_ms": prim["library_ms"],
             "shape": prim["shape"], "dtype": prim["dtype"],
             "tolerance": {"atol": prim["atol"], "rtol": prim["rtol"]}})
+        if name in PORT_ONLY:
+            kernels[-1]["port_only"] = PORT_ONLY[name]
+            kernels[-1]["dpoly_max_abs_err"] = max(
+                c.get("dpoly_max_abs_err", 0.0) for c in mine)
+            kernels[-1]["dpoly_tolerance"] = next(
+                c["dpoly_tol"] for c in mine if "dpoly_tol" in c)
         if name.startswith("masked_act_matmul"):
             kernels[-1]["by_route"] = matmul_routes(name, mine, by_path)
         if name.startswith("masked_act_conv3x3"):

@@ -123,7 +123,9 @@ def apply_masked_act(x, mask, site: MaskSite, poly=None, soft: bool = False,
     stacked).
 
     soft=True keeps real-valued masks differentiable (SNL's relaxation);
-    hard masks route through the kernel wrappers.  Hard masks may carry
+    hard masks route through the kernel wrappers, and an un-stacked hard
+    gate under autograd through ``ops.MaskedActFn`` (its backward is the
+    hand-written ``gate_bwd_kernel`` on the card).  Hard masks may carry
     share-tied coordinates (``masks.TIE``), overridden by
     :func:`_apply_share_ties` unless the caller knows there are none
     (``ties=False``); soft mode treats every real value as an SNL relaxation
@@ -146,7 +148,9 @@ def apply_masked_act(x, mask, site: MaskSite, poly=None, soft: bool = False,
         lead = max(x.dim() - 1 - nd, 1)
         m_b = mask.reshape((mask.shape[0],) + (1,) * lead + tuple(site.shape))
     if soft:
-        return ref.masked_act_ref(x, torch.clamp(m_b, 0.0, 1.0),
+        # plain ops, differentiable; the clip's derivative is 1/2 on its
+        # bounds, where SNL's weights sit, as in the reference
+        return ref.masked_act_ref(x, ref.tie_clamp(m_b, 0.0, 1.0),
                                   kind=site.kind, poly=p)
     if stacked_mask:
         out = ops.masked_act_sited_batched(x, mask, kind=site.kind, poly=p)

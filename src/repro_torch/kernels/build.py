@@ -37,6 +37,7 @@ _lib: Optional[ctypes.CDLL] = None
 # wrapper adds one where it launches its kernel, and nowhere else
 launch_counts = {
     "masked_act_2d": 0,
+    "masked_act_2d_bwd": 0,
     "masked_act_2d_batched": 0,
     "masked_act_conv3x3": 0,
     "masked_act_conv3x3_batched": 0,
@@ -156,6 +157,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.masked_act_gate_launch.restype = i
     lib.masked_act_gate_launch.argtypes = [
         vp, vp, vp, vp, ll, ll, ll, ll, i, i, vp]
+    lib.masked_act_gate_bwd_launch.restype = i
+    lib.masked_act_gate_bwd_launch.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, ll, ll, ll, i, vp]
     lib.masked_act_conv3x3_launch.restype = i
     lib.masked_act_conv3x3_launch.argtypes = [
         vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, i, i, ll, ll, i, i, i,

@@ -48,6 +48,23 @@
 //    Cin and Cout multiples of 8 and 16-byte aligned operands, on the
 //    tensor cores; kernels/masked_act.py conv_route picks the route.
 //
+//  * gate_bwd_kernel         <- no TPU kernel: the gradient of the gate,
+//    + poly_reduce_kernel        which the reference takes by autodiff of
+//                                the plain gate (src/repro/core/linearize.py
+//                                apply_masked_act), written for the port's
+//                                training path (ops.MaskedActFn)
+//    dx = (g*m)*act'(x) + (g*(1-m))*lin'(x),  lin' = 1 or 2a*x + b, and,
+//    when poly is trained, dpoly = sum over rows of (g*(1-m))*(x^2, x, 1).
+//    Derivatives at ties as JAX takes them (relu'(0) = 1/2; kernels/ref.py
+//    states the conventions).  Bound by bytes like the forward gate: one
+//    read of x and g, one write of dx, 16-byte accesses, the mask row in
+//    registers.  float32 only.  The poly reduction is deterministic: a
+//    thread sums its column's rows of one fixed stripe in order, the
+//    stripes' partial sums go to scratch, and poly_reduce_kernel adds the
+//    stripes in order; the stripe size is an argument, chosen from the row
+//    count alone (kernels/masked_act.py bwd_stripes), so the order of every
+//    sum is a function of the shape and nothing else — no atomics.
+//
 // Arithmetic is float32 whatever the storage type (float32 or bfloat16);
 // results are rounded once, on the store.
 
@@ -178,6 +195,158 @@ bool dispatch_gate_kind(int kind, const void* x, const void* mask,
       return true;
   }
   return false;
+}
+
+// ------------------------------------------------------------- gate, bwd
+
+// d act / dx as reference autodiff takes it (kernels/ref.py act_grad_ref);
+// every product and sum rounded on its own
+template <int KIND>
+__device__ __forceinline__ float act_grad(float x) {
+  if (KIND == kRelu) return x > 0.0f ? 1.0f : (x == 0.0f ? 0.5f : 0.0f);
+  if (KIND == kGelu) {
+    const float c = 0.7978845608028654f;
+    const float x2 = __fmul_rn(x, x);
+    const float t = tanhf(
+        __fmul_rn(c, __fadd_rn(x, __fmul_rn(0.044715f, __fmul_rn(x2, x)))));
+    const float left = __fmul_rn(0.5f, __fadd_rn(1.0f, t));
+    // 0.134145 = 3 * 0.044715
+    const float dz = __fmul_rn(c, __fadd_rn(1.0f, __fmul_rn(0.134145f, x2)));
+    const float right = __fmul_rn(
+        __fmul_rn(__fmul_rn(0.5f, x), __fsub_rn(1.0f, __fmul_rn(t, t))), dz);
+    return __fadd_rn(left, right);
+  }
+  if (KIND == kSilu) {
+    const float e = expf(-x);
+    const float u = __fadd_rn(1.0f, e);
+    return __fadd_rn(__fdiv_rn(1.0f, u),
+                     __fmul_rn(x, __fdiv_rn(e, __fmul_rn(u, u))));
+  }
+  return x > 0.0f ? __fmul_rn(2.0f, x) : 0.0f;
+}
+
+// grid.x * block.x covers the column vectors, grid.y is the row stripe:
+// rows [y * stripe, min((y + 1) * stripe, rows)), walked in order.  With
+// DPOLY the thread's three running sums go to partial[y][0..2][cols].
+template <int KIND, bool POLY, bool DPOLY, int VEC>
+__global__ void gate_bwd_kernel(const float* __restrict__ x,
+                                const float* __restrict__ mask,
+                                const float* __restrict__ poly,
+                                const float* __restrict__ g,
+                                float* __restrict__ dx,
+                                float* __restrict__ partial, long long rows,
+                                long long cols, long long stripe) {
+  const long long col =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) * VEC;
+  if (col >= cols) return;
+  float m[VEC], pa2[VEC], pb[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    m[j] = mask[col + j];
+    if (POLY) {
+      pa2[j] = __fmul_rn(2.0f, poly[col + j]);
+      pb[j] = poly[cols + col + j];
+    }
+  }
+  float sa[VEC], sb[VEC], sc[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) sa[j] = sb[j] = sc[j] = 0.0f;
+
+  const long long r0 = (long long)blockIdx.y * stripe;
+  const long long r1 = r0 + stripe < rows ? r0 + stripe : rows;
+  for (long long r = r0; r < r1; ++r) {
+    const long long off = r * cols + col;
+    const Pack<float, VEC> xv =
+        *reinterpret_cast<const Pack<float, VEC>*>(x + off);
+    const Pack<float, VEC> gv =
+        *reinterpret_cast<const Pack<float, VEC>*>(g + off);
+    Pack<float, VEC> res;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const float v = xv.v[j];
+      const float gm = __fmul_rn(gv.v[j], m[j]);
+      const float g1m = __fmul_rn(gv.v[j], __fsub_rn(1.0f, m[j]));
+      const float dlin =
+          POLY ? __fmul_rn(g1m, __fadd_rn(__fmul_rn(pa2[j], v), pb[j])) : g1m;
+      res.v[j] = __fadd_rn(__fmul_rn(gm, act_grad<KIND>(v)), dlin);
+      if (DPOLY) {
+        const float gx = __fmul_rn(g1m, v);
+        sa[j] = __fadd_rn(sa[j], __fmul_rn(gx, v));
+        sb[j] = __fadd_rn(sb[j], gx);
+        sc[j] = __fadd_rn(sc[j], g1m);
+      }
+    }
+    *reinterpret_cast<Pack<float, VEC>*>(dx + off) = res;
+  }
+  if (DPOLY) {
+    float* p = partial + (long long)blockIdx.y * 3 * cols + col;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      p[j] = sa[j];
+      p[cols + j] = sb[j];
+      p[2 * cols + j] = sc[j];
+    }
+  }
+}
+
+// dpoly[i] = sum over stripes s = 0, 1, ... of partial[s][i], in that order
+__global__ void poly_reduce_kernel(const float* __restrict__ partial,
+                                   float* __restrict__ dpoly, long long n,
+                                   long long stripes) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.0f;
+  for (long long k = 0; k < stripes; ++k)
+    s = __fadd_rn(s, partial[k * n + i]);
+  dpoly[i] = s;
+}
+
+template <int KIND, bool POLY, bool DPOLY, int VEC>
+void launch_gate_bwd(const void* x, const void* mask, const void* poly,
+                     const void* g, void* dx, void* partial, long long rows,
+                     long long cols, long long stripe, cudaStream_t stream) {
+  const long long cvecs = cols / VEC;
+  int bx = 32;
+  while (bx < 256 && bx < cvecs) bx <<= 1;
+  const long long gx = (cvecs + bx - 1) / bx;
+  const long long gy = (rows + stripe - 1) / stripe;
+  dim3 grid((unsigned)gx, (unsigned)gy, 1);
+  gate_bwd_kernel<KIND, POLY, DPOLY, VEC><<<grid, bx, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(mask),
+      static_cast<const float*>(poly), static_cast<const float*>(g),
+      static_cast<float*>(dx), static_cast<float*>(partial), rows, cols,
+      stripe);
+}
+
+template <int KIND, bool POLY, bool DPOLY>
+void dispatch_gate_bwd_vec(const void* x, const void* mask, const void* poly,
+                           const void* g, void* dx, void* partial,
+                           long long rows, long long cols, long long stripe,
+                           cudaStream_t stream) {
+  const bool vec = cols % 4 == 0 && aligned16(x) && aligned16(g) &&
+                   aligned16(dx);
+  if (vec)
+    launch_gate_bwd<KIND, POLY, DPOLY, 4>(x, mask, poly, g, dx, partial,
+                                          rows, cols, stripe, stream);
+  else
+    launch_gate_bwd<KIND, POLY, DPOLY, 1>(x, mask, poly, g, dx, partial,
+                                          rows, cols, stripe, stream);
+}
+
+template <int KIND>
+void dispatch_gate_bwd_poly(const void* x, const void* mask, const void* poly,
+                            const void* g, void* dx, void* partial,
+                            long long rows, long long cols, long long stripe,
+                            cudaStream_t stream) {
+  if (poly == nullptr)
+    dispatch_gate_bwd_vec<KIND, false, false>(x, mask, poly, g, dx, partial,
+                                              rows, cols, stripe, stream);
+  else if (partial == nullptr)
+    dispatch_gate_bwd_vec<KIND, true, false>(x, mask, poly, g, dx, partial,
+                                             rows, cols, stripe, stream);
+  else
+    dispatch_gate_bwd_vec<KIND, true, true>(x, mask, poly, g, dx, partial,
+                                            rows, cols, stripe, stream);
 }
 
 // ------------------------------------------------------- fused gate -> conv
@@ -447,6 +616,53 @@ extern "C" int masked_act_gate_launch(const void* x, const void* mask,
     ok = dispatch_gate_kind<__nv_bfloat16>(kind, x, mask, poly, out, n_cand,
                                            rows, cols, x_cand_stride, s);
   if (!ok) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// The gate's gradient, float32 only.  poly may be null (identity
+// replacement).  partial and dpoly are both null (no dpoly) or both set:
+// partial holds ceil(rows / stripe) * 3 * cols floats of scratch, dpoly
+// 3 * cols.  Every stripe-size choice gives a deterministic result; the
+// caller keeps it a function of the shape.
+extern "C" int masked_act_gate_bwd_launch(const void* x, const void* mask,
+                                          const void* poly, const void* g,
+                                          void* dx, void* partial,
+                                          void* dpoly, long long rows,
+                                          long long cols, long long stripe,
+                                          int kind, void* stream) {
+  if (rows <= 0 || cols <= 0) return 0;
+  if (stripe <= 0 || (rows + stripe - 1) / stripe > 65535 ||
+      (partial == nullptr) != (dpoly == nullptr) ||
+      (partial != nullptr && poly == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (kind) {
+    case kRelu:
+      dispatch_gate_bwd_poly<kRelu>(x, mask, poly, g, dx, partial, rows, cols,
+                                    stripe, s);
+      break;
+    case kGelu:
+      dispatch_gate_bwd_poly<kGelu>(x, mask, poly, g, dx, partial, rows, cols,
+                                    stripe, s);
+      break;
+    case kSilu:
+      dispatch_gate_bwd_poly<kSilu>(x, mask, poly, g, dx, partial, rows, cols,
+                                    stripe, s);
+      break;
+    case kSqrelu:
+      dispatch_gate_bwd_poly<kSqrelu>(x, mask, poly, g, dx, partial, rows,
+                                      cols, stripe, s);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (dpoly != nullptr) {
+    const long long n = 3 * cols;
+    const long long stripes = (rows + stripe - 1) / stripe;
+    poly_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+        static_cast<const float*>(partial), static_cast<float*>(dpoly), n,
+        stripes);
+  }
   return (int)cudaGetLastError();
 }
 

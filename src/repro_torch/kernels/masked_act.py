@@ -10,6 +10,12 @@ else.
 The wrappers take CUDA tensors only; CPU tensors are served by
 ``kernels.ops`` through the plain versions in ``kernels.ref``.
 
+No wrapper is differentiable: each raises (:func:`refuse_grad`) when a
+gradient is being recorded and an input requires one, instead of returning
+a result cut off from the graph.  The one gate with a gradient is
+``ops.MaskedActFn``, whose forward is :func:`masked_act_2d` and whose
+backward is :func:`masked_act_2d_bwd` (``gate_bwd_kernel``).
+
 Layouts are the reference's: activations ``(rows, C)`` / ``(N, rows, C)`` for
 the gate, NHWC ``(B, H, W, Cin)`` / ``(N, B, H, W, Cin)`` and HWIO weights
 for the fused convolution, ``(rows, K)`` / ``(N, rows, K)`` activations and
@@ -32,7 +38,7 @@ from typing import Optional
 import torch
 
 from . import build
-from .ref import same_pads
+from .ref import recording, same_pads
 
 KIND_CODES = {"relu": 0, "gelu": 1, "silu": 2, "sqrelu": 3}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -44,6 +50,18 @@ _TMA_ROWS = 2 ** 31         # a TMA coordinate is a signed 32-bit integer
 def _same_pads(size: int, stride: int):
     """XLA SAME-padding geometry for a 3-tap window: (out, lo, hi)."""
     return same_pads(size, stride, 3)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd is recording and one of ``tensors`` (None is
+    skipped) requires a gradient: the kernel's result would carry no
+    ``grad_fn``, and every parameter upstream would silently get none."""
+    if recording(*tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and this kernel has no "
+            "backward (only the un-stacked float32 gate does, through "
+            "kernels.ops.MaskedActFn); run it under torch.no_grad(), or "
+            "call the model with fused=False and one mask tree")
 
 
 def _check_common(name: str, x: torch.Tensor, kind: str) -> None:
@@ -102,6 +120,7 @@ def masked_act_2d(x: torch.Tensor, mask: torch.Tensor,
     (3, channels) a, b, c of the replacement g(x) = a*x^2 + b*x + c; the
     identity when None.  Output has x's shape and dtype.
     """
+    refuse_grad("masked_act_2d", x, mask, poly)
     _check_common("masked_act_2d", x, kind)
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError("masked_act_2d: x must be a contiguous (rows, C) "
@@ -116,6 +135,73 @@ def masked_act_2d(x: torch.Tensor, mask: torch.Tensor,
                         out, 1, rows, cols, 0, kind)
 
 
+def bwd_stripes(rows: int):
+    """``(stripes, rows_per_stripe)`` of the gate's backward: every thread
+    walks its column through one stripe of rows, in order.  A function of
+    the row count alone, so the poly reduction adds in the same order
+    whatever the alignment or the column count (at least 4 rows a thread,
+    at most 65535 stripes, the grid's y limit)."""
+    per = max(4, -(-rows // 65535))
+    return -(-rows // per), per
+
+
+def masked_act_2d_bwd(x: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
+                      poly: Optional[torch.Tensor] = None, *,
+                      kind: str = "relu", need_dpoly: bool = False):
+    """The gradient of :func:`masked_act_2d` (``gate_bwd_kernel``).
+
+    x, g: contiguous float32 (rows, C) CUDA tensors (g the gradient of the
+    gate's output); mask (C,); poly None or (3, C).  Returns ``(dx,
+    dpoly)``: dx (rows, C), and dpoly (3, C) — the poly coefficients'
+    gradient, summed over the rows in a fixed order — when ``need_dpoly``
+    (which needs poly), else None.  Derivatives at ties as JAX takes them
+    (``kernels/ref.py``); the plain version is
+    ``ref.masked_act_bwd_ref``.
+    """
+    name = "masked_act_2d_bwd"
+    refuse_grad(name, x, mask, g, poly)
+    _check_common(name, x, kind)
+    if x.dtype != torch.float32 or g.dtype != torch.float32:
+        raise TypeError(f"{name}: x and g must be float32, got {x.dtype} "
+                        f"and {g.dtype}")
+    if x.dim() != 2 or not x.is_contiguous() or g.shape != x.shape or \
+            not g.is_contiguous() or g.device != x.device:
+        raise ValueError(f"{name}: x and g must be contiguous (rows, C) "
+                         f"tensors of one shape on one device, got "
+                         f"{tuple(x.shape)} and {tuple(g.shape)}")
+    rows, cols = x.shape
+    if mask.shape != (cols,):
+        raise ValueError(f"{name}: mask must be ({cols},), "
+                         f"got {tuple(mask.shape)}")
+    if poly is not None and poly.shape != (3, cols):
+        raise ValueError(f"{name}: poly must be (3, {cols}), "
+                         f"got {tuple(poly.shape)}")
+    if need_dpoly and poly is None:
+        raise ValueError(f"{name}: need_dpoly without poly")
+    m = _f32_on(mask, x, "mask")
+    p = None if poly is None else _f32_on(poly, x, "poly")
+    dx = torch.empty_like(x)
+    stripes, per = bwd_stripes(rows)
+    partial = dpoly = None
+    if need_dpoly:
+        partial = torch.empty((stripes, 3, cols), dtype=torch.float32,
+                              device=x.device)
+        dpoly = torch.empty((3, cols), dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return dx, None if dpoly is None else dpoly.zero_()
+    lib = build.load()
+    with torch.cuda.device(x.device):
+        code = lib.masked_act_gate_bwd_launch(
+            x.data_ptr(), m.data_ptr(), None if p is None else p.data_ptr(),
+            g.data_ptr(), dx.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            None if dpoly is None else dpoly.data_ptr(), rows, cols, per,
+            KIND_CODES[kind], _stream(x))
+    build.check(lib, code, name)
+    build.launch_counts[name] += 1
+    return dx, dpoly
+
+
 def masked_act_2d_batched(x: torch.Tensor, mask: torch.Tensor,
                           poly: Optional[torch.Tensor] = None, *,
                           kind: str = "relu") -> torch.Tensor:
@@ -127,6 +213,7 @@ def masked_act_2d_batched(x: torch.Tensor, mask: torch.Tensor,
     contiguous (N, rows, C) tensor.
     """
     name = "masked_act_2d_batched"
+    refuse_grad(name, x, mask, poly)
     _check_common(name, x, kind)
     if x.dim() != 3:
         raise ValueError(f"{name}: x must be (N, rows, C), "
@@ -223,6 +310,7 @@ def masked_act_conv3x3(x: torch.Tensor, mask: torch.Tensor,
     (H, W, Cin) — the full per-pixel site mask, shared over the batch — w
     HWIO (3, 3, Cin, Cout).  Returns (B, Ho, Wo, Cout) in x's dtype."""
     name = "masked_act_conv3x3"
+    refuse_grad(name, x, mask, w)
     _check_common(name, x, kind)
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be a contiguous (B, H, W, Cin) "
@@ -243,6 +331,7 @@ def masked_act_conv3x3_batched(x: torch.Tensor, mask: torch.Tensor,
     mask (N, H, W, Cin), one full site mask per candidate; w shared.
     Returns a fresh (N, B, Ho, Wo, Cout) tensor."""
     name = "masked_act_conv3x3_batched"
+    refuse_grad(name, x, mask, w)
     _check_common(name, x, kind)
     if x.dim() != 5:
         raise ValueError(f"{name}: x must be (N, B, H, W, Cin), "
@@ -334,6 +423,7 @@ def masked_act_matmul_2d(x: torch.Tensor, mask: torch.Tensor,
     mask in x's dtype.  Returns (rows, N_out) in x's dtype; the gated tensor
     is never written to device memory."""
     name = "masked_act_matmul_2d"
+    refuse_grad(name, x, mask, w, mul)
     _check_common(name, x, kind)
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be a contiguous (rows, K) tensor, "
@@ -360,6 +450,7 @@ def masked_act_matmul_2d_batched(x: torch.Tensor, mask: torch.Tensor,
     row b for candidate b; w shared.  Returns a fresh (N, rows, N_out)
     tensor."""
     name = "masked_act_matmul_2d_batched"
+    refuse_grad(name, x, mask, w, mul)
     _check_common(name, x, kind)
     if x.dim() != 3:
         raise ValueError(f"{name}: x must be (N, rows, K), "

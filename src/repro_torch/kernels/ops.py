@@ -10,8 +10,17 @@ The candidate axis is explicit: the ``*_batched`` entries take stacked masks
 still shared by all candidates ``(B, ...)``.  A shared activation is handed
 to the kernel as a stride-0 view, so the ``(N, B, ...)`` broadcast is never
 written.
+
+Gradients: the un-stacked gate (:func:`masked_act`,
+:func:`masked_act_sited`) goes through :class:`MaskedActFn` whenever
+autograd is recording and an input requires a gradient, on the CPU and the
+card alike, so the CPU tests exercise the backward rule the card runs.
+Every other entry raises in that case (``masked_act.refuse_grad``): no
+training path stacks candidates or fuses the gate into a product.
 """
 from __future__ import annotations
+
+import torch
 
 from . import ref
 from . import masked_act as K
@@ -20,11 +29,57 @@ from . import rwkv6_scan as RS
 MASKED_ACT_FUSED_KINDS = ("relu", "gelu", "silu", "sqrelu")
 
 
+class MaskedActFn(torch.autograd.Function):
+    """The hard gate ``y = m·act(x) + (1−m)·g(x)`` over (rows, C), with its
+    gradient for x and for poly (the mask gets none: hard masks are not
+    trained).
+
+    Forward: :func:`masked_act.masked_act_2d` (``gate_kernel``) on a CUDA
+    tensor, ``ref.masked_act_ref`` on a CPU one.  Backward:
+    :func:`masked_act.masked_act_2d_bwd` (``gate_bwd_kernel``) on a CUDA
+    tensor, ``ref.masked_act_bwd_ref`` on a CPU one — the same rule, with
+    JAX's derivatives at ties.  float32 only."""
+
+    @staticmethod
+    def forward(ctx, x, mask, poly, kind):
+        if x.dtype != torch.float32:
+            raise TypeError(f"MaskedActFn: the gate's gradient is float32 "
+                            f"only, got {x.dtype}")
+        if mask.requires_grad:
+            raise RuntimeError("MaskedActFn: a hard mask gets no gradient; "
+                               "train masks through the soft path")
+        ctx.kind = kind
+        ctx.save_for_backward(x, mask, poly)
+        if x.is_cuda:
+            return K.masked_act_2d(x.contiguous(), mask, poly, kind=kind)
+        return ref.masked_act_ref(x, mask, kind=kind, poly=poly)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mask, poly = ctx.saved_tensors
+        need_dpoly = poly is not None and ctx.needs_input_grad[2]
+        g = g.contiguous()
+        if x.is_cuda:
+            dx, dpoly = K.masked_act_2d_bwd(x.contiguous(), mask, g, poly,
+                                            kind=ctx.kind,
+                                            need_dpoly=need_dpoly)
+        else:
+            dx, dpoly = ref.masked_act_bwd_ref(x, mask, g, ctx.kind, poly,
+                                               need_dpoly)
+        return (dx if ctx.needs_input_grad[0] else None), None, dpoly, None
+
+
 def masked_act(x, mask, *, kind: str = "relu", poly=None):
     """y = mask·act(x) + (1−mask)·g(x) over (..., C) with per-channel mask.
 
-    Accepts any leading shape; flattens to (rows, C) for the kernel.
+    Accepts any leading shape; flattens to (rows, C) for the kernel.  Under
+    autograd (an input requires grad) the gate runs as
+    :class:`MaskedActFn`, whose mask must then be (C,).
     """
+    if ref.recording(x, mask, poly):
+        out = MaskedActFn.apply(x.reshape(-1, x.shape[-1]), mask, poly,
+                                kind)
+        return out.view(x.shape)
     if not x.is_cuda:
         return ref.masked_act_ref(x, mask, kind=kind, poly=poly)
     shape = x.shape
@@ -58,6 +113,7 @@ def masked_act_batched(x, masks, *, kind: str = "relu", poly=None):
     if x.shape[0] != n:
         raise ValueError(f"x {tuple(x.shape)} and masks "
                          f"{tuple(masks.shape)} disagree on N")
+    K.refuse_grad("masked_act_batched", x, masks, poly)
     if not x.is_cuda:
         m = masks.reshape((n,) + (1,) * (x.dim() - 2) + (masks.shape[-1],))
         return ref.masked_act_ref(x, m, kind=kind, poly=poly)
@@ -98,6 +154,7 @@ def masked_act_conv3x3(x, mask, w, *, stride: int = 1, kind: str = "relu"):
 
     x: (B, H, W, Cin); mask: (H, W, Cin) full per-pixel site mask; w HWIO.
     On the CPU this is the unfused pair (gate, pad, ``F.conv2d``)."""
+    K.refuse_grad("masked_act_conv3x3", x, mask, w)
     if not x.is_cuda:
         return ref.masked_act_conv3x3_ref(x, mask, w, stride=stride,
                                           kind=kind)
@@ -111,6 +168,7 @@ def masked_act_conv3x3_batched(x, masks, w, *, stride: int = 1,
     x (N, B, H, W, Cin), or (B, H, W, Cin) when still shared by the
     candidates; w shared."""
     n = masks.shape[0]
+    K.refuse_grad("masked_act_conv3x3_batched", x, masks, w)
     if not x.is_cuda:
         # the plain version broadcasts a shared x against (N, 1, ...) masks
         return ref.masked_act_conv3x3_ref(x, masks, w, stride=stride,
@@ -131,6 +189,7 @@ def masked_act_matmul(x, mask, w, mul=None, *, kind: str = "relu"):
     x: (..., K); mask: (K,), shared by every row, including rows that
     belong to different candidates; w: (K, N_out); mul: optional (..., K),
     the gated FFN's up branch.  On the CPU this is the unfused pair."""
+    K.refuse_grad("masked_act_matmul", x, mask, w, mul)
     if not x.is_cuda:
         return ref.masked_act_matmul_ref(x, mask, w, mul, kind=kind)
     k = x.shape[-1]
@@ -153,6 +212,7 @@ def masked_act_matmul_batched(x, masks, w, mul=None, *, kind: str = "relu"):
         if t is not None and t.shape[0] != n:
             raise ValueError(f"{what} {tuple(t.shape)} and masks "
                              f"{tuple(masks.shape)} disagree on N")
+    K.refuse_grad("masked_act_matmul_batched", x, masks, w, mul)
     if not x.is_cuda:
         return ref.masked_act_matmul_batched_ref(x, masks, w, mul, kind=kind)
     k = x.shape[-1]
@@ -170,6 +230,7 @@ def rwkv6(r, k, v, w, u, state, *, chunk: int = 32):
     (BH, T, V) and the new state.  T must be a multiple of ``chunk``, as
     in the reference.  A CPU tensor takes the chunked plain version, a
     CUDA tensor the hand-written kernel (``csrc/rwkv6_scan.cu``)."""
+    K.refuse_grad("rwkv6", r, k, v, w, u, state)
     if not r.is_cuda:
         return ref.rwkv6_scan_ref(r, k, v, w, u, state, chunk=chunk)
     return RS.rwkv6_scan(r, k, v, w, u, state, chunk=chunk)

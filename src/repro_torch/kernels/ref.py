@@ -3,6 +3,25 @@
 Used by tensors that lie on the CPU, by the tests, and as the yardstick the
 CUDA kernels are held against on the card.  Never used for a CUDA tensor on
 the package's own paths.
+
+**Derivatives at ties follow JAX, not PyTorch.**  The reference trains by
+``jax.grad``, and SNL's mask weights sit on the bounds of their clip at
+almost every step, so the port takes every derivative at a tie as JAX does:
+
+  * ``max(x, 0)`` (relu, and the ``r`` of sqrelu): 1/2 at x = 0 —
+    ``torch.relu`` gives 0 and ``torch.clamp_min`` 1.  sqrelu = r·r is then
+    0 at 0 all the same.
+  * ``clip(x, lo, hi)``: 1/2 at x = lo and at x = hi (``jnp.clip`` is
+    ``minimum(maximum(x, lo), hi)``) — ``torch.clamp`` gives 1.
+  * ``|x|``: 1 at x = 0 (and at -0) — ``torch.abs`` gives 0.
+  * tanh-GELU and SiLU: the derivative of the very expressions
+    :func:`_act` evaluates.
+
+:func:`tie_clamp`, :func:`abs_tie` and :func:`_act` (when a gradient is
+being recorded) carry these conventions into autograd;
+:func:`masked_act_bwd_ref` writes the hard gate's gradient out with them,
+and the CUDA backward (``csrc/masked_act.cu`` ``gate_bwd_kernel``)
+computes the same.
 """
 from __future__ import annotations
 
@@ -14,9 +33,51 @@ import torch.nn.functional as F
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
 
+class _TieClamp(torch.autograd.Function):
+    """``clamp(x, lo, hi)`` (``hi`` may be None) whose derivative is 1
+    inside, 1/2 on a bound and 0 outside."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.lo, ctx.hi = lo, hi
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        lo, hi = ctx.lo, ctx.hi
+        inside = x > lo
+        tie = x == lo
+        if hi is not None:
+            inside = inside & (x < hi)
+            tie = tie | (x == hi)
+        return g * (inside.to(g.dtype) + 0.5 * tie.to(g.dtype)), None, None
+
+
+def recording(*tensors) -> bool:
+    """Is autograd recording, and does one of ``tensors`` (None is
+    skipped) require a gradient?"""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def tie_clamp(x: torch.Tensor, lo: float, hi=None) -> torch.Tensor:
+    """``torch.clamp(x, lo, hi)`` with JAX's derivative at the bounds (1/2);
+    plain ``torch.clamp`` when no gradient is being recorded."""
+    if recording(x):
+        return _TieClamp.apply(x, lo, hi)
+    return torch.clamp(x, lo, hi)
+
+
+def abs_tie(x: torch.Tensor) -> torch.Tensor:
+    """``|x|`` whose derivative is 1 at 0, as ``jax.grad(jnp.abs)`` is."""
+    return torch.where(x >= 0, x, -x)
+
+
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "relu":
-        return torch.clamp_min(x, 0.0)
+        return tie_clamp(x, 0.0)
     if kind == "gelu":
         # tanh approximation — what the kernel computes
         return 0.5 * x * (1.0 + torch.tanh(
@@ -24,8 +85,28 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "silu":
         return x * (1.0 / (1.0 + torch.exp(-x)))
     if kind == "sqrelu":
-        r = torch.clamp_min(x, 0.0)
+        r = tie_clamp(x, 0.0)
         return r * r
+    raise ValueError(f"unknown activation {kind!r}")
+
+
+def act_grad_ref(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """d act / dx, written out with the conventions above; what the CUDA
+    backward computes element by element."""
+    if kind == "relu":
+        return (x > 0).to(x.dtype) + 0.5 * (x == 0).to(x.dtype)
+    if kind == "gelu":
+        x2 = x * x
+        t = torch.tanh(_SQRT_2_OVER_PI * (x + 0.044715 * (x2 * x)))
+        return 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * \
+            (_SQRT_2_OVER_PI * (1.0 + 0.134145 * x2))
+    if kind == "silu":
+        # d/dx of x * (1 / u), u = 1 + exp(-x), as autodiff takes it
+        e = torch.exp(-x)
+        u = 1.0 + e
+        return 1.0 / u + x * (e / (u * u))
+    if kind == "sqrelu":
+        return torch.where(x > 0, 2.0 * x, torch.zeros_like(x))
     raise ValueError(f"unknown activation {kind!r}")
 
 
@@ -46,6 +127,33 @@ def masked_act_ref(x, mask, kind: str = "relu", poly=None):
         lin = a * x * x + b * x + c
     m = mask.to(x.dtype)
     return m * act + (1.0 - m) * lin
+
+
+def masked_act_bwd_ref(x, mask, g, kind: str = "relu", poly=None,
+                       need_dpoly: bool = False):
+    """The hard gate's gradient, the plain version of the CUDA backward.
+
+    x, g: (rows, C) float32; mask: (C,); poly: None or (3, C).  Returns
+    ``(dx, dpoly)``:
+
+      dx    = (g·m)·act'(x) + (g·(1−m))·lin'(x),  lin' = 1 or 2a·x + b
+      dpoly = Σ_rows (g·(1−m))·(x², x, 1)         (None unless need_dpoly)
+
+    with the derivative conventions of this module's docstring.
+    """
+    m = mask.to(x.dtype)
+    gm = g * m
+    g1m = g * (1.0 - m)
+    if poly is None:
+        dlin = g1m
+    else:
+        dlin = g1m * (2.0 * poly[0] * x + poly[1])
+    dx = gm * act_grad_ref(x, kind) + dlin
+    dpoly = None
+    if need_dpoly:
+        gx = g1m * x
+        dpoly = torch.stack([(gx * x).sum(0), gx.sum(0), g1m.sum(0)])
+    return dx, dpoly
 
 
 def masked_act_matmul_ref(x, mask, w, mul=None, *, kind: str = "relu"):
@@ -92,6 +200,13 @@ def conv_same_nhwc(x, w, stride: int = 1):
     _, hlo, hhi = same_pads(x.shape[1], stride, kh)
     _, wlo, whi = same_pads(x.shape[2], stride, kw)
     xn = x.permute(0, 3, 1, 2)
+    if not x.is_cuda and recording(x, w):
+        # PyTorch's CPU (oneDNN) backward of a strided convolution of a
+        # channels_last input corrupts the heap (seen with torch 2.13 at a
+        # 1x1 stride-2 convolution of 32x32 images); a CPU training
+        # forward hands it contiguous NCHW.  The card and every
+        # forward without a gradient take the view as it is.
+        xn = xn.contiguous()
     if hlo == hhi and wlo == whi:
         padding = (hlo, wlo)
     else:

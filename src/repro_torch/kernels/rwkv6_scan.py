@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from . import build
+from .masked_act import refuse_grad
 
 # K and V at most: one thread per value column, its S[:, v] in registers
 MAX_WIDTH = 64
@@ -30,6 +31,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     token by token.  Returns y (BH, T, V) and the new state (BH, K, V).
     """
     name = "rwkv6_scan"
+    refuse_grad(name, r, k, v, w, u, state)
     for what, t in dict(r=r, k=k, v=v, w=w, u=u, state=state).items():
         if not t.is_cuda:
             raise ValueError(f"{name}: {what} must be a CUDA tensor (CPU "
