@@ -14,8 +14,9 @@ sequential, batched, pipelined and suffix engines:
      eval tokens that the full-mask model continues greedily from a Markov
      prompt (``lm_batch``, ``lm_forward``, ``lm_bcd``, ``lm_sited`` lines);
   3. RWKV-6 3B the same way (``rwkv_batch``, ``rwkv_forward``, ``rwkv_bcd``,
-     ``rwkv_sited`` lines), its time-mix scan on the ``rwkv6_scan`` kernel,
-     its channel-mix gate on the gate kernels; no fused route.
+     ``rwkv_sited`` lines), its time-mix scan on the ``rwkv6_scan`` kernel
+     (route C, on the tensor cores), its channel-mix gate on the gate
+     kernels; no fused route.
 
 and, on path 1's model, the paper's training half (``train``, ``snl``,
 ``pipeline`` lines): the train step's gradients on the card against the
@@ -83,8 +84,14 @@ Tolerances (stated again in the output):
     BatchNorm's rsqrt amplifies conv rounding through 17 gated layers.
   * RWKV-6 scan, float32: |err| <= 3e-4 + 3e-4*|ref|, the reference's own
     tolerance — the plain version is the chunked form, which divides by
-    in-chunk decay products; the error of both against the token-serial
-    recurrence in float64 is printed too.
+    in-chunk decay products.  Every case takes the route the rule picks
+    (route C, ``tf32x3``: the tensor cores, each operand split into TF32
+    parts) and keeps its error against the token-serial recurrence in
+    float64 within 4x the plain version's; route S (``serial``), forced
+    beside it at the path's shapes, is held to the same tolerance.  Under
+    strong decay (w down to 2e-9) the plain version is not finite, and
+    route C must be finite with its error against float64 within 4x route
+    S's.
   * LM logits: 1e-3 absolute, the same comparisons — 24 or 32 layers of
     sums of up to 8960 products in other orders; logits are O(1) and a
     float32 sum of that length is off by about 1e-5 relative.  The RWKV
@@ -134,11 +141,14 @@ SOURCE = {
     # the fused matmul's routes (kernels.masked_act.matmul_route)
     "fma": _CSRC + "masked_act_matmul.cu",
     "wgmma": _CSRC + "masked_act_matmul_sm90.cu",
-    "rwkv6_scan": _CSRC + "rwkv6_scan.cu",
+    "rwkv6_scan": _CSRC + "rwkv6_scan_sm90.cu",
 }
 # the fused conv's routes (kernels.masked_act.conv_route)
 CONV_SOURCE = {"tf32x3": _CSRC + "masked_act_conv_sm90.cu",
                "fma": _CSRC + "masked_act.cu"}
+# the scan's routes (kernels.rwkv6_scan.scan_route)
+SCAN_SOURCE = {"tf32x3": _CSRC + "rwkv6_scan_sm90.cu",
+               "serial": _CSRC + "rwkv6_scan.cu"}
 REPLACES = {
     "masked_act_2d": "src/repro/kernels/masked_act.py:55",
     # port-only: the gradient of kernel 1, which the reference takes by
@@ -165,14 +175,15 @@ PATH_KERNELS = {
 PORT_ONLY = {"masked_act_2d_bwd": "the gradient of kernel 1 (the reference "
              "has no backward pallas_call; JAX differentiates the plain "
              "gate)"}
-# ... and the fused routes (build.route_counts): ResNet18's float32 convs on
+# ... and the routes (build.route_counts): ResNet18's float32 convs on
 # route T (tensor cores); StableLM's float32 path on route B, its bfloat16
-# forward on route A
+# forward on route A; RWKV-6's scans on route C (tensor cores), every one
 PATH_ROUTES = {
     "resnet18": ("masked_act_conv3x3:tf32x3",
                  "masked_act_conv3x3_batched:tf32x3"),
     "stablelm_1p6b": ("masked_act_matmul_2d:fma", "masked_act_matmul_2d:wgmma",
                       "masked_act_matmul_2d_batched:fma"),
+    "rwkv6_3b": ("rwkv6_scan:tf32x3",),
 }
 # (rows, K, N_out) of the LM paths' fused products: every bfloat16 case at
 # one of these must take route A
@@ -183,6 +194,10 @@ LM_MATMUL_SHAPES = {(1016, 5632, 2048)}
 RESNET_BATCH = 128
 STAGES = ((32, 64), (16, 128), (8, 256), (4, 512))
 CONV_ERR_RATIO = 4.0
+# every scan case on route C keeps its error against the float64 token loop
+# within this many times the plain version's (under strong decay, where the
+# plain version is not finite, route S's)
+SCAN_ERR_RATIO = 4.0
 TOL = {
     ("gate", torch.float32): (1e-6, 1e-6),
     ("gate", torch.bfloat16): (1e-2, 1e-2),
@@ -292,7 +307,7 @@ KERNEL_TEMPLATES = ("gate_conv3x3_kernel", "gate_conv3x3_tf32x3_kernel",
                     "split_weights_kernel", "gate_matmul_fma_kernel",
                     "gate_matmul_wgmma_kernel", "gate_bwd_kernel",
                     "poly_reduce_kernel", "gate_kernel",
-                    "rwkv6_scan_kernel")
+                    "rwkv6_scan_tf32x3_kernel", "rwkv6_scan_kernel")
 
 
 def ptxas_summary(log: str) -> dict:
@@ -419,22 +434,22 @@ def gate_bwd_case(kind, rows, cols, poly, primary, seed, timed=False):
                        plain, False, byts, flops, primary, extra, timed)
 
 
-class forced_conv_route:
-    """Within the block, every fused conv call takes ``route`` whatever
-    ``conv_route`` says: chip_smoke.py times route F at the path's shapes
-    beside route T with it.  The port itself never forces a route."""
+class forced_route:
+    """Within the block, every call that ``module.<rule>`` routes takes
+    ``route`` whatever the rule says: chip_smoke.py times the fused conv's
+    route F beside route T (``masked_act.conv_route``) and the scan's route
+    S beside route C (``rwkv6_scan.scan_route``) at the path's shapes with
+    it.  The port itself never forces a route."""
 
-    def __init__(self, route):
-        self.route = route
+    def __init__(self, module, rule, route):
+        self.module, self.name, self.route = module, rule, route
 
     def __enter__(self):
-        from repro_torch.kernels import masked_act as K
-        self.rule = K.conv_route
-        K.conv_route = lambda *a, **k: self.route
+        self.rule = getattr(self.module, self.name)
+        setattr(self.module, self.name, lambda *a, **k: self.route)
 
     def __exit__(self, *exc):
-        from repro_torch.kernels import masked_act as K
-        K.conv_route = self.rule
+        setattr(self.module, self.name, self.rule)
 
 
 def conv_case(name, dtype, kind, n, b, h, w_, cin, cout, stride, shared_x,
@@ -494,7 +509,7 @@ def conv_case(name, dtype, kind, n, b, h, w_, cin, cout, stride, shared_x,
         extra["kernel_err_vs_f64"] = float((out.double() - exact).abs().max())
         extra["plain_err_vs_f64"] = float((want.double() - exact).abs().max())
         if path_shaped:
-            with forced_conv_route("fma"):
+            with forced_route(K, "conv_route", "fma"):
                 fma = kernel()
             torch.cuda.synchronize()
             extra["fma_err_vs_f64"] = float((fma.double() - exact).abs()
@@ -511,7 +526,7 @@ def conv_case(name, dtype, kind, n, b, h, w_, cin, cout, stride, shared_x,
                      f"above {CONV_ERR_RATIO}x the plain version's")
         del exact
     if path_shaped and (primary or timed):
-        with forced_conv_route("fma"):
+        with forced_route(K, "conv_route", "fma"):
             extra["fma_ms"] = time_ms(kernel)
     extra["bound_fma_ms"] = max(byts / HBM_BYTES_PER_S,
                                 flops / FP32_FLOP_PER_S) * 1e3
@@ -610,23 +625,32 @@ def matmul_case(name, dtype, kind, n, rows, k, nout, with_mul, shared_x,
 
 
 def scan_case(bh, T, K, V, chunk, heads, shared_state, primary, seed,
-              timed=False):
-    """One comparison of the RWKV-6 scan kernel with its chunked plain
-    version, and of both with the token-serial recurrence in float64.
-    ``heads``: u is an (H, K) per-head table (the path's layout); 0: a
-    full (BH, K) u; 1: one row expanded with stride 0.  ``shared_state``:
-    the initial state is one zero (K, V) expanded with stride 0, as the
-    path passes it; otherwise a random state per row."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+              timed=False, with_serial=False, strong=False):
+    """One comparison of the RWKV-6 scan, on the route the rule picks
+    (route C), with its chunked plain version, and of both with the
+    token-serial recurrence in float64: the kernel's error against it must
+    stay within ``SCAN_ERR_RATIO`` times the plain version's.  ``heads``: u
+    is an (H, K) per-head table (the path's layout); 0: a full (BH, K) u; 1:
+    one row expanded with stride 0.  ``shared_state``: the initial state is
+    one zero (K, V) expanded with stride 0, as the path passes it;
+    otherwise a random state per row.  ``with_serial``: route S is forced
+    beside it, held to the same tolerance, and timed.  ``strong``: decays
+    w = exp(-exp(U(-1, 3))), down to 2e-9, instead of the reference test's
+    U(0.7, 0.999); the plain version divides by in-chunk decay products
+    that underflow there and is not finite (recorded), so the case is held
+    to the float64 recurrence: route C finite, its error within
+    ``SCAN_ERR_RATIO`` times route S's."""
+    from repro_torch.kernels import build, ref, rwkv6_scan as RS
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device="cuda") * scale
     r, k = randn(bh, T, K, scale=0.5), randn(bh, T, K, scale=0.5)
     v = randn(bh, T, V)
-    # the reference test's decays (tests/test_kernels.py:233)
-    w = 0.7 + 0.299 * torch.rand((bh, T, K), generator=g, device="cuda")
+    uniform = torch.rand((bh, T, K), generator=g, device="cuda")
+    # the reference test's decays (tests/test_kernels.py:233), or strong ones
+    w = torch.exp(-torch.exp(4.0 * uniform - 1.0)) if strong else \
+        0.7 + 0.299 * uniform
     u = randn(heads or bh, K, scale=0.3)
     if heads == 1:
         u = u.expand(bh, K)
@@ -634,32 +658,88 @@ def scan_case(bh, T, K, V, chunk, heads, shared_state, primary, seed,
         if shared_state else randn(bh, K, V, scale=0.1)
 
     def kernel():
-        return rwkv6_scan(r, k, v, w, u, state, chunk=chunk)
+        return RS.rwkv6_scan(r, k, v, w, u, state, chunk=chunk)
 
     def plain():
         return ref.rwkv6_scan_ref(r, k, v, w, u, state, chunk=chunk)
 
     def flat(pair):
         return torch.cat([pair[0].flatten(), pair[1].flatten()])
-    out, want = kernel(), plain()
+    before = dict(build.route_counts)
+    out = flat(kernel())
+    routes = [n.split(":")[1] for n, c in build.route_counts.items()
+              if c != before[n]]
+    want = flat(plain())
     torch.cuda.synchronize()
+    rule = RS.scan_route(torch.float32, bh, T, K, V)
+    if routes != [rule]:
+        fail(f"rwkv6_scan {[bh, T, K, V]}: took routes {routes}, the rule "
+             f"says {rule}")
     exact = flat(ref.rwkv6_serial_ref(*(t.double() for t in
                                         (r, k, v, w, u, state))))
-    extra = dict(shape=[bh, T, K, V], chunk=chunk,
+
+    def err64(x):
+        return float((x.double() - exact).abs().max())
+    plain_finite = bool(torch.isfinite(want).all())
+    extra = dict(scan_route=rule, shape=[bh, T, K, V], chunk=chunk,
+                 decay="exp(-exp(U(-1, 3)))" if strong else
+                 "U(0.7, 0.999)",
                  u="(H, K) table" if heads > 1 else
                  "stride-0 row" if heads == 1 else "(BH, K)",
                  state="shared zeros" if shared_state else "random",
-                 kernel_err_vs_f64=float((flat(out).double() - exact)
-                                         .abs().max()),
-                 plain_err_vs_f64=float((flat(want).double() - exact)
-                                        .abs().max()))
-    del exact
+                 kernel_err_vs_f64=err64(out),
+                 plain_err_vs_f64=err64(want) if plain_finite else None,
+                 plain_finite=plain_finite)
+    atol, rtol = TOL[("scan", torch.float32)]
+    if with_serial or strong:
+        with forced_route(RS, "scan_route", "serial"):
+            serial = flat(kernel())
+        torch.cuda.synchronize()
+        extra["serial_err_vs_f64"] = err64(serial)
+        if plain_finite:
+            err = (serial - want).abs()
+            extra["serial_max_abs_err"] = float(err.max())
+            if bool((err > atol + rtol * want.abs()).any()):
+                fail(f"rwkv6_scan {extra}: route S misses the tolerance")
+        del serial
     byts = nbytes(r, k, v, w, u, state) + 4 * (bh * T * V + bh * K * V)
     # per token and row: r.S (2KV), the state update (3KV), the bonus
     flops = bh * T * (5.0 * K * V + 3 * K + 2 * V)
-    return finish_case("rwkv6_scan", "scan", torch.float32, flat(out),
-                       flat(want), kernel, plain, False, byts, flops,
-                       primary, extra, timed)
+    if with_serial and (primary or timed):
+        with forced_route(RS, "scan_route", "serial"):
+            extra["serial_ms"] = time_ms(kernel)
+    if not strong:
+        if not extra["kernel_err_vs_f64"] <= \
+                SCAN_ERR_RATIO * extra["plain_err_vs_f64"]:
+            fail(f"rwkv6_scan {extra}: route {rule}'s error against float64 "
+                 f"is above {SCAN_ERR_RATIO}x the plain version's")
+        del exact
+        return finish_case("rwkv6_scan", "scan", torch.float32, out, want,
+                           kernel, plain, False, byts, flops, primary, extra,
+                           timed)
+    # strong decay: held to the float64 recurrence, not to the plain version
+    if not torch.isfinite(out).all():
+        fail(f"rwkv6_scan {extra}: route {rule} is not finite under strong "
+             "decay")
+    if not extra["kernel_err_vs_f64"] <= \
+            SCAN_ERR_RATIO * extra["serial_err_vs_f64"]:
+        fail(f"rwkv6_scan {extra}: route {rule}'s error against float64 is "
+             f"above {SCAN_ERR_RATIO}x route S's under strong decay")
+    case = dict(name="rwkv6_scan", dtype="float32",
+                max_abs_err=extra["kernel_err_vs_f64"],
+                held_to="the float64 token loop", primary=primary, **extra)
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    with forced_route(RS, "scan_route", "serial"):
+        case["serial_ms"] = time_ms(kernel)
+    case.update(ms=time_ms(kernel), queued_ms=queued_ms(kernel),
+                plain_ms=time_ms(plain),
+                library_ms=None, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=byts, flops=flops)
+    del out, want, exact
+    torch.cuda.empty_cache()
+    return case
 
 
 def finish_case(name, family, dtype, out, want, kernel, plain,
@@ -696,7 +776,7 @@ def finish_case(name, family, dtype, out, want, kernel, plain,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             bytes=byts, flops=flops)
-        if family in ("gate", "gate_bwd"):
+        if family in ("gate", "gate_bwd", "scan"):
             case["queued_ms"] = queued_ms(kernel)
     del out, want
     torch.cuda.empty_cache()
@@ -746,6 +826,55 @@ def conv_routes(name, mine, by_path) -> dict:
             "bound_tf32x3_ms", "bound_fma_ms", "kernel_err_vs_f64",
             "fma_err_vs_f64", "plain_err_vs_f64")})
     return {"by_route": by_route, "by_stage": by_stage}
+
+
+def scan_routes(mine, by_path) -> dict:
+    """The scan's two routes side by side (each one's source, launches on
+    the main paths and largest error against the plain version), and every
+    case where route S ran beside route C: both routes' times, the plain
+    version's, the bound, and the three errors against the float64 token
+    loop."""
+    by_route = {route: {
+        "source": SCAN_SOURCE[route],
+        "launches": sum(p[f"rwkv6_scan:{route}"] for p in by_path.values())}
+        for route in ("tf32x3", "serial")}
+    by_route["tf32x3"]["max_abs_err"] = max(
+        c["max_abs_err"] for c in mine if c["plain_finite"])
+    by_route["serial"]["max_abs_err"] = max(
+        c["serial_max_abs_err"] for c in mine if "serial_max_abs_err" in c)
+    by_shape = [{k: c.get(k) for k in (
+        "shape", "decay", "scan_route", "ms", "queued_ms", "serial_ms",
+        "plain_ms", "bound_ms", "kernel_err_vs_f64", "serial_err_vs_f64",
+        "plain_err_vs_f64", "plain_finite")}
+        for c in mine if "serial_err_vs_f64" in c]
+    return {"by_route": by_route, "by_shape": by_shape}
+
+
+def time_scan_copies(scan_ms: float) -> dict:
+    """The RWKV-6 time-mix's head-major copies around its scan
+    (``models/ssm.py`` ``rwkv_time_mix``: ``heads()`` on r, k, v and the
+    decays, (G, S, H·hd) -> (G·H, S, hd), and the transpose of y back), at
+    the path's stacked shape, G = LM_CHUNK candidates x LM_BATCH sequences,
+    timed beside the scan they feed (``scan_ms``, the primary case's).  The
+    same tensor operations as the model's, on random activations."""
+    G, S, H, hd = LM_CHUNK * LM_BATCH, LM_PATHS[1].seq - 1, 40, 64
+    x = torch.randn((G, S, H * hd), device="cuda")
+    yh = torch.randn((G * H, S, hd), device="cuda")
+
+    def heads(t):
+        return t.to(torch.float32).reshape(G, S, H, hd).transpose(1, 2) \
+            .reshape(G * H, S, hd)
+
+    def back(t):
+        return t.reshape(G, H, S, hd).transpose(1, 2).reshape(G, S, H * hd)
+    heads_ms, back_ms = time_ms(lambda: heads(x)), time_ms(lambda: back(yh))
+    per_copy = 2 * x.numel() * x.element_size()
+    copies_ms = 4 * heads_ms + back_ms
+    return {"shape": [G, S, H, hd], "heads_ms_each": heads_ms,
+            "back_ms": back_ms, "copies_ms_per_time_mix": copies_ms,
+            "bytes_per_time_mix": 5 * per_copy,
+            "bound_ms": 5 * per_copy / HBM_BYTES_PER_S * 1e3,
+            "scan_ms": scan_ms, "copies_vs_scan": copies_ms / scan_ms}
 
 
 def run_kernel_cases():
@@ -907,17 +1036,25 @@ def run_kernel_cases():
     # initial state with a stride-0 u
     H3, T3 = 40, LM_PATHS[1].seq - 1
     cases.append(scan_case(LM_CHUNK * LM_BATCH * H3, T3, 64, 64, 32, H3,
-                           True, primary=True, seed=130))
+                           True, primary=True, seed=130, with_serial=True))
     cases.append(scan_case(LM_BATCH * H3, T3, 64, 64, 32, H3, True,
-                           primary=False, seed=131, timed=True))
+                           primary=False, seed=131, timed=True,
+                           with_serial=True))
     for i, (T, K, V, chunk) in enumerate(((32, 8, 8, 8), (64, 16, 32, 16),
                                           (64, 8, 16, 32))):
         cases.append(scan_case(4, T, K, V, chunk, 0, False, primary=False,
                                seed=132 + i))
     cases.append(scan_case(6, 17, 16, 16, 17, 2, False, primary=False,
                            seed=135))
+    # K and V not multiples of 4: route C's 4-byte copies instead of TMA
+    cases.append(scan_case(3, 40, 5, 7, 8, 0, False, primary=False,
+                           seed=138))
     cases.append(scan_case(64, 96, 64, 64, 32, 1, False, primary=False,
-                           seed=136, timed=True))
+                           seed=136, timed=True, with_serial=True))
+    # strong decay at the un-stacked path shape: the plain version is not
+    # finite there, route C is held to the float64 token loop and route S
+    cases.append(scan_case(LM_BATCH * H3, T3, 64, 64, 32, H3, True,
+                           primary=False, seed=137, strong=True))
     return cases
 
 
@@ -1923,7 +2060,19 @@ def main() -> None:
     ap.add_argument("--only-train", action="store_true",
                     help="build and compare the kernels, run the training "
                          "half, then stop (prints no result line)")
+    ap.add_argument("--only-rwkv", action="store_true",
+                    help="build the kernels and run the RWKV-6 3B path "
+                         "alone, without the kernel comparison (prints no "
+                         "result line)")
+    ap.add_argument("--src", default=None,
+                    help="with --only-rwkv: import repro_torch from this "
+                         "directory (another checkout's src/), to compare "
+                         "two trees with the same script")
     args = ap.parse_args()
+    if args.src:
+        if not args.only_rwkv:
+            fail("--src is for --only-rwkv")
+        sys.path.insert(0, os.path.abspath(args.src))
 
     if not torch.cuda.is_available():
         fail("no CUDA device: torch.cuda.is_available() is False")
@@ -1960,8 +2109,16 @@ def main() -> None:
                     "ptxas": ptxas_summary(build.build_log()),
                     "rcp_rn_fast_mismatches_of_1056964609": 0}})
 
+    if args.only_rwkv:
+        import repro_torch.kernels as K
+        emit({"only_rwkv": {"repro_torch": os.path.dirname(K.__file__)}})
+        run_lm_path(LM_PATHS[1], {})
+        return
     cases = run_kernel_cases()
     emit({"kernel_cases": cases})
+    emit({"scan_copies": time_scan_copies(next(
+        c["ms"] for c in cases if c["name"] == "rwkv6_scan" and
+        c["primary"]))})
     if args.only_kernels:
         return
     if args.only_train:
@@ -1997,6 +2154,9 @@ def main() -> None:
         if missing:
             fail(f"the {path} path launched these kernels no time: "
                  f"{missing}")
+        if by_path[path]["rwkv6_scan:tf32x3"] != by_path[path]["rwkv6_scan"]:
+            fail(f"the {path} path ran {by_path[path]['rwkv6_scan:serial']} "
+                 "scans on route S, not route C")
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in build.launch_counts}
 
@@ -2032,6 +2192,8 @@ def main() -> None:
             kernels[-1]["by_route"] = matmul_routes(name, mine, by_path)
         if name.startswith("masked_act_conv3x3"):
             kernels[-1].update(conv_routes(name, mine, by_path))
+        if name == "rwkv6_scan":
+            kernels[-1].update(scan_routes(mine, by_path))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True,

@@ -3,6 +3,8 @@
 // Built by repro_torch/kernels/build.py with the flags of masked_act.cu and
 // loaded with ctypes.  The entry point launches on the stream it is given,
 // allocates nothing, does not synchronise, and returns cudaGetLastError().
+// It takes a route: 0 is route S, the token-serial kernel below; 1 is route
+// C, the chunked kernel on the TF32 tensor cores (rwkv6_scan_sm90.cu).
 //
 //  * rwkv6_scan_kernel      <- src/repro/kernels/rwkv6_scan.py rwkv6_scan
 //    For each (batch*head) row bh, over tokens t:
@@ -136,16 +138,29 @@ void launch(const float* r, const float* k, const float* v, const float* w,
 
 }  // namespace
 
-// K, V in [1, 64]; u_rows >= 1 divides BH; s0_stride is K*V or 0.
+// route C, in rwkv6_scan_sm90.cu
+int rwkv6_scan_tf32x3_launch(const void* r, const void* k, const void* v,
+                             const void* w, const void* u, const void* s0,
+                             void* y, void* s_out, int BH, int T, int K,
+                             int V, int u_rows, long long s0_stride,
+                             cudaStream_t stream);
+
+// K, V in [1, 64]; u_rows >= 1 divides BH; s0_stride is K*V or 0; route 0
+// (S, token-serial) or 1 (C, chunked on the tensor cores).  A route that
+// cannot take the call is refused, never replaced.
 extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v,
                                  const void* w, const void* u, const void* s0,
                                  void* y, void* s_out, int BH, int T, int K,
                                  int V, int u_rows, long long s0_stride,
-                                 void* stream) {
+                                 int route, void* stream) {
   if (BH <= 0) return 0;
-  if (T < 0 || K < 1 || K > 64 || V < 1 || V > kVMax || u_rows < 1)
+  if (T < 0 || K < 1 || K > 64 || V < 1 || V > kVMax || u_rows < 1 ||
+      BH % u_rows || (route != 0 && route != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
+  if (route == 1)
+    return rwkv6_scan_tf32x3_launch(r, k, v, w, u, s0, y, s_out, BH, T, K, V,
+                                    u_rows, s0_stride, s);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto o = [](void* p) { return static_cast<float*>(p); };
   if (K <= 16)

@@ -229,7 +229,8 @@ def rwkv6(r, k, v, w, u, state, *, chunk: int = 32):
     table when BH folds B·H heads; state: (BH, K, V).  Returns y
     (BH, T, V) and the new state.  T must be a multiple of ``chunk``, as
     in the reference.  A CPU tensor takes the chunked plain version, a
-    CUDA tensor the hand-written kernel (``csrc/rwkv6_scan.cu``)."""
+    CUDA tensor the hand-written kernel of the route
+    ``rwkv6_scan.scan_route`` picks (``csrc/rwkv6_scan_sm90.cu``)."""
     K.refuse_grad("rwkv6", r, k, v, w, u, state)
     if not r.is_cuda:
         return ref.rwkv6_scan_ref(r, k, v, w, u, state, chunk=chunk)

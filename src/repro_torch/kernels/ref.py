@@ -353,6 +353,123 @@ def rwkv6_serial_ref(r, k, v, w, u, state):
     return torch.stack(ys, dim=1), S
 
 
+# route C's chunk (``csrc/rwkv6_scan_sm90.cu`` kC): two sub-blocks of 8
+SCAN_TF32X3_CHUNK = 16
+_SCAN_SUB = 8
+_SCAN_PAD = 64          # route C pads K and V to 64
+
+
+def _tf32x3_steps(a, b, depth: int = 8):
+    """``a @ b`` as route C's tensor cores take it: the contracted axis in
+    steps of ``depth``, each operand of a step split into TF32 parts and the
+    step taken as hi·lo + lo·hi + hi·hi, each step a fresh sum added to the
+    float32 total."""
+    out = None
+    for j in range(0, a.shape[-1], depth):
+        a_hi, a_lo = split_tf32(a[..., j:j + depth])
+        b_hi, b_lo = split_tf32(b[..., j:j + depth, :])
+        p = a_hi @ b_lo + a_lo @ b_hi + a_hi @ b_hi
+        out = p if out is None else out + p
+    return out
+
+
+def rwkv6_scan_tf32x3_ref(r, k, v, w, u, state, *, chunk: int = 32,
+                          factors: list = None):
+    """A plain emulation of the scan's route C (``"tf32x3"``) for the tests:
+    its chunk of 16 tokens in two sub-blocks of 8, its decay factors — every
+    one a running product of w over a forward interval, never divided by —
+    its anchors, and its products with every operand split by
+    :func:`split_tf32` and summed in steps of 8 (32 for r·S) deep
+    (:func:`_tf32x3_steps`).
+    Per chunk, with P_t the product of w from t's sub-block start to t − 1,
+    Q_s the one from s + 1 to s's sub-block end, F0 and F1 the sub-blocks'
+    whole products:
+
+      R~ = r·P (·F0 in sub-block 1)      K~ = k·Q (·F1 in sub-block 0)
+      y  = A·V + R~·S, A the in-chunk scores: the bonus r·(u⊙k) on the
+           diagonal, pairs inside a sub-block weighted by running products,
+           sub-block 1's targets against sub-block 0's sources as
+           (r·P)(k·Q)ᵀ (anchored at their boundary)
+      S  = diag(F0·F1)·S + K~ᵀ·V         (a fused multiply-add)
+
+    in the kernel's order of float32 sums, the products' own sums in
+    another.  Shapes and arguments as :func:`rwkv6_scan_ref` (T a multiple
+    of ``chunk``, which the kernel does not use); float32.  ``factors``, if
+    a list, receives every decay factor formed.  The port's ``ops`` never
+    call it: a CPU tensor takes :func:`rwkv6_scan_ref`."""
+    bh, T, K = r.shape
+    V = v.shape[-1]
+    if chunk < 1 or T % chunk:
+        raise ValueError(f"sequence length {T} is not a multiple of the "
+                         f"scan chunk {chunk}")
+    C, H, W = SCAN_TF32X3_CHUNK, _SCAN_SUB, _SCAN_PAD
+    n = -(-T // C)
+    f32 = torch.float32
+
+    def pad(t, width, fill=0.0):
+        out = torch.full((bh, n * C, width), fill, dtype=f32)
+        out[:, :T, :t.shape[-1]] = t.to(f32)
+        return out
+    rp, kp, vp = pad(r, W), pad(k, W), pad(v, W)
+    # a padded token decays nothing; padded columns of k and r are zero
+    wp = pad(w, W, 1.0)
+    up = torch.zeros((bh, W), dtype=f32)
+    up[:, :K] = _rwkv6_u_rows(u, bh).to(f32)
+    S = torch.zeros((bh, W, W), dtype=f32)
+    S[:, :K, :V] = state.to(f32)
+    record = factors.append if factors is not None else (lambda x: None)
+    ys = []
+    for c in range(n):
+        sl = slice(c * C, (c + 1) * C)
+        rc, kc, vc, wc = rp[:, sl], kp[:, sl], vp[:, sl], wp[:, sl]
+        P, Q = torch.ones_like(wc), torch.ones_like(wc)
+        for b0 in (0, H):
+            for i in range(1, H):
+                P[:, b0 + i] = P[:, b0 + i - 1] * wc[:, b0 + i - 1]
+            for i in range(H - 2, -1, -1):
+                Q[:, b0 + i] = Q[:, b0 + i + 1] * wc[:, b0 + i + 1]
+        F0 = P[:, H - 1] * wc[:, H - 1]
+        F1 = P[:, C - 1] * wc[:, C - 1]
+        rf = torch.cat([P[:, :H], P[:, H:] * F0[:, None]], 1)
+        kf = torch.cat([Q[:, :H] * F1[:, None], Q[:, H:]], 1)
+        decay = F0 * F1
+        for x in (P, Q, F0, F1, rf, kf, decay):
+            record(x)
+        r_t, k_t = rc * rf, kc * kf
+        A = torch.zeros((bh, C, C), dtype=f32)
+        for b0 in (0, H):
+            for s in range(H):
+                E = kc[:, b0 + s]
+                D = torch.ones_like(E)
+                for t in range(s + 1, H):
+                    A[:, b0 + t, b0 + s] = (rc[:, b0 + t] * E).sum(-1)
+                    record(D)
+                    E = E * wc[:, b0 + t]
+                    D = D * wc[:, b0 + t]
+        idx = torch.arange(C)
+        A[:, idx, idx] = (rc * (up[:, None, :] * kc)).sum(-1)
+        # sub-block 1's targets against sub-block 0's sources, anchored at
+        # their boundary: four partial sums of two 8-deep steps each (the
+        # kernel's four warps), added in order
+        ra, kb = rc[:, H:] * P[:, H:], (kc[:, :H] * Q[:, :H]).transpose(1, 2)
+        cross = None
+        for j in range(0, W, 16):
+            x = _tf32x3_steps(ra[..., j:j + 16], kb[:, j:j + 16])
+            cross = x if cross is None else cross + x
+        A[:, H:, :H] = cross
+        # the in-chunk steps first, then the state's in steps of 32 k, one
+        # running sum
+        y = _tf32x3_steps(A, vc)
+        for j in range(0, W, 32):
+            y = y + _tf32x3_steps(r_t[..., j:j + 32], S[:, j:j + 32], 32)
+        ys.append(y)
+        p = _tf32x3_steps(k_t.transpose(1, 2), vc)
+        # the kernel's fused multiply-add, rounded once
+        S = (decay[:, :, None].double() * S.double() + p.double()).to(f32)
+    y = torch.cat(ys, 1)[:, :T, :V] if ys else torch.zeros((bh, 0, V))
+    return y.contiguous(), S[:, :K, :V].contiguous()
+
+
 def masked_act_conv3x3_ref(x, mask, w, *, stride: int = 1,
                            kind: str = "relu"):
     """The unfused pair: full-site gate, then the SAME 3x3 convolution.

@@ -1,11 +1,19 @@
-"""Wrapper of the hand-written RWKV-6 scan kernel (``csrc/rwkv6_scan.cu``).
+"""Wrapper of the hand-written RWKV-6 scan kernels.
 
-Counterpart of ``repro/kernels/rwkv6_scan.py``.  The wrapper checks device,
-type and shapes, allocates its outputs with ``torch.empty``, launches on
-PyTorch's current stream, raises if the launch was refused, and adds one to
-``build.launch_counts["rwkv6_scan"]`` — there and nowhere else.  It takes
-CUDA tensors only; CPU tensors are served by ``kernels.ops.rwkv6`` through
-the plain version ``kernels.ref.rwkv6_scan_ref``.
+Counterpart of ``repro/kernels/rwkv6_scan.py``.  The scan has two routes,
+picked by :func:`scan_route`: ``"tf32x3"`` (route C,
+``csrc/rwkv6_scan_sm90.cu``: chunks of 16 tokens, the products on the TF32
+tensor cores with each float32 operand split into a big and a small part,
+no division by a decay product) and ``"serial"`` (route S,
+``csrc/rwkv6_scan.cu``: token by token on the CUDA cores).  The wrapper
+checks device, type and shapes, allocates its outputs with ``torch.empty``,
+launches on PyTorch's current stream, raises if the launch was refused, and
+adds one to ``build.launch_counts["rwkv6_scan"]`` and to the route's
+``build.route_counts`` entry — there and nowhere else.  A route that cannot
+take a call raises; nothing falls back to the other route or to the plain
+version.  It takes CUDA tensors only; CPU tensors are served by
+``kernels.ops.rwkv6`` through the plain version
+``kernels.ref.rwkv6_scan_ref``.
 """
 from __future__ import annotations
 
@@ -14,8 +22,29 @@ import torch
 from . import build
 from .masked_act import refuse_grad
 
-# K and V at most: one thread per value column, its S[:, v] in registers
+# K and V at most: route S keeps one value column's S[:, v] in a thread's
+# registers, route C pads K and V to 64 on chip
 MAX_WIDTH = 64
+SCAN_ROUTES = {"serial": 0, "tf32x3": 1}
+
+
+def scan_route(dtype, bh: int, T: int, K: int, V: int) -> str:
+    """The route of a scan call on the card, by one rule.
+
+    ``"tf32x3"`` (route C) takes every float32 call with K and V in
+    [1, MAX_WIDTH], any number of rows and any T (a last partial chunk and
+    K, V below 64 are zero-padded on chip, with 16-byte copies where K and V
+    are multiples of 4 and the rows 16-byte aligned, else 4-byte ones), so
+    the rule sends every call to it; ``"serial"`` (route S) takes the same
+    calls and is kept beside it as its yardstick.  Raises TypeError for
+    another dtype and ValueError for what no route takes."""
+    if dtype != torch.float32:
+        raise TypeError(f"rwkv6_scan: dtype must be float32, got {dtype}")
+    if bh < 0 or T < 0 or not (1 <= K <= MAX_WIDTH and 1 <= V <= MAX_WIDTH):
+        raise ValueError(f"rwkv6_scan: no route takes BH = {bh}, T = {T}, "
+                         f"K = {K}, V = {V} (K and V must lie in "
+                         f"[1, {MAX_WIDTH}])")
+    return "tf32x3"
 
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -27,8 +56,9 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stride-0 expand — or an (H, K) per-head table with H dividing BH (row
     bh reads ``u[bh % H]``); state: (BH, K, V), whose rows may be a stride-0
     expand of one shared state.  K and V at most 64.  ``chunk`` is the
-    reference's: T must be a multiple of it, though the kernel itself runs
-    token by token.  Returns y (BH, T, V) and the new state (BH, K, V).
+    reference's: T must be a multiple of it, though the kernels chunk by
+    their own rule (route C: 16 tokens; route S: token by token).  Returns
+    y (BH, T, V) and the new state (BH, K, V).
     """
     name = "rwkv6_scan"
     refuse_grad(name, r, k, v, w, u, state)
@@ -61,9 +91,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if chunk < 1 or T % chunk:
         raise ValueError(f"{name}: T = {T} is not a multiple of chunk = "
                          f"{chunk}")
-    if not (1 <= K <= MAX_WIDTH and 1 <= V <= MAX_WIDTH):
-        raise ValueError(f"{name}: K = {K} and V = {V} must lie in "
-                         f"[1, {MAX_WIDTH}]")
+    route = scan_route(r.dtype, bh, T, K, V)
     # a stride-0 expand of one row is handed over as that one row
     if bh > 1 and u.stride(0) == 0:
         u = u[:1]
@@ -81,7 +109,9 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), s0.data_ptr(), y.data_ptr(), s_out.data_ptr(),
             bh, T, K, V, u.shape[0], 0 if shared_state else K * V,
+            SCAN_ROUTES[route],
             torch.cuda.current_stream(r.device).cuda_stream)
-    build.check(lib, code, name)
+    build.check(lib, code, f"{name} ({route} route)")
     build.launch_counts[name] += 1
+    build.route_counts[f"{name}:{route}"] += 1
     return y, s_out
