@@ -24,7 +24,14 @@ CPU's, its time with and without deterministic algorithms, then train →
 SNL → finetune → BCD with finetuning between steps through the batched and
 suffix engines, at ResNet18's full width with the schedule cut short.  The
 hard gate's gradient runs on ``gate_bwd_kernel`` (``masked_act_2d_bwd``),
-the one kernel of the port with no TPU counterpart.
+the one kernel of the port with no TPU counterpart.  Then the resumable
+budget sweep (``sweep`` line, ``--only-sweep`` alone): the example's
+``--sweep`` mode at ResNet18's full width on the suffix engine, serially
+and overlapped in this process, SIGKILLed mid-stage in a child process and
+resumed by another, and as two ranks on the one card; every run must give
+the same stages and the same final parameter bits, and every checkpoint
+save, deep validation and restore is timed; then, read apart, one serial
+sweep of the schedule the example documents, at its own block size.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; the script checks that each went through its kernels and that the
@@ -170,6 +177,8 @@ PATH_KERNELS = {
                       "masked_act_matmul_2d_batched"),
     "rwkv6_3b": ("masked_act_2d", "masked_act_2d_batched", "rwkv6_scan"),
     "resnet18_train": ("masked_act_2d", "masked_act_2d_bwd"),
+    "resnet18_sweep": ("masked_act_2d", "masked_act_2d_batched",
+                       "masked_act_conv3x3_batched", "masked_act_2d_bwd"),
 }
 # kernels with no TPU counterpart
 PORT_ONLY = {"masked_act_2d_bwd": "the gradient of kernel 1 (the reference "
@@ -184,6 +193,7 @@ PATH_ROUTES = {
     "stablelm_1p6b": ("masked_act_matmul_2d:fma", "masked_act_matmul_2d:wgmma",
                       "masked_act_matmul_2d_batched:fma"),
     "rwkv6_3b": ("rwkv6_scan:tf32x3",),
+    "resnet18_sweep": ("masked_act_conv3x3_batched:tf32x3",),
 }
 # (rows, K, N_out) of the LM paths' fused products: every bfloat16 case at
 # one of these must take route A
@@ -228,6 +238,19 @@ TRAIN_BCD_STEPS = 2         # BCD outer steps per engine
 TRAIN_TIMED = 10            # train steps per timing
 KERNEL_STEP_TOL = 1e-6      # a step's gradients, gate_bwd_kernel vs plain
 GRAD_TOL = 2e-3             # card vs CPU: each leaf's relative L2 error
+# the resumable sweep on ResNet18 (the example's --sweep mode): B_ref = 0.6
+# of 557,056 ReLUs = 334,233, then 334,230 and 334,227, so the example's
+# drc, max(1, (B_ref - B_last) // 10), is 1: 3 accepted blocks a stage,
+# each candidate touching one coordinate, so candidates cut deep enough for
+# the suffix engine's fused route (kernel 6)
+SWEEP_FLAGS = ("--full", "--engine", "suffix", "--ref-frac", "0.6")
+SWEEP_SCHEDULE = "0.599994,0.599989"
+# ... and, read once and checked for nothing but completion, the schedule
+# the example documents: drc 11,141, stages of 3 and 8 blocks, candidates
+# that touch the first sites (the suffix engine's unfused fallback)
+SWEEP_DEFAULT_SCHEDULE = "0.55,0.4"
+SWEEP_CHILD_TIMEOUT_S = 300
+SWEEP_TIMED = 3             # timed repeats of a deep validation / restore
 
 
 def counts() -> dict:
@@ -1631,6 +1654,376 @@ def _stage(seconds, steps):
                 images_per_s=steps * TRAIN_BATCH / seconds)
 
 
+# ------------------------------------------------------- resumable sweeps
+
+
+EXAMPLE = os.path.join(HERE, "examples", "torch_resnet18_bcd_pipeline.py")
+
+
+def load_example():
+    """``examples/torch_resnet18_bcd_pipeline.py`` as a module: the sweep
+    path runs through the entry point a user calls."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("torch_pipeline_example",
+                                                  EXAMPLE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class checkpoint_costs:
+    """Within the block, every checkpoint ``save``, deep ``validate`` and
+    ``restore`` of ``repro_torch.training.checkpoint`` is timed (the card
+    synchronised first, so queued work is not billed to the copy) and each
+    save's bytes on disk are summed.  Measurement only: the functions are
+    put back on exit."""
+
+    NAMES = ("save", "validate", "restore")
+
+    def __init__(self, device):
+        self.device = device
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.training import checkpoint as ck
+        self._ck = ck
+        self._orig = {n: getattr(ck, n) for n in self.NAMES}
+        for name in self.NAMES:
+            setattr(ck, name, self._timed(name, self._orig[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self._ck, name, fn)
+
+    def _timed(self, name, fn):
+        def wrapper(*a, **kw):
+            sync(self.device)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            ms = (time.perf_counter() - t0) * 1e3
+            if name == "save":          # save(state, ckpt_dir, step) -> dir
+                self.calls.append(dict(
+                    op=name, ms=ms, dir=out,
+                    bytes=sum(os.path.getsize(os.path.join(out, f))
+                              for f in os.listdir(out))))
+            elif name == "restore" or kw.get("deep"):
+                # restore(template, ckpt_dir, step), validate(ckpt_dir, step)
+                ckpt_dir, step = a[-2:] if name == "restore" else a[:2]
+                self.calls.append(dict(op=name, ms=ms, dir=os.path.join(
+                    ckpt_dir, f"step_{step:08d}")))
+            return out
+        return wrapper
+
+    def summary(self, op, kind):
+        """Count, mean / min / max ms (and bytes for saves) of ``op`` on
+        runner checkpoints (``kind="runner"``, ``…/ckpt/step_*``) or stage
+        inits (``kind="stage_init"``)."""
+        rows = [c for c in self.calls if c["op"] == op and
+                (os.path.basename(os.path.dirname(c["dir"])) == "ckpt")
+                == (kind == "runner")]
+        if not rows:
+            return None
+        ms = [c["ms"] for c in rows]
+        out = dict(n=len(rows), mean_ms=float(np.mean(ms)),
+                   min_ms=min(ms), max_ms=max(ms))
+        if op == "save":
+            out["bytes"] = sorted({c["bytes"] for c in rows})
+        return out
+
+
+def _stage_identity(stage):
+    """A stage of a sweep artifact without its wall-clock and resume
+    point: what every run of one schedule must agree on."""
+    return {k: v for k, v in stage.items()
+            if k not in ("wall_s", "resumed_from")}
+
+
+def _child(cmd, env, timeout):
+    """Run one process of the example; its exit code, output and
+    wall-clock.  A child past its time limit is killed and fails the
+    phase."""
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                             timeout=timeout)
+    except subprocess.TimeoutExpired:
+        fail(f"sweep: {' '.join(cmd[1:])} ran past {timeout} s")
+    return out, time.perf_counter() - t0
+
+
+def _save_share(costs, run_dir, budgets, stages):
+    """Each stage's runner-checkpoint saves (``costs``) as a share of the
+    stage's wall-clock."""
+    out = []
+    for i, (b, stage) in enumerate(zip(budgets, stages)):
+        ck = os.path.join(run_dir, f"stage_{i:02d}_b{b}", "ckpt")
+        ms = sum(c["ms"] for c in costs.calls
+                 if c["op"] == "save" and c["dir"].startswith(ck))
+        out.append(ms / 1e3 / stage["wall_s"])
+    return out
+
+
+def run_sweep_path(by_path, device="cuda", flags=SWEEP_FLAGS,
+                   schedule=SWEEP_SCHEDULE,
+                   default_schedule=SWEEP_DEFAULT_SCHEDULE):
+    """The resumable budget sweep through the example's ``--sweep`` mode,
+    at ResNet18's full width on the card (``flags``):
+
+      1. train + SNL once (the training path's cuts), the warm start
+         persisted to ``init/`` and copied into every run directory;
+      2. the sweep, serially, in this process;
+      3. the same sweep with ``--overlap``, in this process;
+      4. a child process killed by ``REPRO_KILL_AFTER_STEPS`` after stage
+         0 and one block of stage 1, then a child that resumes it;
+      5. two ranks on the one card (``REPRO_COORD_RANK`` 0/1, world 2),
+         stage 0 only, sharing one directory;
+      6. ``default_schedule``, serially in this process: launches by
+         kernel and checkpoint costs at the example's own block size.
+
+    Counts are set to 0 just before steps 2–3 and read just after (and
+    again around step 6, which is read apart).  Fails
+    unless every run gives the same stages (fingerprints, histories,
+    scores), bit-equal final parameters and complete artifacts, and the
+    resumed run records where it resumed.  Run directories live under a
+    temporary directory, removed at the end.  ``device="cpu"`` with mini
+    ``flags`` rehearses the path without a card."""
+    import contextlib
+    import io
+    import math
+    import shutil
+    import tempfile
+    from repro_torch.core import bcd, linearize, masks as M, runner
+    from repro_torch.core.snl import SNLConfig, run_snl
+    from repro_torch.kernels import build
+    from repro_torch.training import checkpoint, optimizer as opt_lib
+    ex = load_example()
+    flags = list(flags) + ["--device", device]
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
+    try:
+        dirs = {k: os.path.join(root, k)
+                for k in ("serial", "overlap", "killed", "ranks",
+                          "default")}
+        args = ex.parse_args(flags + ["--sweep", schedule,
+                                      "--out-dir", dirs["serial"]])
+
+        # ---- 1. the warm start, once
+        model, data = ex.build_model_data(args)
+        opt, step, batches, sloss, _ = ex.make_closures(model, data, device)
+        masks0 = linearize.init_masks(model.mask_sites())
+        total = M.count(masks0)
+        b_ref = int(total * args.ref_frac)
+        budgets = [int(total * f) for f in args.sweep]
+        drc = ex.sweep_drc(b_ref, budgets)
+        steps = [math.ceil((a - b) / drc)
+                 for a, b in zip([b_ref] + budgets, budgets)]
+        if not all(2 <= n <= 4 for n in steps):
+            fail(f"sweep: stages of {steps} blocks; the phase needs 2-4")
+        sync(device)
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator().manual_seed(SEED), device)
+        ostate = opt.init(params)
+        mdev = M.as_device(masks0, device)
+        for i in range(TRAIN_STEPS):
+            params, ostate, _, _ = step(params, ostate, mdev, batches(i))
+        alphas = {k: np.ones(v.shape, np.float32) for k, v in masks0.items()}
+        res = run_snl(params, alphas, sloss, batches,
+                      SNLConfig(b_target=b_ref, lam0=5e-4, kappa=1.5,
+                                epochs=SNL_EPOCHS, steps_per_epoch=SNL_STEPS,
+                                lr=3e-2, finetune_steps=FT_STEPS),
+                      device=device)
+        init = os.path.join(root, "init")
+        runner.save_stage_init(init, res.stage_init())
+        sync(device)
+        warm_s = time.perf_counter() - t0
+        for d in dirs.values():
+            shutil.copytree(init, os.path.join(d, "init"))
+        del params, ostate, res
+
+        # ---- 2, 3. serial and overlapped, counted and timed in-process
+        walls, logs = {}, io.StringIO()
+        build.reset_launch_counts()
+        with checkpoint_costs(device) as costs:
+            for name, extra in (("serial", []), ("overlap", ["--overlap"])):
+                sync(device)
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(logs):
+                    ex.run_sweep_mode(ex.parse_args(
+                        flags + ["--sweep", schedule, "--out-dir",
+                                 dirs[name]] + extra))
+                sync(device)
+                walls[name] = time.perf_counter() - t0
+        by_path["resnet18_sweep"] = counts()
+
+        # ---- 4, 5. children: killed + resumed, then two ranks
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("REPRO_COORD_") and k != runner.KILL_ENV}
+        cmd = [sys.executable, EXAMPLE] + flags + ["--sweep", schedule,
+                                                   "--out-dir",
+                                                   dirs["killed"]]
+        kill_after = steps[0] + 1          # stage 1's first block
+        killed, walls["killed"] = _child(
+            cmd, dict(env, **{runner.KILL_ENV: str(kill_after)}),
+            SWEEP_CHILD_TIMEOUT_S)
+        if killed.returncode != -9:
+            fail(f"sweep: the killed child exited {killed.returncode}, not "
+                 f"by SIGKILL: {killed.stderr[-2000:]}")
+        resumed, walls["resumed"] = _child(cmd, env, SWEEP_CHILD_TIMEOUT_S)
+        if resumed.returncode != 0:
+            fail(f"sweep: the resumed child exited {resumed.returncode}: "
+                 f"{resumed.stderr[-2000:]}")
+        stage0 = schedule.split(",")[0]
+        rank_cmd = [sys.executable, EXAMPLE] + flags + [
+            "--sweep", stage0, "--out-dir", dirs["ranks"]]
+        procs = []
+        t0 = time.perf_counter()
+        for r in range(2):
+            procs.append(subprocess.Popen(
+                rank_cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, env=dict(env, REPRO_COORD_RANK=str(r),
+                                    REPRO_COORD_WORLD="2",
+                                    REPRO_COORD_DIR=os.path.join(root,
+                                                                 "coord"),
+                                    REPRO_COORD_SESSION="chip_smoke",
+                                    REPRO_COORD_TIMEOUT_S="120")))
+        try:
+            outs = [p.communicate(timeout=SWEEP_CHILD_TIMEOUT_S)
+                    for p in procs]
+        except subprocess.TimeoutExpired:
+            fail(f"sweep: a rank ran past {SWEEP_CHILD_TIMEOUT_S} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        walls["ranks"] = time.perf_counter() - t0
+        for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                fail(f"sweep: rank {r} exited {p.returncode}: {err[-2000:]}")
+
+        # ---- what every run must agree on
+        # ---- 6. the example's own schedule, read apart
+        build.reset_launch_counts()
+        with checkpoint_costs(device) as dcosts:
+            sync(device)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(logs):
+                ex.run_sweep_mode(ex.parse_args(
+                    flags + ["--sweep", default_schedule, "--out-dir",
+                             dirs["default"]]))
+            sync(device)
+            walls["default"] = time.perf_counter() - t0
+        default_counts = counts()
+
+        arts = {k: json.load(open(os.path.join(
+            d, f"SWEEP_{model.cfg.name}.json"))) for k, d in dirs.items()}
+        for k, a in arts.items():
+            if not a["complete"]:
+                fail(f"sweep: the {k} run's artifact is not complete")
+        want = [_stage_identity(s) for s in arts["serial"]["stages"]]
+        if [s["steps"] for s in want] != steps:
+            fail(f"sweep: stages of {[s['steps'] for s in want]} blocks, "
+                 f"expected {steps}")
+        dflt = arts.pop("default")
+        for k in ("overlap", "killed", "ranks"):
+            got = [_stage_identity(s) for s in arts[k]["stages"]]
+            if got != want[:len(got)]:
+                fail(f"sweep: the {k} run's stages differ from the serial "
+                     f"run's: {got} vs {want}")
+        resumed_from = arts["killed"]["stages"][1]["resumed_from"]
+        if resumed_from is None or \
+                arts["serial"]["stages"][1]["resumed_from"] is not None:
+            fail("sweep: the resumed run records no resume point")
+        template = model.init(torch.Generator().manual_seed(SEED), device)
+        finals = {}
+        for k, a in arts.items():
+            for i, b in enumerate(budgets[:len(a["stages"])]):
+                finals[k, i] = opt_lib.tree_leaves(runner.load_stage_init(
+                    os.path.join(dirs[k], f"stage_{i:02d}_b{b}", "final"),
+                    masks0,
+                    params_template=template, device=device)["params"])
+        for (k, i), leaves in finals.items():
+            ref = finals["serial", i]
+            if not all(torch.equal(a, b) for a, b in zip(leaves, ref)):
+                fail(f"sweep: the {k} run's parameters after stage {i} are "
+                     "not the serial run's bits")
+
+        # ---- the resume path's costs on a runner checkpoint of this run
+        ck_dir = os.path.join(dirs["serial"], f"stage_01_b{budgets[1]}",
+                              "ckpt")
+        ck_step = checkpoint.latest_step(ck_dir)
+        cfg = bcd.BCDConfig(b_target=budgets[1], drc=drc, rt=6,
+                            adt=0.3, chunk_size=args.chunk_size,
+                            moves=args.moves, proposal=args.proposal)
+        deep_ms, restore_ms = [], []
+        for _ in range(SWEEP_TIMED):
+            sync(device)
+            t0 = time.perf_counter()
+            if not checkpoint.validate(ck_dir, ck_step, deep=True):
+                fail(f"sweep: {ck_dir} step {ck_step} fails validation")
+            deep_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            runner.restore_run_state(ck_dir, cfg, masks0,
+                                     params_template=template, step=ck_step,
+                                     verify=False, device=device)
+            sync(device)
+            restore_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    save = costs.summary("save", "runner")
+    serial_stages = arts["serial"]["stages"]
+    rows = (PATH_KERNELS["resnet18_sweep"] + ("masked_act_conv3x3",) +
+            PATH_ROUTES["resnet18_sweep"])
+    d_budgets = [s["budget"] for s in dflt["stages"]]
+    return dict(
+        model=model.cfg.name, relus=total, b_ref=b_ref, budgets=budgets,
+        drc=drc, blocks_per_stage=steps, engine=args.engine,
+        flags=flags + ["--sweep", schedule],
+        cuts={"train_base_steps": TRAIN_STEPS,
+              "snl_epochs_x_steps": [SNL_EPOCHS, SNL_STEPS],
+              "snl_finetune_steps": FT_STEPS,
+              "note": "the warm start has the training path's cuts; the "
+                      "sweep runs the example's schedule (12 finetune "
+                      "steps a block, rt 6, adt 0.3)"},
+        seconds=time.perf_counter() - t_phase, warm_start_s=warm_s,
+        wall_s=walls,
+        stage_wall_s={k: [s["wall_s"] for s in a["stages"]]
+                      for k, a in arts.items()},
+        fingerprints=[s["mask_fingerprint"][:16] for s in serial_stages],
+        test_acc=[s.get("test_acc") for s in serial_stages],
+        resumed_from=resumed_from, kill_after_blocks=kill_after,
+        identical={"stages": True, "final_params_bits": True,
+                   "runs": ["serial", "overlap", "killed+resumed",
+                            "two ranks (stage 0)"]},
+        checkpoint=dict(
+            save_runner=save,
+            save_stage_init=costs.summary("save", "stage_init"),
+            validate_deep_stage_init=costs.summary("validate", "stage_init"),
+            restore_stage_init=costs.summary("restore", "stage_init"),
+            resume_point=dict(dir_step=ck_step, validate_deep_ms=deep_ms,
+                              restore_run_state_ms=restore_ms),
+            bytes_per_runner_checkpoint=save["bytes"] if save else None,
+            serial_stage_share=_save_share(costs, dirs["serial"], budgets,
+                                           serial_stages),
+            # a resume's deep validation + restore against a stage
+            resume_share=[(min(deep_ms) + min(restore_ms)) / 1e3 /
+                          s["wall_s"] for s in serial_stages]),
+        launches={k: by_path["resnet18_sweep"][k] for k in rows},
+        default_schedule=dict(
+            sweep=default_schedule, budgets=d_budgets,
+            drc=ex.sweep_drc(b_ref, d_budgets),
+            blocks_per_stage=[s["steps"] for s in dflt["stages"]],
+            wall_s=walls["default"],
+            stage_wall_s=[s["wall_s"] for s in dflt["stages"]],
+            save_runner=dcosts.summary("save", "runner"),
+            serial_stage_share=_save_share(dcosts, dirs["default"],
+                                           d_budgets, dflt["stages"]),
+            launches={k: default_counts[k] for k in rows} | {
+                k: v for k, v in default_counts.items() if v}))
+
+
 # ---------------------------------------------------------------- LM paths
 #
 # StableLM-2-1.6B (d_model 2048, d_ff 5632, 32 heads of 64, vocab 100 352, 24
@@ -2047,6 +2440,19 @@ def run_lm_path(spec, by_path, device="cuda"):
         torch.cuda.empty_cache()
 
 
+def check_launches(by_path, paths) -> None:
+    """Fail unless each path launched every kernel and route it must."""
+    for path in paths:
+        names = PATH_KERNELS[path] + PATH_ROUTES.get(path, ())
+        missing = [k for k in names if by_path[path][k] == 0]
+        if missing:
+            fail(f"the {path} path launched these kernels no time: "
+                 f"{missing}")
+        if by_path[path]["rwkv6_scan:tf32x3"] != by_path[path]["rwkv6_scan"]:
+            fail(f"the {path} path ran {by_path[path]['rwkv6_scan:serial']} "
+                 "scans on route S, not route C")
+
+
 def sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -2060,6 +2466,10 @@ def main() -> None:
     ap.add_argument("--only-train", action="store_true",
                     help="build and compare the kernels, run the training "
                          "half, then stop (prints no result line)")
+    ap.add_argument("--only-sweep", action="store_true",
+                    help="build the kernels and run the resumable-sweep "
+                         "phase alone, without the kernel comparison "
+                         "(prints no result line)")
     ap.add_argument("--only-rwkv", action="store_true",
                     help="build the kernels and run the RWKV-6 3B path "
                          "alone, without the kernel comparison (prints no "
@@ -2077,6 +2487,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: torch.cuda.is_available() is False")
 
+    # before any cuBLAS handle exists, the workspace that training's
+    # deterministic() asks for: the sweep's child processes inherit it, so
+    # they and this process run the same cuBLAS algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import repro_torch
     from repro_torch.kernels import build
     repro_torch.use_full_float32()
@@ -2114,6 +2528,11 @@ def main() -> None:
         emit({"only_rwkv": {"repro_torch": os.path.dirname(K.__file__)}})
         run_lm_path(LM_PATHS[1], {})
         return
+    if args.only_sweep:
+        by_path = {}
+        emit({"sweep": run_sweep_path(by_path)})
+        check_launches(by_path, ("resnet18_sweep",))
+        return
     cases = run_kernel_cases()
     emit({"kernel_cases": cases})
     emit({"scan_copies": time_scan_copies(next(
@@ -2144,24 +2563,21 @@ def main() -> None:
     train_lines = run_train_path(by_path)
     torch.cuda.empty_cache()
 
+    # ---- path 1's resumable sweep, counted on its own
+    sweep_line = run_sweep_path(by_path)
+    torch.cuda.empty_cache()
+
     # ---- paths 2 and 3, StableLM-2-1.6B and RWKV-6 3B
     for spec in LM_PATHS:
         run_lm_path(spec, by_path)
 
-    for path in PATH_KERNELS:
-        names = PATH_KERNELS[path] + PATH_ROUTES.get(path, ())
-        missing = [k for k in names if by_path[path][k] == 0]
-        if missing:
-            fail(f"the {path} path launched these kernels no time: "
-                 f"{missing}")
-        if by_path[path]["rwkv6_scan:tf32x3"] != by_path[path]["rwkv6_scan"]:
-            fail(f"the {path} path ran {by_path[path]['rwkv6_scan:serial']} "
-                 "scans on route S, not route C")
+    check_launches(by_path, PATH_KERNELS)
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in build.launch_counts}
 
     for name, line in zip(("train", "snl", "pipeline"), train_lines):
         emit({name: line})
+    emit({"sweep": sweep_line})
     kernels = []
     for name in build.launch_counts:
         mine = [c for c in cases if c["name"] == name]

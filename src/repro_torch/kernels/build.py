@@ -58,11 +58,26 @@ route_counts = {
     **{f"rwkv6_scan:{route}": 0 for route in ("serial", "tf32x3")}}
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(name: str, route: Optional[str] = None) -> None:
+    """Add one launch of ``name`` (and of ``name:route``) to the counts.
+    Wrappers call this where they launch their kernel.  Under a lock: a
+    sweep's reporting thread launches kernels beside its descent, and
+    ``+= 1`` from two threads can lose an update."""
+    with _count_lock:
+        launch_counts[name] += 1
+        if route is not None:
+            route_counts[f"{name}:{route}"] += 1
+
+
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
-    for k in route_counts:
-        route_counts[k] = 0
+    with _count_lock:
+        for k in launch_counts:
+            launch_counts[k] = 0
+        for k in route_counts:
+            route_counts[k] = 0
 
 
 class KernelBuildError(RuntimeError):

@@ -5,8 +5,8 @@
 Counterpart of ``repro/kernels/masked_act.py``.  Each wrapper checks device,
 type, shape and contiguity, allocates its output with ``torch.empty``,
 launches on PyTorch's current stream, raises if the launch was refused, and
-adds one to its entry in :data:`build.launch_counts` — there and nowhere
-else.
+adds one to its entry in :data:`build.launch_counts`
+(:func:`build.count_launch`) — there and nowhere else.
 The wrappers take CUDA tensors only; CPU tensors are served by
 ``kernels.ops`` through the plain versions in ``kernels.ref``.
 
@@ -107,7 +107,7 @@ def _launch_gate(name, x, mask2, poly, out, n, rows, cols, x_cand_stride,
             n, rows, cols, x_cand_stride, KIND_CODES[kind], dtype,
             _stream(x))
     build.check(lib, code, name)
-    build.launch_counts[name] += 1
+    build.count_launch(name)
     return out
 
 
@@ -198,7 +198,7 @@ def masked_act_2d_bwd(x: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
             None if dpoly is None else dpoly.data_ptr(), rows, cols, per,
             KIND_CODES[kind], _stream(x))
     build.check(lib, code, name)
-    build.launch_counts[name] += 1
+    build.count_launch(name)
     return dx, dpoly
 
 
@@ -298,8 +298,7 @@ def _launch_conv(name, x, mask, w, n, b, h, wd, cin, x_cand_stride,
             x_cand_stride, mask_cand_stride, KIND_CODES[kind], dtype,
             CONV_ROUTES[route], _stream(x))
     build.check(lib, code, f"{name} ({route} route)")
-    build.launch_counts[name] += 1
-    build.route_counts[f"{name}:{route}"] += 1
+    build.count_launch(name, route)
     return out
 
 
@@ -410,8 +409,7 @@ def _launch_matmul(name, x, mask, w, mul, n, rows, k, x_stride, mul_stride,
             mask_stride, KIND_CODES[kind], _DTYPE_CODES[x.dtype],
             MATMUL_ROUTES[route], _stream(x))
     build.check(lib, code, f"{name} ({route} route)")
-    build.launch_counts[name] += 1
-    build.route_counts[f"{name}:{route}"] += 1
+    build.count_launch(name, route)
     return out
 
 

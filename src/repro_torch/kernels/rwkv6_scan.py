@@ -9,7 +9,8 @@ no division by a decay product) and ``"serial"`` (route S,
 checks device, type and shapes, allocates its outputs with ``torch.empty``,
 launches on PyTorch's current stream, raises if the launch was refused, and
 adds one to ``build.launch_counts["rwkv6_scan"]`` and to the route's
-``build.route_counts`` entry — there and nowhere else.  A route that cannot
+``build.route_counts`` entry (``build.count_launch``) — there and nowhere
+else.  A route that cannot
 take a call raises; nothing falls back to the other route or to the plain
 version.  It takes CUDA tensors only; CPU tensors are served by
 ``kernels.ops.rwkv6`` through the plain version
@@ -112,6 +113,5 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             SCAN_ROUTES[route],
             torch.cuda.current_stream(r.device).cuda_stream)
     build.check(lib, code, f"{name} ({route} route)")
-    build.launch_counts[name] += 1
-    build.route_counts[f"{name}:{route}"] += 1
+    build.count_launch(name, route)
     return y, s_out

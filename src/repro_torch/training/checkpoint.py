@@ -1,0 +1,348 @@
+"""Fault-tolerant checkpointing: atomic step directories, per-leaf sha256.
+
+Counterpart of ``repro/training/checkpoint.py``, with its on-disk format
+byte for byte, so that a checkpoint written by either package restores in
+the other:
+
+    ckpt_dir/step_00000123.tmp/ ... -> atomic rename -> ckpt_dir/step_00000123/
+        manifest.json      {step, meta, leaves, treedef}
+        leaf_00000.npy     one file per leaf
+
+A tree is a nested dict / list / tuple of arrays (tensors on any device,
+numpy arrays, scalars); None holds no leaf.  A leaf's key is its path
+joined by ``/`` (dict keys and sequence indices as strings), and files are
+numbered in the order of the **sorted key strings** (``params/w/10`` before
+``params/w/2``), not in the order of the tree walk.  The manifest records
+each leaf's file, shape, dtype and sha256, the caller's ``meta``, and the
+tree's structure as ``jax.tree_util`` prints it (:func:`treedef_str`), so the
+same state gives the same :func:`manifest_fingerprint` in both packages.
+
+bfloat16 leaves are refused (:class:`CheckpointError`): numpy has no
+bfloat16 of its own.
+
+Multi-host policy: a checkpoint directory has exactly ONE writer (rank 0 of
+the job's :mod:`repro_torch.launch.coordinator`).  :func:`save` enforces
+this when handed a coordinator; reader ranks follow the writer's lineage
+with :func:`wait_for_step` and prove they restored the same checkpoint by
+comparing :func:`manifest_fingerprint` values.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import re
+import shutil
+import time
+from typing import Any, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+_SEP = "/"
+
+
+class CheckpointError(RuntimeError):
+    """A checkpoint exists but cannot be trusted: missing leaf files,
+    unreadable/mismatched manifest, or a leaf whose bytes fail the
+    manifest's sha256 — the restore path refuses partial state rather than
+    resuming a run from silently corrupted arrays.  Also raised for a tree
+    this format cannot hold (a bfloat16 leaf, a node type other than dict,
+    list, tuple or None)."""
+
+
+def _file_sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 20), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def _node_kind(t) -> Optional[str]:
+    """'dict' / 'list' / 'tuple' / 'none' for a container node, None for a
+    leaf.  Subclasses (OrderedDict, namedtuples) flatten differently in
+    ``jax.tree_util`` and are refused."""
+    if t is None:
+        return "none"
+    for kind, typ in (("dict", dict), ("list", list), ("tuple", tuple)):
+        if type(t) is typ:
+            return kind
+        if isinstance(t, typ):
+            raise CheckpointError(
+                f"unsupported tree node {type(t).__name__}: checkpoints "
+                "hold nested dict / list / tuple / None only")
+    return None
+
+
+def _flatten(tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
+    """``(key, leaf)`` in ``jax.tree_util``'s order: dict keys sorted,
+    sequences by index, None skipped."""
+    kind = _node_kind(tree)
+    if kind == "dict":
+        return [kv for k in sorted(tree)
+                for kv in _flatten(tree[k], prefix + (str(k),))]
+    if kind in ("list", "tuple"):
+        return [kv for i, v in enumerate(tree)
+                for kv in _flatten(v, prefix + (str(i),))]
+    if kind == "none":
+        return []
+    return [(_SEP.join(prefix), tree)]
+
+
+def _rebuild(template, out: dict, prefix: Tuple[str, ...] = ()):
+    """``template``'s structure with the leaf at each key taken from
+    ``out``."""
+    kind = _node_kind(template)
+    if kind == "dict":
+        return {k: _rebuild(v, out, prefix + (str(k),))
+                for k, v in template.items()}
+    if kind in ("list", "tuple"):
+        return type(template)(_rebuild(v, out, prefix + (str(i),))
+                              for i, v in enumerate(template))
+    if kind == "none":
+        return None
+    return out[_SEP.join(prefix)]
+
+
+def treedef_str(tree) -> str:
+    """The tree's structure as ``str(jax.tree_util.tree_structure(tree))``
+    prints it: ``PyTreeDef({'a': *, 'b': [*, (*, None)]})`` — dict keys
+    sorted and ``repr``'d, ``*`` for a leaf, ``(*,)`` for a 1-tuple."""
+    def fmt(t) -> str:
+        kind = _node_kind(t)
+        if kind == "dict":
+            return "{" + ", ".join(f"{k!r}: {fmt(t[k])}"
+                                   for k in sorted(t)) + "}"
+        if kind == "list":
+            return "[" + ", ".join(fmt(v) for v in t) + "]"
+        if kind == "tuple":
+            body = ", ".join(fmt(v) for v in t)
+            return "(" + body + ("," if len(t) == 1 else "") + ")"
+        if kind == "none":
+            return "None"
+        return "*"
+    return f"PyTreeDef({fmt(tree)})"
+
+
+def _host_array(leaf, key: str) -> np.ndarray:
+    """A leaf as the numpy array the reference would write: a tensor is
+    copied to the host (which waits for the device), C-contiguous, as
+    ``jax.device_get`` gives it; anything else goes through
+    ``np.asarray``."""
+    if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            raise CheckpointError(
+                f"leaf {key!r} is bfloat16, which numpy cannot hold; "
+                "checkpoints of the port take float32 and other numpy "
+                "dtypes")
+        return np.ascontiguousarray(leaf.detach().cpu().numpy())
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        raise CheckpointError(
+            f"leaf {key!r} is bfloat16; checkpoints of the port take "
+            "float32 and other numpy dtypes")
+    return arr
+
+
+def save(state, ckpt_dir: str, step: int, *, meta: Optional[dict] = None,
+         keep: int = 3, coordinator=None) -> str:
+    """Atomic checkpoint write.  Returns the final directory.
+
+    ``state`` is a nested dict / list / tuple of tensors (CUDA or CPU),
+    numpy arrays or scalars; every leaf lands as one ``.npy`` with its
+    sha256 recorded in the manifest, and the whole step directory becomes
+    visible in a single rename (readers never observe a partial step).
+    ``keep`` garbage-collects the oldest step directories past that count.
+
+    ``coordinator`` (optional, a :mod:`repro_torch.launch.coordinator`
+    object) enforces the single-writer policy: a non-writer rank calling
+    this raises :class:`CheckpointError` before any bytes are written —
+    reader ranks must :func:`wait_for_step` instead.
+    """
+    if coordinator is not None and not coordinator.is_writer:
+        raise CheckpointError(
+            f"rank {coordinator.rank} is not the writer (rank 0 of "
+            f"{coordinator.world_size}): only the writer commits "
+            f"checkpoints to {ckpt_dir}; readers wait_for_step()")
+    flat = _flatten(state)
+    treedef = treedef_str(state)
+    arrays = {key: _host_array(leaf, key) for key, leaf in flat}
+    os.makedirs(ckpt_dir, exist_ok=True)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    manifest = {"step": step, "meta": meta or {}, "leaves": {},
+                "treedef": treedef}
+    for i, key in enumerate(sorted(arrays)):
+        arr = arrays[key]
+        fname = f"leaf_{i:05d}.npy"
+        fpath = os.path.join(tmp, fname)
+        np.save(fpath, arr)
+        manifest["leaves"][key] = {
+            "file": fname, "shape": list(arr.shape), "dtype": str(arr.dtype),
+            "sha256": _file_sha256(fpath)}
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)           # atomicity point
+    _gc(ckpt_dir, keep)
+    return final
+
+
+def _steps(ckpt_dir: str) -> List[int]:
+    return [int(m.group(1)) for d in os.listdir(ckpt_dir)
+            if (m := re.fullmatch(r"step_(\d+)", d))]
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    """Newest step directory present (no validity check) or None.
+
+    Prefer :func:`latest_valid_step` for resume decisions — a crash can
+    leave the newest step present but unusable.
+    """
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = _steps(ckpt_dir)
+    return max(steps) if steps else None
+
+
+def manifest_fingerprint(ckpt_dir: str, step: int) -> str:
+    """sha256 over a checkpoint's canonicalized manifest (sorted keys,
+    tight separators).
+
+    The manifest pins every leaf's bytes (per-leaf sha256), shapes, dtypes,
+    the tree's structure and the run meta — so two checkpoints with equal
+    fingerprints describe bit-identical state.  Multi-host restores compare
+    it across ranks: the writer broadcasts its fingerprint and every reader
+    verifies it resumed the SAME lineage, not merely the same step number.
+    """
+    manifest = read_manifest(ckpt_dir, step)
+    blob = json.dumps(manifest, sort_keys=True, separators=(",", ":"))
+    return hashlib.sha256(blob.encode()).hexdigest()
+
+
+def wait_for_step(ckpt_dir: str, step: int, *, timeout_s: float = 300.0,
+                  poll_s: float = 0.05) -> int:
+    """Block until a valid checkpoint at ``>= step`` exists; return its step.
+
+    The reader side of the single-writer policy: non-writer ranks call this
+    where the writer calls :func:`save`.  Polls :func:`latest_valid_step`
+    shallowly — content trust comes from the restore path's hash
+    verification.  Raises :class:`CheckpointError` when the timeout expires
+    (dead writer).
+    """
+    deadline = time.monotonic() + timeout_s
+    while True:
+        got = latest_valid_step(ckpt_dir, deep=False)
+        if got is not None and got >= step:
+            return got
+        if time.monotonic() > deadline:
+            raise CheckpointError(
+                f"timed out after {timeout_s:.0f}s waiting for checkpoint "
+                f"step >= {step} in {ckpt_dir} (newest valid: {got}) — "
+                "writer rank dead or stalled")
+        time.sleep(poll_s)
+
+
+def read_manifest(ckpt_dir: str, step: int) -> dict:
+    """Load + sanity-check a checkpoint's manifest (incl. its ``meta``)."""
+    mf = os.path.join(ckpt_dir, f"step_{step:08d}", "manifest.json")
+    if not os.path.exists(mf):
+        raise CheckpointError(f"no manifest at {mf}")
+    try:
+        with open(mf) as f:
+            manifest = json.load(f)
+    except json.JSONDecodeError as e:
+        raise CheckpointError(f"unreadable manifest {mf}: {e}") from e
+    if "leaves" not in manifest:
+        raise CheckpointError(f"manifest {mf} has no leaves table")
+    return manifest
+
+
+def restore(state_template, ckpt_dir: str, step: Optional[int] = None, *,
+            device="cuda", verify: bool = True):
+    """Restore into the structure of ``state_template``: returns ``(tree,
+    step)``, every leaf a tensor on ``device`` with the dtype on disk.
+
+    Only the leaves the template names are read (a checkpoint may hold
+    more).  ``verify`` checks each leaf file against the manifest's sha256
+    before use; corruption raises :class:`CheckpointError` instead of
+    handing the caller partial state.
+    """
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
+    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    manifest = read_manifest(ckpt_dir, step)
+    out = {}
+    for key, _ in _flatten(state_template):
+        if key not in manifest["leaves"]:
+            raise CheckpointError(
+                f"checkpoint {d} is missing leaf {key!r} required by the "
+                "restore template")
+        info = manifest["leaves"][key]
+        if info.get("dtype") == "bfloat16":
+            raise CheckpointError(
+                f"checkpoint {d}: leaf {key!r} is bfloat16, which the port's "
+                "checkpoints do not read")
+        fpath = os.path.join(d, info["file"])
+        if not os.path.exists(fpath):
+            raise CheckpointError(f"checkpoint {d}: leaf file {info['file']} "
+                                  "is missing (partial write?)")
+        if verify and info.get("sha256") and \
+                _file_sha256(fpath) != info["sha256"]:
+            raise CheckpointError(
+                f"checkpoint {d}: leaf {key!r} ({info['file']}) fails its "
+                "manifest sha256 — corrupted on disk")
+        try:
+            arr = np.load(fpath)
+        except (ValueError, OSError, EOFError) as e:
+            raise CheckpointError(
+                f"checkpoint {d}: leaf {key!r} unreadable: {e}") from e
+        out[key] = torch.from_numpy(arr).to(device)
+    return _rebuild(state_template, out), step
+
+
+def _gc(ckpt_dir: str, keep: int):
+    for s in sorted(_steps(ckpt_dir))[:-keep]:
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:08d}"),
+                      ignore_errors=True)
+
+
+def validate(ckpt_dir: str, step: int, *, deep: bool = False) -> bool:
+    """A checkpoint is valid iff its manifest and all leaf files exist;
+    ``deep`` additionally re-hashes every leaf against the manifest's
+    sha256 (catches truncated/bit-rotted files, not just missing ones)."""
+    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    try:
+        manifest = read_manifest(ckpt_dir, step)
+    except CheckpointError:
+        return False
+    try:
+        for v in manifest["leaves"].values():
+            fpath = os.path.join(d, v["file"])
+            if not os.path.exists(fpath):
+                return False
+            if deep and v.get("sha256") and \
+                    _file_sha256(fpath) != v["sha256"]:
+                return False
+    except (KeyError, TypeError):
+        return False
+    return True
+
+
+def latest_valid_step(ckpt_dir: str, *, deep: bool = True) -> Optional[int]:
+    """Newest step that passes :func:`validate` — the resume point.  Scans
+    descending so a crash that corrupted only the newest checkpoint falls
+    back to the one before it."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    for s in sorted(_steps(ckpt_dir), reverse=True):
+        if validate(ckpt_dir, s, deep=deep):
+            return s
+    return None

@@ -42,16 +42,20 @@ def reference():
     finally:
         lax_internal.optimization_barrier_p = saved
     from repro.analysis import roofline
-    from repro.core import bcd, engine, linearize, masks
+    from repro.core import (analysis, bcd, engine, linearize, masks, pi_cost,
+                            runner)
     from repro.kernels import masked_act, ops, ref, rwkv6_scan
+    from repro.launch import sweep
     from repro.models import layers, lm, resnet, ssm
+    from repro.training import checkpoint
     import repro.configs as configs
     import repro.data as data
     _REFERENCE = types.SimpleNamespace(
         jax=jax, jnp=jnp, bcd=bcd, engine=engine, linearize=linearize,
         masks=masks, masked_act=masked_act, ops=ops, ref=ref, resnet=resnet,
         data=data, roofline=roofline, lm=lm, layers=layers, configs=configs,
-        ssm=ssm, rwkv6_scan=rwkv6_scan)
+        ssm=ssm, rwkv6_scan=rwkv6_scan, analysis=analysis, pi_cost=pi_cost,
+        runner=runner, sweep=sweep, checkpoint=checkpoint)
     return _REFERENCE
 
 
@@ -87,7 +91,11 @@ def test_port_imports_neither_jax_nor_reference_package():
         assert len(names) >= 15, names
         assert {"repro_torch.configs", "repro_torch.configs.base",
                 "repro_torch.configs.stablelm_1p6b", "repro_torch.models.lm",
-                "repro_torch.models.layers"} <= set(names), names
+                "repro_torch.models.layers",
+                "repro_torch.training.checkpoint", "repro_torch.core.runner",
+                "repro_torch.launch.coordinator", "repro_torch.launch.sweep",
+                "repro_torch.core.analysis",
+                "repro_torch.core.pi_cost"} <= set(names), names
         for n in names:
             importlib.import_module(n)
         bad = [m for m in sys.modules
@@ -133,10 +141,13 @@ def test_sharded_backend_says_it_is_not_ported_yet():
 def test_entry_points_default_to_the_card():
     import inspect
     from repro_torch import convert
-    from repro_torch.core import engine, linearize, masks
+    from repro_torch.core import engine, linearize, masks, runner
     from repro_torch.launch import sweep
     from repro_torch.models import resnet
-    fns = [convert.to_device, convert.params_from_reference,
+    from repro_torch.training import checkpoint
+    fns = [checkpoint.restore, runner.restore_run_state,
+           runner.load_stage_init, runner.BCDRunner.__init__,
+           sweep.run_sweep, convert.to_device, convert.params_from_reference,
            convert.masks_from_reference, masks.as_device,
            linearize.init_poly, engine.make_evaluator,
            engine.BatchedEvaluator.__init__,

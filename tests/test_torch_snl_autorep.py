@@ -344,15 +344,25 @@ def test_example_head_to_head_on_cpu_ends_budget_exact(capsys):
     assert "== train_base: 80 steps" in out and "[bcd] t=0" in out
 
 
-def test_example_refuses_what_is_not_ported(capsys, monkeypatch):
+def test_example_refuses_what_is_not_ported(capsys):
+    """The sweep mode is ported (``tests/test_torch_sweep.py``); what is
+    still JAX-only — the ``sharded`` engine, ``--compile-cache`` — sweep
+    flags without ``--sweep``, and ``--drc``, which the reference's example
+    does not have either, are refused by the parser (status 2)."""
     ex = _load_example()
-    assert ex.main(["--device", "cpu", "--sweep", "0.5,0.4",
-                    "--out-dir", "x"]) == 2
-    assert "not ported" in capsys.readouterr().err
-    monkeypatch.setenv("REPRO_COORD_RANK", "0")
-    assert ex.main(["--device", "cpu"]) == 2
+    for argv in (["--engine", "sharded"], ["--compile-cache", "x"],
+                 ["--overlap"], ["--drc", "4"], ["--sweep", "0.5"],
+                 ["--prefetch", "auto"]):
+        with pytest.raises(SystemExit) as e:
+            ex.parse_args(["--device", "cpu"] + argv)
+        assert e.value.code == 2, argv
+    capsys.readouterr()
     args = ex.parse_args([])
     assert args.device == "cuda" and args.engine == "batched"
+    assert args.sweep is None and args.prefetch == 2
+    args = ex.parse_args(["--sweep", "0.5,0.4", "--out-dir", "x",
+                          "--engine", "suffix", "--prefetch", "auto"])
+    assert args.sweep == [0.5, 0.4] and args.prefetch == "auto"
 
 
 def test_example_imports_neither_jax_nor_reference_package():
