@@ -32,6 +32,18 @@ resumed by another, and as two ranks on the one card; every run must give
 the same stages and the same final parameter bits, and every checkpoint
 save, deep validation and restore is timed; then, read apart, one serial
 sweep of the schedule the example documents, at its own block size.
+Then serving (``serve`` line, ``--only-serve`` alone): StableLM-2-1.6B at
+full width, float32, through ``launch.serve_loop.ServeLoop`` — two
+synthetic budgets, 4 slots of 128 tokens, 16 requests of 4-100 tokens
+bucketed to 16, 16 new tokens each, a B=1 prefill per request copied into
+a slot and ragged decode of every live slot; RWKV-6 3B at full width
+through ``launch.serve.generate`` (a batched prefill of 4 x 20 tokens on
+the scan kernel from the cache's state, then greedy decode on the exact
+recurrence) and an exact-length ``ServeLoop``; every served token and its
+logits held against the uncached forward; one decode tick timed and
+profiled; and the reduced chaos drill (virtual clock, chaos plan, queue
+bound, ladder, deadlines) on the card and on the CPU, whose decision
+fingerprints, tokens and bills must be equal.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after; the script checks that each went through its kernels and that the
@@ -103,6 +115,16 @@ Tolerances (stated again in the output):
     sums of up to 8960 products in other orders; logits are O(1) and a
     float32 sum of that length is off by about 1e-5 relative.  The RWKV
     card-vs-CPU check runs the first 8 of its 32 repeats.
+  * Served logits, cached vs uncached (the logits each prefill and decode
+    tick kept, against the uncached forward of the prompt and the tokens
+    before them): 1e-3 absolute, the LM tolerance — the same network with
+    its products taken over other row counts (cuBLAS picks other kernels
+    for 4 rows than for 100) and, on RWKV-6, the decode step's plain
+    recurrence in place of the scan kernel.  Each served token must be the
+    uncached argmax wherever the uncached top-2 margin exceeds 2e-3, twice
+    the tolerance (two logits each off by at most 1e-3 cannot swap); where
+    it does not, the token is counted, not judged.  The chaos drill's
+    decisions, tokens and bills: equal on the card and the CPU, exactly.
 
 Times are CUDA-event times over repeated launches after a warm-up, at the
 shapes the main path uses, without flushing the L2 cache between launches
@@ -179,6 +201,7 @@ PATH_KERNELS = {
     "resnet18_train": ("masked_act_2d", "masked_act_2d_bwd"),
     "resnet18_sweep": ("masked_act_2d", "masked_act_2d_batched",
                        "masked_act_conv3x3_batched", "masked_act_2d_bwd"),
+    "serve": ("masked_act_2d", "rwkv6_scan"),
 }
 # kernels with no TPU counterpart
 PORT_ONLY = {"masked_act_2d_bwd": "the gradient of kernel 1 (the reference "
@@ -194,6 +217,7 @@ PATH_ROUTES = {
                       "masked_act_matmul_2d_batched:fma"),
     "rwkv6_3b": ("rwkv6_scan:tf32x3",),
     "resnet18_sweep": ("masked_act_conv3x3_batched:tf32x3",),
+    "serve": ("rwkv6_scan:tf32x3",),
 }
 # (rows, K, N_out) of the LM paths' fused products: every bfloat16 case at
 # one of these must take route A
@@ -251,6 +275,20 @@ SWEEP_SCHEDULE = "0.599994,0.599989"
 SWEEP_DEFAULT_SCHEDULE = "0.55,0.4"
 SWEEP_CHILD_TIMEOUT_S = 300
 SWEEP_TIMED = 3             # timed repeats of a deep validation / restore
+# serving: StableLM-2-1.6B's continuous-batching loop (two synthetic
+# budgets, 4 slots of 128 tokens, prompts of 4-100 tokens bucketed to 16,
+# 16 new tokens each) and RWKV-6 3B's batched prefill + decode (batch 4,
+# prompt 20, 12 tokens: every length stays <= 32, which the reference's
+# chunk rule accepts) and exact-length loop (prompts the rule accepts)
+SERVE_SLOTS, SERVE_MAX_LEN = 4, 128
+SERVE_REQUESTS, SERVE_MAX_NEW = 16, 16
+SERVE_FRACS = (1.0, 0.25)
+SERVE_MARGIN = 2 * LM_LOGIT_TOL   # a served token must be the argmax there
+SERVE_PREFILL_LENS = (16, 48, 112)
+SERVE_TICK_CACHE_LENS = (40, 64, 88, 112)
+SERVE_TIMED_TICKS = 10
+RWKV_SERVE_BATCH, RWKV_SERVE_PROMPT, RWKV_SERVE_GEN = 4, 20, 12
+RWKV_LOOP_PROMPTS, RWKV_LOOP_MAX_LEN = (7, 20, 32, 64), 72
 
 
 def counts() -> dict:
@@ -902,7 +940,8 @@ def time_scan_copies(scan_ms: float) -> dict:
 
 def run_kernel_cases():
     """Every kernel at the shapes the main path gives it (eval batch 128,
-    chunks of 8 candidates, the four ResNet18 stages) and at ragged small
+    chunks of 8 candidates, the four ResNet18 stages, the serving path's
+    decode ticks and prefills) and at ragged small
     shapes in all four kinds, float32 and bfloat16, with and without a
     shared (stride-0) activation.  ``primary`` marks the case whose times go
     into the ``kernels`` line; ``timed`` cases are timed as well."""
@@ -924,6 +963,18 @@ def run_kernel_cases():
         cases.append(gate_case(g2, bf16, kind, n=1, rows=64, cols=1000,
                                poly=i % 2 == 1, shared_x=False,
                                primary=False, seed=20 + i))
+    # the serving path's gates, binary masks: StableLM-2-1.6B's silu FFN at
+    # a decode tick of every slot and at a B=1 prefill of the longest
+    # bucket; RWKV-6 3B's channel-mix sqrelu at a decode step of the batch
+    # and at its batched prefill
+    for i, (kind, rows, cols) in enumerate((
+            ("silu", SERVE_SLOTS, 5632),
+            ("silu", SERVE_PREFILL_LENS[-1], 5632),
+            ("sqrelu", RWKV_SERVE_BATCH, 8960),
+            ("sqrelu", RWKV_SERVE_BATCH * RWKV_SERVE_PROMPT, 8960))):
+        cases.append(gate_case(g2, f32, kind, n=1, rows=rows, cols=cols,
+                               poly=False, shared_x=False, primary=False,
+                               seed=190 + i, timed=True))
 
     # ---- masked_act_2d_bwd: every ResNet18 site shape of the train step
     # at batch 32 (the stem and stage 0, then stages 1-3), relu with the
@@ -1078,6 +1129,12 @@ def run_kernel_cases():
     # finite there, route C is held to the float64 token loop and route S
     cases.append(scan_case(LM_BATCH * H3, T3, 64, 64, 32, H3, True,
                            primary=False, seed=137, strong=True))
+    # the serving prefill of one request: 20 tokens, not a multiple of
+    # route C's 16-token chunk, from a random state per row (the cache's),
+    # with the (H, K) table
+    cases.append(scan_case(H3, RWKV_SERVE_PROMPT, 64, 64, RWKV_SERVE_PROMPT,
+                           H3, False, primary=False, seed=139, timed=True,
+                           with_serial=True))
     return cases
 
 
@@ -1404,24 +1461,13 @@ def time_train_steps(step, params, opt, masks_dev, batches, device):
     return (time.perf_counter() - t0) / TRAIN_TIMED * 1e3
 
 
-def profile_train_steps(step, params, opt, masks_dev, batches, n=3):
-    """Device time of ``n`` train steps by kernel family, kernel launches a
-    step, and the device's busy share of the wall-clock, from
-    ``torch.profiler`` (None where it records no device time)."""
-    from torch.profiler import ProfilerActivity, profile
-    ostate = opt.init(params)
-    p, ostate, _, _ = step(params, ostate, masks_dev, batches(0))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(n):
-            p, ostate, _, _ = step(p, ostate, masks_dev, batches(1 + i))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    fams = {"gate_bwd_kernel": 0.0, "gate_kernel": 0.0, "conv": 0.0,
-            "gemm": 0.0, "reduce": 0.0, "elementwise": 0.0, "copy": 0.0,
-            "other": 0.0}
+def device_families(prof, n: int):
+    """Device milliseconds per window step by kernel family, and kernel
+    launches per step, from a finished ``torch.profiler`` window of ``n``
+    steps."""
+    fams = {"gate_bwd_kernel": 0.0, "gate_kernel": 0.0, "rwkv6_scan": 0.0,
+            "conv": 0.0, "gemm": 0.0, "reduce": 0.0, "elementwise": 0.0,
+            "copy": 0.0, "other": 0.0}
     launches = 0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -1436,6 +1482,8 @@ def profile_train_steps(step, params, opt, masks_dev, batches, n=3):
             fam = "gate_bwd_kernel"
         elif "gate_kernel" in k:
             fam = "gate_kernel"
+        elif "rwkv6_scan" in k:
+            fam = "rwkv6_scan"
         elif any(t in low for t in ("conv", "cudnn", "wgrad", "dgrad",
                                      "implicit", "winograd", "fft")):
             fam = "conv"
@@ -1450,6 +1498,24 @@ def profile_train_steps(step, params, opt, masks_dev, batches, n=3):
         else:
             fam = "other"
         fams[fam] += us / 1e3 / n
+    return fams, launches / n
+
+
+def profile_window(fn, n: int):
+    """Device time of ``n`` calls of ``fn`` by kernel family, kernel
+    launches a call, and the device's busy share of the wall-clock, from
+    ``torch.profiler`` (None where it records no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(1 + i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fams, launches = device_families(prof, n)
     busy = sum(fams.values())
     if busy <= 0.0:
         return None
@@ -1457,7 +1523,19 @@ def profile_train_steps(step, params, opt, masks_dev, batches, n=3):
                 device_ms_per_step_by_family=fams,
                 device_busy_ms_per_step=busy,
                 device_busy_share=busy / (wall / n * 1e3),
-                kernel_launches_per_step=launches / n)
+                kernel_launches_per_step=launches)
+
+
+def profile_train_steps(step, params, opt, masks_dev, batches, n=3):
+    """Device time of ``n`` train steps by kernel family, kernel launches a
+    step, and the device's busy share of the wall-clock
+    (:func:`profile_window`)."""
+    state = {"p": params, "o": opt.init(params)}
+
+    def one(i):
+        state["p"], state["o"], _, _ = step(state["p"], state["o"],
+                                            masks_dev, batches(i))
+    return profile_window(one, n)
 
 
 def run_train_path(by_path, device="cuda", cfg=None):
@@ -2440,6 +2518,342 @@ def run_lm_path(spec, by_path, device="cuda"):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ serving
+
+
+def judge_served(kept, full, tokens):
+    """(largest |kept - full|, tokens checked, tokens equal to the uncached
+    argmax, tokens within the margin): ``tokens`` is checked where the
+    uncached logits' top-2 margin exceeds ``SERVE_MARGIN``."""
+    top2 = full.topk(2, dim=-1)
+    sure = (top2.values[..., 0] - top2.values[..., 1]) > SERVE_MARGIN
+    hit = sure & (tokens.to(top2.indices.device) == top2.indices[..., 0])
+    return (float((kept - full).abs().max()), int(sure.sum()),
+            int(hit.sum()), int((~sure).sum()))
+
+
+def served_consistency(model, params, store, reqs, pad, device):
+    """Every completed request of a ``keep_logits`` loop against the
+    uncached forward of its prompt and the tokens generated before each
+    position (padded with zeros to a multiple of ``pad``, exact as in
+    :func:`last_logits`): the largest logit difference, and each served
+    token against the uncached argmax (:func:`judge_served`)."""
+    worst, checked, matched, near = 0.0, 0, 0, 0
+    with torch.no_grad():
+        for r in reqs:
+            seq = np.concatenate([r.prompt, r.tokens[:-1]]).astype(np.int64)
+            n = len(seq)
+            seq = np.concatenate([seq, np.zeros(-(-n // pad) * pad - n,
+                                                np.int64)])
+            full = model.forward(params, store.select(r.mask_set),
+                                 torch.from_numpy(seq)[None].to(device),
+                                 ties=False)[0, len(r.prompt) - 1:n]
+            kept = torch.stack(r.logits)
+            if kept.shape != full.shape or \
+                    not bool(torch.isfinite(kept).all()):
+                fail(f"serve: request {r.rid} kept logits "
+                     f"{tuple(kept.shape)} vs {tuple(full.shape)}, or not "
+                     "finite")
+            w, c, m, k = judge_served(kept, full, torch.tensor(r.tokens))
+            worst, checked, matched, near = (max(worst, w), checked + c,
+                                             matched + m, near + k)
+    if matched != checked:
+        fail(f"serve: {checked - matched} of {checked} served tokens are not "
+             f"the uncached argmax where its top-2 margin exceeds "
+             f"{SERVE_MARGIN}")
+    if not worst <= LM_LOGIT_TOL:
+        fail(f"serve: cached vs uncached logits differ by {worst} > "
+             f"{LM_LOGIT_TOL}")
+    return dict(max_abs_diff_cached_vs_uncached=worst, logit_tol=LM_LOGIT_TOL,
+                margin=SERVE_MARGIN, tokens_checked=checked,
+                tokens_matched=matched, tokens_within_margin=near)
+
+
+def serve_prompts(seed: int, n: int, lo: int, hi: int, vocab: int):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, int(rng.integers(lo, hi + 1)))
+            for _ in range(n)]
+
+
+def drive_loop(loop, prompts, classes):
+    """Submit the prompts in turn over the classes and drain the loop;
+    returns the requests."""
+    reqs = [loop.submit(p, classes[i % len(classes)])
+            for i, p in enumerate(prompts)]
+    loop.shutdown(drain=True)
+    return reqs
+
+
+def cache_bytes_read(model, cache_lens) -> int:
+    """KV bytes a decode tick needs: every layer reads the K and V rows
+    of each slot's positions 0..cache_len."""
+    cfg = model.cfg
+    row = cfg.n_kv_heads * cfg.head_dim * 4 * 2
+    return int(sum(int(c) + 1 for c in cache_lens) * row * cfg.n_layers)
+
+
+def param_bytes(params) -> int:
+    """Bytes of every parameter, the embedding once (read as the head)."""
+    total = 0
+
+    def walk(t):
+        nonlocal total
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+        else:
+            total += t.numel() * t.element_size()
+    walk(params)
+    return total
+
+
+def time_serve_ticks(model, params, store, loop, device):
+    """After the drive: the B=1 prefill's time by prompt length (CUDA
+    events), one decode tick of a full lane (all slots live at ragged
+    positions; host clock around a synchronised tick, as a user waits),
+    our kernels' launches a tick, its byte bound, and one profiler window
+    of ticks."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve_loop import _zero_
+    name = store.names[0]
+    masks = store.select(name)
+    small = loop._small
+    prefill_ms = {}
+    with torch.no_grad():
+        for n in SERVE_PREFILL_LENS:
+            toks = torch.randint(0, model.cfg.vocab, (1, n), device=device,
+                                 generator=torch.Generator(device=device)
+                                 .manual_seed(n))
+            prefill_ms[str(n)] = time_ms(lambda: loop._prefill(
+                params, masks, toks, _zero_(small), n - 1, ties=False),
+                reps=3, warm=1)
+        lane = next(iter(loop.lanes.values()))
+        cl = np.array(SERVE_TICK_CACHE_LENS[:loop.slots], np.int64)
+        tok = torch.zeros((loop.slots, 1), dtype=torch.int32, device=device)
+
+        def tick(_=0):
+            return loop._decode(params, masks, tok, lane.cache, cl,
+                                ties=False)
+        for _ in range(2):
+            tick()
+        sync(device)
+        walls = []
+        before = dict(build.launch_counts)
+        for _ in range(SERVE_TIMED_TICKS):
+            t0 = time.perf_counter()
+            tick()
+            sync(device)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        per_tick = {k: (build.launch_counts[k] - before[k]) /
+                    SERVE_TIMED_TICKS for k in before
+                    if build.launch_counts[k] != before[k]}
+        prof = profile_window(tick, 5)
+    pbytes = param_bytes(params)
+    kv = cache_bytes_read(model, cl)
+    ms = float(np.mean(walls))
+    bound = (pbytes + kv) / HBM_BYTES_PER_S * 1e3
+    return dict(
+        prefill_ms_by_prompt_len=prefill_ms,
+        decode_tick=dict(slots=loop.slots, cache_lens=cl.tolist(),
+                         ms_mean=ms, ms_min=float(np.min(walls)),
+                         ms_max=float(np.max(walls)), ticks=len(walls),
+                         tokens_per_s_per_slot=1e3 / ms,
+                         tokens_per_s_total=loop.slots * 1e3 / ms,
+                         our_kernel_launches=per_tick,
+                         param_bytes=pbytes, kv_bytes_read=kv,
+                         bound_ms=bound, bound_by="bytes",
+                         bound_share=bound / ms),
+        profile=prof)
+
+
+def chaos_drill(model, params, device):
+    """Reduced StableLM under ``default_chaos_plan(5)``, a queue bound of 4,
+    the ladder, a virtual clock and deadlines on both classes; returns the
+    loop and its requests."""
+    from repro_torch.launch import faults, serve_loop
+    store = serve_loop.threshold_mask_sets(model, SERVE_FRACS, seed=SEED,
+                                           device=device)
+    classes = [serve_loop.SLOClass("premium", store.names[0], 4,
+                                   deadline_ms=900.0, priority=1),
+               serve_loop.SLOClass("economy", store.names[1], 4,
+                                   deadline_ms=2500.0)]
+    loop = serve_loop.ServeLoop(
+        model, params, store, classes, slots=2, max_len=32, prompt_bucket=8,
+        ladder=serve_loop.DegradationLadder.from_store(store), queue_cap=4,
+        clock=faults.VirtualClock(), fault_plan=faults.default_chaos_plan(5),
+        device=device)
+    rng = np.random.default_rng(9)
+    reqs = []
+    for i in range(16):
+        reqs.append(loop.submit(rng.integers(0, model.cfg.vocab,
+                                             int(rng.integers(2, 20))),
+                                ("premium", "economy")[i % 2]))
+        if i % 3 == 2:
+            loop.step()
+    loop.shutdown(drain=True)
+    return loop, reqs
+
+
+def run_chaos_drill(device="cuda"):
+    """The drill on ``device`` and on the CPU from the same parameters
+    (drawn on the CPU from the seed): equal decision fingerprints, and
+    every request's state, tokens and bill equal; admit, degrade and shed
+    must all occur."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import to_device
+    from repro_torch.launch import serve_loop
+    model, cpu_params = make_lm(SEED, LM_PATHS[0], "cpu",
+                                cfg=get_config("stablelm_1p6b").reduced())
+    card, card_reqs = chaos_drill(model, to_device(cpu_params, device),
+                                  device)
+    cpu, cpu_reqs = chaos_drill(model, cpu_params, "cpu")
+    fp = [serve_loop.decisions_fingerprint(x.decision_log)
+          for x in (card, cpu)]
+    seen = sorted({d["decision"] for d in card.decision_log})
+    out = dict(model="stablelm_1p6b reduced", device=device,
+               decisions_sha256=fp[0], cpu_decisions_sha256=fp[1],
+               decisions=seen,
+               states=[r.state for r in card_reqs],
+               shed_reasons=sorted({r.shed_reason for r in card_reqs} - {""}),
+               retries=card.stats()["retries"],
+               tokens_equal=[r.tokens for r in card_reqs] ==
+               [r.tokens for r in cpu_reqs],
+               bills_equal=[r.bill for r in card_reqs] ==
+               [r.bill for r in cpu_reqs])
+    if fp[0] != fp[1] or not out["tokens_equal"] or not out["bills_equal"]:
+        fail(f"serve: the chaos drill differs between {device} and the "
+             f"CPU: {out}")
+    if seen != ["admit", "degrade", "shed"]:
+        fail(f"serve: the chaos drill decided only {seen}")
+    return out
+
+
+def run_serve_stablelm(device="cuda"):
+    """StableLM-2-1.6B at full width, float32: a ``ServeLoop`` of two
+    synthetic budgets, 4 slots of 128 tokens, prompts bucketed to 16,
+    ``SERVE_REQUESTS`` requests of 4-100 tokens and 16 new tokens each,
+    alternating between the classes; counts set to 0 just before the
+    drive, read just after.  Then the served tokens against the uncached
+    forward, and the timings."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve_loop
+    model, params = make_lm(SEED, LM_PATHS[0], device)
+    store = serve_loop.threshold_mask_sets(model, SERVE_FRACS, seed=SEED,
+                                           device=device)
+    classes = [serve_loop.SLOClass(f"c{i}", n, SERVE_MAX_NEW)
+               for i, n in enumerate(store.names)]
+    loop = serve_loop.ServeLoop(model, params, store, classes,
+                                slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                                prompt_bucket=16, device=device,
+                                keep_logits=True)
+    prompts = serve_prompts(SEED, SERVE_REQUESTS, 4, 100, model.cfg.vocab)
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = drive_loop(loop, prompts, [c.name for c in classes])
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = counts()
+    if [r.state for r in reqs] != ["served"] * len(reqs) or \
+            any(len(r.tokens) != SERVE_MAX_NEW for r in reqs):
+        fail(f"serve: stablelm states {[r.state for r in reqs]}")
+    stats = loop.stats()
+    out = dict(model=model.cfg.name, dtype="float32", slots=SERVE_SLOTS,
+               max_len=SERVE_MAX_LEN, prompt_bucket=16,
+               requests=len(reqs), max_new=SERVE_MAX_NEW,
+               prompt_lens=[len(p) for p in prompts],
+               budgets={n: store.info(n).relu_cost for n in store.names},
+               drive_s=wall,
+               generated_tokens=sum(len(r.tokens) for r in reqs),
+               loop_prefill_ms_p50={c: stats["classes"][c]["prefill_ms_p50"]
+                                    for c in loop.lanes},
+               loop_decode_tok_s_per_slot={
+                   c: stats["classes"][c]["decode_tok_s"]
+                   for c in loop.lanes},
+               check=served_consistency(model, params, store, reqs,
+                                        LM_PATHS[0].pad, device))
+    for r in reqs:
+        r.logits = None
+    if torch.device(device).type == "cuda":
+        out.update(time_serve_ticks(model, params, store, loop, device))
+        del model, params, store, loop, reqs
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def run_serve_rwkv(device="cuda"):
+    """RWKV-6 3B at full width, float32 (time-mix ``w_o`` at 1/32, as the
+    RWKV path): ``launch.serve.generate`` of RWKV_SERVE_BATCH prompts of
+    RWKV_SERVE_PROMPT tokens by RWKV_SERVE_GEN tokens, every step's logits
+    against the uncached forward of the same tokens; then a ``ServeLoop``
+    with exact-length prefill on a few requests.  Counts set to 0 just
+    before the two drives, read just after."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve, serve_loop
+    model, params = make_lm(SEED, LM_PATHS[1], device)
+    store = serve_loop.threshold_mask_sets(model, SERVE_FRACS, seed=SEED,
+                                           device=device)
+    masks = store.select(store.names[1])
+    rng = np.random.default_rng(SEED + 1)
+    prompts = torch.from_numpy(rng.integers(
+        0, model.cfg.vocab, (RWKV_SERVE_BATCH, RWKV_SERVE_PROMPT))).to(device)
+    classes = [serve_loop.SLOClass(f"c{i}", n, 4)
+               for i, n in enumerate(store.names)]
+    loop = serve_loop.ServeLoop(model, params, store, classes, slots=2,
+                                max_len=RWKV_LOOP_MAX_LEN, prompt_bucket=None,
+                                device=device, keep_logits=True)
+    loop_prompts = [np.random.default_rng(SEED + 2 + i).integers(
+        0, model.cfg.vocab, n) for i, n in enumerate(RWKV_LOOP_PROMPTS)]
+    build.reset_launch_counts()
+    gen = serve.generate(model, params, masks, prompts, RWKV_SERVE_GEN,
+                         ties=False, keep_logits=True)
+    reqs = drive_loop(loop, loop_prompts, [c.name for c in classes])
+    sync(device)
+    launches = counts()
+    seq = torch.cat([prompts, gen["tokens"].long()], dim=1)
+    with torch.no_grad():
+        full = torch.stack([model.forward(
+            params, masks, seq[:, :RWKV_SERVE_PROMPT + t], ties=False)[:, -1]
+            for t in range(RWKV_SERVE_GEN)])
+    worst, checked, matched, _ = judge_served(
+        torch.stack(gen["logits"]), full, gen["tokens"].long().T)
+    if matched != checked or not worst <= LM_LOGIT_TOL:
+        fail(f"serve: rwkv generate vs uncached: {checked - matched} of "
+             f"{checked} tokens off, largest logit difference {worst}")
+    if [r.state for r in reqs] != ["served"] * len(reqs):
+        fail(f"serve: rwkv loop states {[r.state for r in reqs]}")
+    out = dict(model=model.cfg.name, dtype="float32",
+               w_o_scale=LM_PATHS[1].w_o_scale,
+               generate=dict(batch=RWKV_SERVE_BATCH, prompt=RWKV_SERVE_PROMPT,
+                             gen=RWKV_SERVE_GEN, prefill_ms=gen["prefill_ms"],
+                             decode_ms_mean=float(np.mean(gen["decode_ms"])),
+                             decode_ms_min=float(np.min(gen["decode_ms"])),
+                             max_abs_diff_cached_vs_uncached=worst,
+                             tokens_checked=checked, tokens_matched=matched),
+               loop=dict(prompt_bucket=None, prompt_lens=list(
+                   RWKV_LOOP_PROMPTS), max_len=RWKV_LOOP_MAX_LEN,
+                   check=served_consistency(model, params, store, reqs,
+                                            LM_PATHS[1].pad, device)))
+    del model, params, store, loop, reqs, gen
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def run_serve_path(by_path, device="cuda"):
+    """The serving slice: StableLM-2-1.6B's continuous-batching loop,
+    RWKV-6 3B's batched prefill + decode and its exact-length loop (their
+    launch counts summed into ``by_path["serve"]``), and the reduced chaos
+    drill on the card and on the CPU."""
+    lm, lm_counts = run_serve_stablelm(device)
+    rwkv, rwkv_counts = run_serve_rwkv(device)
+    by_path["serve"] = {k: lm_counts[k] + rwkv_counts[k] for k in lm_counts}
+    return dict(stablelm=lm, rwkv=rwkv, chaos_drill=run_chaos_drill(device),
+                launches={k: v for k, v in by_path["serve"].items() if v})
+
+
 def check_launches(by_path, paths) -> None:
     """Fail unless each path launched every kernel and route it must."""
     for path in paths:
@@ -2472,6 +2886,10 @@ def main() -> None:
                          "(prints no result line)")
     ap.add_argument("--only-rwkv", action="store_true",
                     help="build the kernels and run the RWKV-6 3B path "
+                         "alone, without the kernel comparison (prints no "
+                         "result line)")
+    ap.add_argument("--only-serve", action="store_true",
+                    help="build the kernels and run the serving phase "
                          "alone, without the kernel comparison (prints no "
                          "result line)")
     ap.add_argument("--src", default=None,
@@ -2533,6 +2951,11 @@ def main() -> None:
         emit({"sweep": run_sweep_path(by_path)})
         check_launches(by_path, ("resnet18_sweep",))
         return
+    if args.only_serve:
+        by_path = {}
+        emit({"serve": run_serve_path(by_path)})
+        check_launches(by_path, ("serve",))
+        return
     cases = run_kernel_cases()
     emit({"kernel_cases": cases})
     emit({"scan_copies": time_scan_copies(next(
@@ -2571,6 +2994,9 @@ def main() -> None:
     for spec in LM_PATHS:
         run_lm_path(spec, by_path)
 
+    # ---- serving StableLM-2-1.6B and RWKV-6 3B, counted on its own
+    serve_line = run_serve_path(by_path)
+
     check_launches(by_path, PATH_KERNELS)
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in build.launch_counts}
@@ -2578,6 +3004,7 @@ def main() -> None:
     for name, line in zip(("train", "snl", "pipeline"), train_lines):
         emit({name: line})
     emit({"sweep": sweep_line})
+    emit({"serve": serve_line})
     kernels = []
     for name in build.launch_counts:
         mine = [c for c in cases if c["name"] == name]

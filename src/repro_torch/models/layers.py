@@ -1,10 +1,11 @@
 """Shared transformer layers: norms, RoPE, GQA attention, gated FFN.
 
-Counterpart of ``repro/models/layers.py``, eval path (no KV cache).
-Parameters are nested dicts of tensors with the reference's keys and layouts
-(``x @ w`` with ``w`` as ``(in, out)``); the rounding order of every function
-follows the reference's, so a bfloat16 model rounds where the reference
-rounds.
+Counterpart of ``repro/models/layers.py``: the eval path, and the KV cache
+of prefill and decode (:func:`attention` with ``kv_cache=``).  Parameters
+are nested dicts of tensors with the reference's keys and layouts
+(``x @ w`` with ``w`` as ``(in, out)``); the rounding order of every
+function follows the reference's, so a bfloat16 model rounds where the
+reference rounds.
 
 Activations are ``(B, S, D)``, or ``(N, B, S, D)`` once N stacked candidates'
 activations differ.  Attention folds every leading axis into its batch; the
@@ -93,32 +94,60 @@ def attn_init(gen, c: AttnCfg, dtype=torch.bfloat16, device="cuda"):
     return p
 
 
-def _attend(q, k, v, *, window, scale):
-    """Causal attention, q (B, S, H, hd), k and v (B, S, KV, hd): scores in
-    float32, masked with -1e30, softmax cast back to q's dtype before the
-    product with v — the reference's ``_attend`` at offset 0."""
-    B, S, H, hd = q.shape
+def _attend(q, k, v, *, causal_offset=0, window, scale):
+    """Causal attention, q (B, Sq, H, hd), k and v (B, Sk, KV, hd): scores
+    in float32, masked with -1e30, softmax cast back to q's dtype before
+    the product with v — the reference's ``_attend``.  Query i attends key
+    j where ``j <= i + causal_offset`` (and ``j > i + causal_offset -
+    window`` under a sliding window): ``causal_offset`` is the absolute
+    position of q[0] less that of k[0], an int, or a (B,) tensor of per-row
+    offsets for continuous batching, where every slot decodes at its own
+    position."""
+    B, Sq, H, hd = q.shape
     KV = k.shape[2]
-    qh = q.reshape(B, S, KV, H // KV, hd)
+    qh = q.reshape(B, Sq, KV, H // KV, hd)
     scores = torch.einsum("bqkrh,bskh->bkrqs", qh, k).to(torch.float32)
     scores = scores * scale
-    qi = torch.arange(S, device=q.device)[:, None]
-    kj = torch.arange(S, device=q.device)[None, :]
-    mask = kj <= qi
-    if window is not None:
-        mask &= kj > qi - window
+    kj = torch.arange(k.shape[1], device=q.device)
+    if isinstance(causal_offset, torch.Tensor):
+        qi = torch.arange(Sq, device=q.device)[None, :, None] + \
+            causal_offset[:, None, None]                    # (B, Sq, 1)
+        mask = kj[None, None, :] <= qi
+        if window is not None:
+            mask &= kj[None, None, :] > qi - window
+        mask = mask[:, None, None]                          # (B,1,1,Sq,Sk)
+    else:
+        qi = torch.arange(Sq, device=q.device)[:, None] + causal_offset
+        mask = kj[None, :] <= qi
+        if window is not None:
+            mask &= kj[None, :] > qi - window
     scores = torch.where(mask, scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkrqs,bskh->bqkrh", probs, v)
-    return out.reshape(B, S, H, hd)
+    return out.reshape(B, Sq, H, hd)
 
 
-def attention(p, c: AttnCfg, x, positions):
-    """Causal self-attention over x (..., S, D) without a cache; every
-    leading axis (batch, and the candidate axis of stacked activations)
-    folds into the batch.  positions: (S,) integers."""
-    lead, (S, d) = x.shape[:-2], x.shape[-2:]
-    x = x.reshape(-1, S, d)
+def attention(p, c: AttnCfg, x, positions, *, kv_cache=None,
+              cache_len=None):
+    """Causal self-attention.
+
+    Without a cache (the eval path): x (..., S, D), every leading axis
+    (batch, and the candidate axis of stacked activations) folded into the
+    batch; positions (S,) integers; returns the output alone.
+
+    With ``kv_cache=(K, V)``, each (B, max_len, KV, hd) (prefill and
+    decode): x (B, S, D), positions (B, S).  k and v are written into K and
+    V **in place** at ``cache_len`` — an int, or a (B,) tensor of per-row
+    positions (continuous batching: each slot writes and attends at its own
+    offset) — and every key at or beyond ``cache_len + S`` is zeroed before
+    the products, as the reference does.  Returns ``(out, (K, V))``, the
+    same two tensors.  Raises ``ValueError`` when an int ``cache_len + S``
+    exceeds max_len (the reference would clamp the write)."""
+    if kv_cache is None:
+        lead, (S, d) = x.shape[:-2], x.shape[-2:]
+        x = x.reshape(-1, S, d)
+    else:
+        S = x.shape[1]
     B = x.shape[0]
     h, kvh, hd = c.n_heads, c.n_kv_heads, c.head_dim
     q = (x @ p["wq"]).reshape(B, S, h, hd)
@@ -129,9 +158,29 @@ def attention(p, c: AttnCfg, x, positions):
         k = rmsnorm(p["k_norm"], k)
     q = rope(q, positions, c.rope_theta)
     k = rope(k, positions, c.rope_theta)
-    out = _attend(q, k, v, window=c.window, scale=hd ** -0.5)
-    out = out.reshape(B, S, h * hd) @ p["wo"]
-    return out.reshape(tuple(lead) + (S, out.shape[-1]))
+    scale = hd ** -0.5
+    if kv_cache is None:
+        out = _attend(q, k, v, window=c.window, scale=scale)
+        out = out.reshape(B, S, h * hd) @ p["wo"]
+        return out.reshape(tuple(lead) + (S, out.shape[-1]))
+    K, V = kv_cache
+    kj = torch.arange(K.shape[1], device=x.device)
+    if isinstance(cache_len, torch.Tensor):
+        rows = torch.arange(B, device=x.device)[:, None]
+        pos = cache_len[:, None] + torch.arange(S, device=x.device)[None]
+        K[rows, pos] = k.to(K.dtype)
+        V[rows, pos] = v.to(V.dtype)
+        valid = (kj[None, :] < (cache_len + S)[:, None])[:, :, None, None]
+    else:
+        if cache_len + S > K.shape[1]:
+            raise ValueError(f"attention: cache_len {cache_len} + {S} new "
+                             f"tokens exceed the cache's {K.shape[1]}")
+        K[:, cache_len:cache_len + S] = k.to(K.dtype)
+        V[:, cache_len:cache_len + S] = v.to(V.dtype)
+        valid = (kj < cache_len + S)[None, :, None, None]
+    out = _attend(q, torch.where(valid, K, 0), torch.where(valid, V, 0),
+                  causal_offset=cache_len, window=c.window, scale=scale)
+    return out.reshape(B, S, h * hd) @ p["wo"], (K, V)
 
 
 # ---------------------------------------------------------------- gated FFN

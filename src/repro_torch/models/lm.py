@@ -1,4 +1,4 @@
-"""Unified LM backbone, dense and RWKV-6 blocks (eval path).
+"""Unified LM backbone, dense and RWKV-6 blocks: eval, prefill and decode.
 
 Counterpart of ``repro/models/lm.py``.  A model is ``head_blocks`` + a stack
 of ``n_repeats`` copies of ``cfg.pattern`` + a ``tail`` (the pattern
@@ -22,15 +22,20 @@ and attention and the RWKV time-mix scan fold ``N·B`` into their batch after
 that.  RWKV blocks stay on the gate route under ``fused=``, as the
 reference routes them.
 
-Block kinds ``moe``, ``mamba`` and ``attn_only`` and the KV cache and
-recurrent decode state are not ported yet (``ROADMAP.md`` Queue A9 and A10)
-and raise.
+**Serving** (``forward(cache=, cache_len=)``, :meth:`LM.init_cache`): a
+dense block keeps a KV cache, an RWKV-6 block its scan state and the two
+token shifts' last inputs, in the reference's cache tree.  The port writes
+the cache **in place** where the reference returns a new one.
+
+Block kinds ``moe``, ``mamba`` and ``attn_only`` are not ported yet
+(``ROADMAP.md`` Queue A9) and raise.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 import repro_torch
@@ -159,10 +164,12 @@ class LM:
     # ------------------------------------------------------------ blocks
 
     def _layer_apply(self, blk: Block, p, x, masks, prefix, opt, positions,
-                     repeat=None):
+                     repeat=None, cache=None, cache_len=0):
         """One block.  ``prefix``: its place (``"h0"``, ``"s0"``, ``"t1"``),
         which with the block's site suffix names its mask site; ``repeat``:
-        the stack row its (R, ·) mask and poly arrays are read at."""
+        the stack row its (R, ·) mask and poly arrays are read at.
+        ``cache``: the block's own cache (views of the model's cache
+        tree), updated in place."""
         poly, soft, fused, ties = opt
         (suf, site), = _sites_for(self.cfg, blk).items()
         name = f"{prefix}.{suf}"
@@ -176,12 +183,30 @@ class LM:
         h = layers.rmsnorm(p["ln1"], x)
         if blk.kind == "rwkv":
             rc = _rwkv_cfg(self.cfg)
-            x = x + ssm.rwkv_time_mix(p["tmix"], rc, h)
+            if cache is None:
+                x = x + ssm.rwkv_time_mix(p["tmix"], rc, h)
+                h = layers.rmsnorm(p["ln2"], x)
+                return x + ssm.rwkv_channel_mix(p["tmix"], rc, h, m, site,
+                                                poly=ply, soft=soft,
+                                                ties=ties)
+            y, (state, ptm) = ssm.rwkv_time_mix(
+                p["tmix"], rc, h, cache=(cache["state"], cache["ptm"]))
+            cache["state"].copy_(state)
+            cache["ptm"].copy_(ptm)
+            x = x + y
             h = layers.rmsnorm(p["ln2"], x)
-            return x + ssm.rwkv_channel_mix(p["tmix"], rc, h, m, site,
-                                            poly=ply, soft=soft, ties=ties)
-        x = x + layers.attention(p["attn"], _attn_cfg(self.cfg, blk), h,
-                                 positions)
+            y, pcm = ssm.rwkv_channel_mix(p["tmix"], rc, h, m, site,
+                                          poly=ply, soft=soft, ties=ties,
+                                          cache=cache["pcm"])
+            cache["pcm"].copy_(pcm)
+            return x + y
+        ac = _attn_cfg(self.cfg, blk)
+        if cache is None:
+            x = x + layers.attention(p["attn"], ac, h, positions)
+        else:
+            x = x + layers.attention(p["attn"], ac, h, positions,
+                                     kv_cache=cache["kv"],
+                                     cache_len=cache_len)[0]
         h = layers.rmsnorm(p["ln2"], x)
         return x + layers.ffn(p["ffn"], h, m, site, poly=ply, soft=soft,
                               fused=fused, ties=ties)
@@ -196,26 +221,39 @@ class LM:
         cfg = self.cfg
         return 1 + len(cfg.head_blocks) + cfg.n_repeats + len(cfg.tail)
 
-    def _fold(self, params, masks, x, lo: int, hi: int, opt):
-        """Run segments ``[lo, hi)`` (lo >= 1) on the hidden state x."""
+    def _fold(self, params, masks, x, lo: int, hi: int, opt, cache=None,
+              cache_len=0):
+        """Run segments ``[lo, hi)`` (lo >= 1) on the hidden state x;
+        ``cache`` (serving) is updated in place."""
         cfg = self.cfg
         H, R = len(cfg.head_blocks), cfg.n_repeats
-        positions = torch.arange(x.shape[-2], device=x.device)
+        if cache is None:
+            positions = torch.arange(x.shape[-2], device=x.device)
+        else:
+            positions = _positions(x.shape[0], x.shape[1], cache_len,
+                                   x.device)
         for seg in range(max(lo, 1), hi):
             if seg <= H:
                 i = seg - 1
-                x = self._layer_apply(cfg.head_blocks[i], params["head"][i],
-                                      x, masks, f"h{i}", opt, positions)
+                x = self._layer_apply(
+                    cfg.head_blocks[i], params["head"][i], x, masks, f"h{i}",
+                    opt, positions, cache=None if cache is None
+                    else cache["head"][i], cache_len=cache_len)
             elif seg <= H + R:
                 r = seg - 1 - H
                 for pos, blk in enumerate(cfg.pattern):
                     lp = _index(params["stack"][str(pos)], r)
+                    lc = None if cache is None \
+                        else _index(cache["stack"][str(pos)], r)
                     x = self._layer_apply(blk, lp, x, masks, f"s{pos}", opt,
-                                          positions, repeat=r)
+                                          positions, repeat=r, cache=lc,
+                                          cache_len=cache_len)
             else:
                 i = seg - 1 - H - R
-                x = self._layer_apply(cfg.tail[i], params["tail"][i], x,
-                                      masks, f"t{i}", opt, positions)
+                x = self._layer_apply(
+                    cfg.tail[i], params["tail"][i], x, masks, f"t{i}", opt,
+                    positions, cache=None if cache is None
+                    else cache["tail"][i], cache_len=cache_len)
         return x
 
     def _logits(self, params, x):
@@ -228,8 +266,8 @@ class LM:
     # ------------------------------------------------------------ forward
 
     def forward(self, params, masks, tokens, *, prefix_embeds=None,
-                poly=None, soft=False, cache=None, pre=None, fused=False,
-                ties=True):
+                poly=None, soft=False, cache=None, cache_len=0, pre=None,
+                fused=False, ties=True):
         """Logits ``(B, S, V)``, or ``(N, B, S, V)`` for stacked masks.
 
         ``pre``: a cached :meth:`forward_pre` result (the mask-independent
@@ -237,20 +275,39 @@ class LM:
         ``(B, P, D)`` stub-frontend embeddings put before the tokens'.
         ``fused``: every hard-mask FFN runs gate → down-projection as one
         kernel.  ``ties=False`` promises that no mask coordinate is
-        share-tied (decided on the host, ``linearize.has_share_ties``)."""
-        if cache is not None:
-            raise NotImplementedError(
-                "the KV cache (decode) is not ported yet: it comes with "
-                "serving, ROADMAP.md Queue A10")
+        share-tied (decided on the host, ``linearize.has_share_ties``).
+
+        ``cache`` (prefill and decode; one mask tree, not stacked): a tree
+        from :meth:`init_cache`, the reference's — ``{"head": [block
+        cache, …], "stack": {"<pattern position>": block cache with a
+        leading repeats axis on every leaf}, "tail": [block cache, …]}``,
+        where a dense block's cache is ``{"kv": (K, V)}``, each (B,
+        max_len, KV, hd) in the model's dtype, and an RWKV-6 block's is
+        ``{"state": (B, H, hd, hd) float32, "ptm": (B, D), "pcm": (B, D)}``
+        (the scan state and the time- and channel-mix shifts' last
+        inputs).  The tokens sit at positions ``cache_len …`` — an int, or
+        a (B,) array or tensor of per-row positions (ragged decode).  The
+        cache is updated **in place**; returns ``(logits, cache)``, the
+        same tree.  Without a cache returns the logits alone."""
         opt = (poly or {}, soft, fused, ties)
+        if cache is not None:
+            sites = self.mask_sites()
+            if any(masks[k].dim() != len(s.shape) for k, s in sites.items()):
+                raise ValueError("forward(cache=): one mask tree, not a "
+                                 "stack of candidates")
         if pre is not None:
             x = pre
         else:
             x = self._embed(params, tokens)
             if prefix_embeds is not None:
                 x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
-        x = self._fold(params, masks, x, 1, self._n_segments(), opt)
-        return self._logits(params, x)
+        if cache is None:
+            x = self._fold(params, masks, x, 1, self._n_segments(), opt)
+            return self._logits(params, x)
+        cache_len = _cache_len(cache_len, x.shape[0], x.device)
+        x = self._fold(params, masks, x, 1, self._n_segments(), opt,
+                       cache=cache, cache_len=cache_len)
+        return self._logits(params, x), cache
 
     def forward_pre(self, params, tokens):
         """The mask-independent head of the network, the token embedding:
@@ -456,16 +513,83 @@ class LM:
         return eval_acc
 
 
+    # ------------------------------------------------------------ cache
+
+    def _layer_cache(self, blk: Block, B: int, max_len: int, device):
+        cfg, dt = self.cfg, self.dtype
+        if blk.kind == "rwkv":
+            rc = _rwkv_cfg(cfg)
+            return {"state": torch.zeros((B, rc.n_heads, rc.head_dim,
+                                          rc.head_dim), dtype=torch.float32,
+                                         device=device),
+                    "ptm": torch.zeros((B, cfg.d_model), dtype=dt,
+                                       device=device),
+                    "pcm": torch.zeros((B, cfg.d_model), dtype=dt,
+                                       device=device)}
+        kv_shape = (B, max_len, cfg.n_kv_heads, cfg.head_dim)
+        return {"kv": (torch.zeros(kv_shape, dtype=dt, device=device),
+                       torch.zeros(kv_shape, dtype=dt, device=device))}
+
+    def init_cache(self, B: int, max_len: int, device="cuda"):
+        """A zero cache for B sequences of up to ``max_len`` tokens, in the
+        tree :meth:`forward` documents; the stack's leaves carry a leading
+        repeats axis and every leaf is a tensor of its own (they are
+        written in place)."""
+        cfg, R = self.cfg, self.cfg.n_repeats
+        stack = {}
+        for pos, blk in enumerate(cfg.pattern):
+            stack[str(pos)] = _stack_trees(
+                [self._layer_cache(blk, B, max_len, device)
+                 for _ in range(R)])
+        return {"head": [self._layer_cache(b, B, max_len, device)
+                         for b in cfg.head_blocks],
+                "stack": stack,
+                "tail": [self._layer_cache(b, B, max_len, device)
+                         for b in cfg.tail]}
+
+
+def _positions(B: int, S: int, cache_len, device):
+    """(B, S) absolute positions from an int ``cache_len`` (every row at the
+    same offset) or a (B,) tensor of per-row offsets (ragged decode)."""
+    steps = torch.arange(S, device=device)
+    if isinstance(cache_len, torch.Tensor):
+        return steps[None, :] + cache_len[:, None]
+    return (steps + cache_len)[None, :].expand(B, S)
+
+
+def _cache_len(cache_len, B: int, device):
+    """``cache_len`` as an int, or as a (B,) int64 tensor on ``device``."""
+    if isinstance(cache_len, torch.Tensor) and cache_len.dim() == 1:
+        t = cache_len
+    else:
+        a = np.asarray(cache_len.cpu() if isinstance(cache_len, torch.Tensor)
+                       else cache_len)
+        if a.ndim == 0:
+            return int(a)
+        t = torch.as_tensor(a)
+    if tuple(t.shape) != (B,):
+        raise ValueError(f"cache_len must be an int or ({B},), got "
+                         f"{tuple(t.shape)}")
+    return t.to(device=device, dtype=torch.int64)
+
+
 def _stack_trees(trees):
-    """A list of equal parameter trees -> one tree of stacked leaves."""
+    """A list of equal parameter (or cache) trees -> one tree of stacked
+    leaves."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    if isinstance(first, tuple):
+        return tuple(_stack_trees([t[i] for t in trees])
+                     for i in range(len(first)))
     return torch.stack(trees)
 
 
 def _index(tree, r: int):
-    """Row ``r`` of every leaf of a stacked parameter tree."""
+    """Row ``r`` of every leaf of a stacked parameter (or cache) tree, as
+    views."""
     if isinstance(tree, dict):
         return {k: _index(v, r) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_index(v, r) for v in tree)
     return tree[r]

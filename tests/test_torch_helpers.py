@@ -45,9 +45,9 @@ def reference():
     from repro.core import (analysis, bcd, engine, linearize, masks, pi_cost,
                             runner)
     from repro.kernels import masked_act, ops, ref, rwkv6_scan
-    from repro.launch import sweep
+    from repro.launch import faults, serve_loop, sweep
     from repro.models import layers, lm, resnet, ssm
-    from repro.training import checkpoint
+    from repro.training import checkpoint, serve
     import repro.configs as configs
     import repro.data as data
     _REFERENCE = types.SimpleNamespace(
@@ -55,7 +55,8 @@ def reference():
         masks=masks, masked_act=masked_act, ops=ops, ref=ref, resnet=resnet,
         data=data, roofline=roofline, lm=lm, layers=layers, configs=configs,
         ssm=ssm, rwkv6_scan=rwkv6_scan, analysis=analysis, pi_cost=pi_cost,
-        runner=runner, sweep=sweep, checkpoint=checkpoint)
+        runner=runner, sweep=sweep, checkpoint=checkpoint, faults=faults,
+        serve_loop=serve_loop, serve=serve)
     return _REFERENCE
 
 
@@ -67,6 +68,15 @@ def to_numpy_tree(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_numpy_tree(v) for v in tree)
     return np.asarray(tree)
+
+
+def tree_leaves(tree):
+    """Every leaf of nested dicts, lists and tuples, in order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
 
 
 def random_masks(sites, seed, density=0.6):
@@ -94,6 +104,9 @@ def test_port_imports_neither_jax_nor_reference_package():
                 "repro_torch.models.layers",
                 "repro_torch.training.checkpoint", "repro_torch.core.runner",
                 "repro_torch.launch.coordinator", "repro_torch.launch.sweep",
+                "repro_torch.launch.faults", "repro_torch.launch.serve",
+                "repro_torch.launch.serve_loop",
+                "repro_torch.training.serve",
                 "repro_torch.core.analysis",
                 "repro_torch.core.pi_cost"} <= set(names), names
         for n in names:

@@ -446,9 +446,16 @@ def test_unported_parts_raise_and_name_the_queue():
     for arch in ("mixtral_8x22b", "zamba2_2p7b", "deepseek_moe_16b"):
         with pytest.raises(NotImplementedError, match="Queue A9"):
             LM(get_config(arch).reduced())
+    # the KV cache, once Queue A10, is ported: a cached forward returns
+    # the logits and the cache it wrote
     m = LM(get_config("stablelm_1p6b").reduced())
-    with pytest.raises(NotImplementedError, match="Queue A10"):
-        m.forward({}, {}, torch.zeros(1, 2, dtype=torch.long), cache={})
+    params = m.init(torch.Generator().manual_seed(0), "cpu")
+    from repro_torch.core import linearize, masks as M
+    masks = M.as_device(linearize.init_masks(m.mask_sites()), "cpu")
+    cache = m.init_cache(1, 4, "cpu")
+    logits, out = m.forward(params, masks,
+                            torch.zeros(1, 2, dtype=torch.long), cache=cache)
+    assert out is cache and logits.shape == (1, 2, m.cfg.vocab)
 
 
 def test_lm_entry_points_default_to_the_card():
