@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout, holds each one
-against its plain PyTorch version on the card, and drives the port's three
+against its plain PyTorch version on the card, and drives the port's five
 paths, BCD candidate evaluation through ``bcd.run_bcd`` with the
 sequential, batched, pipelined and suffix engines:
 
@@ -16,7 +16,25 @@ sequential, batched, pipelined and suffix engines:
   3. RWKV-6 3B the same way (``rwkv_batch``, ``rwkv_forward``, ``rwkv_bcd``,
      ``rwkv_sited`` lines), its time-mix scan on the ``rwkv6_scan`` kernel
      (route C, on the tensor cores), its channel-mix gate on the gate
-     kernels; no fused route.
+     kernels; no fused route;
+  4. DeepSeek-MoE-16B the same way, float32, every one of its 28 layers
+     on the card (``moe_batch``, ``moe_forward``, ``moe_bcd``,
+     ``moe_sited``, ``moe_serve`` lines): a dense head block and 27 MoE
+     blocks of 64 routed experts (top-6) and a shared expert; the routed
+     experts' gate on kernels 1/2, the dense head block and the shared
+     experts fused (kernels 3/4, route B) under ``fused=``;
+     ``moe_forward`` counts the (token, k) routes that differ between
+     evaluation paths, profiles a forward and reports the card's peak
+     memory;
+  5. Zamba2-2.7B the same way (``hybrid_*`` lines): 9 repeats of five
+     Mamba2 blocks (gate on kernels 1/2, the scan in plain PyTorch, as
+     the reference's is jnp code) and one shared attention block; each
+     Mamba2 output projection drawn at 1/32 of the init's scale, as
+     RWKV-6's is, for the same reason.
+
+Paths 4 and 5 also serve (``<tag>_serve``): ``launch.serve.generate`` of
+2 x 16 prompt tokens by 8, each served token held to the uncached
+argmax, and the decode step timed.
 
 and, on path 1's model, the paper's training half (``train``, ``snl``,
 ``pipeline`` lines): the train step's gradients on the card against the
@@ -111,10 +129,18 @@ Tolerances (stated again in the output):
     strong decay (w down to 2e-9) the plain version is not finite, and
     route C must be finite with its error against float64 within 4x route
     S's.
-  * LM logits: 1e-3 absolute, the same comparisons — 24 or 32 layers of
-    sums of up to 8960 products in other orders; logits are O(1) and a
-    float32 sum of that length is off by about 1e-5 relative.  The RWKV
-    card-vs-CPU check runs the first 8 of its 32 repeats.
+  * LM logits: 1e-3 absolute, the same comparisons — 24 to 54 layers of
+    sums of up to 10944 products in other orders; logits are O(1) and a
+    float32 sum of that length is off by about 1e-5 relative.  The
+    card-vs-CPU check runs the first 8 of RWKV-6's 32 repeats, DeepSeek's
+    head block and first MoE repeat, and Zamba2's first 2 repeats.  A
+    MoE token whose router top-6 is tied within rounding can route to
+    another expert on another evaluation path, and the logits from it on
+    are another function: on a MoE model each comparison holds the
+    logits to 1e-3 at every position before the first token its two
+    forwards routed differently, counts the positions from it on with
+    their largest difference, and fails unless at least half the
+    positions are held.
   * Served logits, cached vs uncached (the logits each prefill and decode
     tick kept, against the uncached forward of the prompt and the tokens
     before them): 1e-3 absolute, the LM tolerance — the same network with
@@ -123,8 +149,14 @@ Tolerances (stated again in the output):
     recurrence in place of the scan kernel.  Each served token must be the
     uncached argmax wherever the uncached top-2 margin exceeds 2e-3, twice
     the tolerance (two logits each off by at most 1e-3 cannot swap); where
-    it does not, the token is counted, not judged.  The chaos drill's
-    decisions, tokens and bills: equal on the card and the CPU, exactly.
+    it does not, the token is counted, not judged.  On the MoE and
+    hybrid paths the served tokens are judged so; their logits are
+    reported, not held.  A MoE decode step has one slot an expert and
+    drops nothing, while the uncached forward of a longer sequence may
+    drop a generated token's pair at capacity (the reference's rule): the
+    positions from such a drop on are another function of the tokens and
+    are counted, not judged.  The chaos drill's decisions, tokens and
+    bills: equal on the card and the CPU, exactly.
 
 Times are CUDA-event times over repeated launches after a warm-up, at the
 shapes the main path uses, without flushing the L2 cache between launches
@@ -141,6 +173,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -198,6 +231,10 @@ PATH_KERNELS = {
                       "masked_act_matmul_2d",
                       "masked_act_matmul_2d_batched"),
     "rwkv6_3b": ("masked_act_2d", "masked_act_2d_batched", "rwkv6_scan"),
+    "deepseek_moe_16b": ("masked_act_2d", "masked_act_2d_batched",
+                         "masked_act_matmul_2d",
+                         "masked_act_matmul_2d_batched"),
+    "zamba2_2p7b": ("masked_act_2d", "masked_act_2d_batched"),
     "resnet18_train": ("masked_act_2d", "masked_act_2d_bwd"),
     "resnet18_sweep": ("masked_act_2d", "masked_act_2d_batched",
                        "masked_act_conv3x3_batched", "masked_act_2d_bwd"),
@@ -209,13 +246,16 @@ PORT_ONLY = {"masked_act_2d_bwd": "the gradient of kernel 1 (the reference "
              "gate)"}
 # ... and the routes (build.route_counts): ResNet18's float32 convs on
 # route T (tensor cores); StableLM's float32 path on route B, its bfloat16
-# forward on route A; RWKV-6's scans on route C (tensor cores), every one
+# forward on route A; RWKV-6's scans on route C (tensor cores), every one;
+# DeepSeek-MoE's float32 dense head block and shared experts on route B
 PATH_ROUTES = {
     "resnet18": ("masked_act_conv3x3:tf32x3",
                  "masked_act_conv3x3_batched:tf32x3"),
     "stablelm_1p6b": ("masked_act_matmul_2d:fma", "masked_act_matmul_2d:wgmma",
                       "masked_act_matmul_2d_batched:fma"),
     "rwkv6_3b": ("rwkv6_scan:tf32x3",),
+    "deepseek_moe_16b": ("masked_act_matmul_2d:fma",
+                         "masked_act_matmul_2d_batched:fma"),
     "resnet18_sweep": ("masked_act_conv3x3_batched:tf32x3",),
     "serve": ("rwkv6_scan:tf32x3",),
 }
@@ -1004,6 +1044,28 @@ def run_kernel_cases():
     cases.append(gate_case(g2b, f32, "relu", n=8, rows=128, cols=4 * 4 * 512,
                            poly=False, shared_x=False, primary=False, seed=5,
                            timed=True))
+    # the MoE and hybrid paths' silu gates, un-stacked and in chunks of
+    # LM_CHUNK candidates: DeepSeek-MoE-16B's routed experts, rows B·C of
+    # E·F columns (C slots an expert, 16 at 127 tokens; the first MoE
+    # layer after a cut reads a shared x), and Zamba2-2.7B's Mamba2 gate,
+    # rows B·S of d_inner
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, moe
+    moe_path = FAMILY_PATHS[0]
+    moe_rows = LM_BATCH * moe._capacity(
+        lm._moe_cfg(get_config(moe_path.arch)), moe_path.seq - 1)
+    mamba_rows = LM_BATCH * (FAMILY_PATHS[1].seq - 1)
+    for i, (rows, cols) in enumerate(((moe_rows, 64 * 1408),
+                                      (mamba_rows, 5120))):
+        cases.append(gate_case(g2, f32, "silu", n=1, rows=rows, cols=cols,
+                               poly=False, shared_x=False, primary=False,
+                               seed=200 + i, timed=True))
+        cases.append(gate_case(g2b, f32, "silu", n=LM_CHUNK, rows=rows,
+                               cols=cols, poly=False, shared_x=False,
+                               primary=False, seed=202 + i, timed=True))
+    cases.append(gate_case(g2b, f32, "silu", n=LM_CHUNK, rows=moe_rows,
+                           cols=64 * 1408, poly=False, shared_x=True,
+                           primary=False, seed=204, timed=True))
     for i, kind in enumerate(kinds):
         cases.append(gate_case(g2b, f32, kind, n=3, rows=5, cols=77,
                                poly=i % 2 == 1, shared_x=i % 2 == 0,
@@ -1092,6 +1154,16 @@ def run_kernel_cases():
                                  timed=True))
     cases.append(matmul_case(m2, bf16, "silu", 1, rows, k, nout, True, False,
                              primary=False, seed=104, timed=True))
+    # DeepSeek-MoE-16B's fused products under fused=, route B in float32:
+    # its shared expert (K = d_ff_shared) and its dense head block (K =
+    # d_ff), un-stacked and in chunks of LM_CHUNK candidates
+    for i, k_moe in enumerate((2816, 10944)):
+        cases.append(matmul_case(m2, f32, "silu", 1, rows, k_moe, nout, True,
+                                 False, primary=False, seed=210 + 2 * i,
+                                 timed=True))
+        cases.append(matmul_case(m2b, f32, "silu", LM_CHUNK, rows, k_moe,
+                                 nout, True, False, primary=False,
+                                 seed=211 + 2 * i, timed=True))
     for i, kind in enumerate(kinds):
         for dt in (f32, bf16):
             # ragged in rows, K and N_out; K = 203 takes the scalar loads,
@@ -2123,7 +2195,9 @@ class LMPath:
     fused: bool         # the config has the fused gate→matmul route
     sited: tuple        # per-repeat sites of the ``<tag>_sited`` line
     cpu_repeats: int    # depth of the card-vs-CPU check (0: every layer)
-    w_o_scale: float = 1.0   # factor on the init's RWKV time-mix w_o
+    w_o_scale: float = 1.0   # factor on the init's block output projection
+    bf16: bool = True   # one forward at the config's bfloat16 as well
+    drc: int = LM_DRC   # nonlinearities removed per BCD step
 
 
 LM_PATHS = (
@@ -2142,6 +2216,29 @@ LM_PATHS = (
     LMPath("rwkv6_3b", "rwkv", 129, 32, False, ("s0.rwkv@8", "s0.rwkv@24"),
            8, w_o_scale=1 / 32),
 )
+# The MoE and hybrid paths, each also served (``<tag>_serve`` line).
+# DeepSeek-MoE-16B: a dense head block and 27 MoE blocks, 16.2 B parameters,
+# 64.7 GB in float32 — no room for a bfloat16 copy beside them, so no
+# bfloat16 forward; exact-length greedy forwards (pad 1: a MoE's capacity
+# depends on the length); the card-vs-CPU check runs the head block and
+# the first MoE repeat (3.5 GB on the host); 2.52 M nonlinearities, so a
+# BCD step removes 4096 (0.16 %, StableLM's 256 of 135 k is 0.19 %).
+# Zamba2-2.7B: 9 repeats of five Mamba2 blocks and the shared attention
+# block; the Mamba2 scan needs S % min(64, S) == 0, as the reference does:
+# 128 inputs, greedy forwards padded to multiples of 64; the CPU check runs
+# the first 2 repeats.  Like RWKV-6, the random 54-layer model at the
+# init's scales amplifies float32 rounding (1e-7 relative noise on the
+# embedding moves the logits by ~7e-4, and the suffix and batched engines
+# then rank some candidates apart); each Mamba2 ``w_out`` is drawn at 1/32
+# of the init's scale, and ``hybrid_forward`` measures both
+# (``rounding_growth``).
+FAMILY_PATHS = (
+    LMPath("deepseek_moe_16b", "moe", 128, 1, True, ("s0.moe@8", "s0.moe@20"),
+           1, bf16=False, drc=4096),
+    LMPath("zamba2_2p7b", "hybrid", 129, 64, False,
+           ("s0.mamba@2", "s4.mamba@6"), 2, w_o_scale=1 / 32, drc=512),
+)
+FAMILY_SERVE_BATCH, FAMILY_SERVE_PROMPT, FAMILY_SERVE_GEN = 2, 16, 8
 
 
 def make_lm(seed: int, spec, device="cuda", cfg=None, dtype="float32"):
@@ -2152,9 +2249,20 @@ def make_lm(seed: int, spec, device="cuda", cfg=None, dtype="float32"):
     gen = torch.Generator(device=device).manual_seed(seed)
     params = model.init(gen, device)
     if spec.w_o_scale != 1.0:
-        for layer in params["stack"].values():
-            layer["tmix"]["w_o"].mul_(spec.w_o_scale)
+        for w in output_projections(params):
+            w.mul_(spec.w_o_scale)
     return model, params
+
+
+def output_projections(params):
+    """The stack's recurrent-block output projections that ``w_o_scale``
+    scales: RWKV-6's time-mix ``w_o`` and Mamba2's ``w_out``."""
+    out = []
+    for layer in params["stack"].values():
+        for block, leaf in (("tmix", "w_o"), ("mamba", "w_out")):
+            if block in layer:
+                out.append(layer[block][leaf])
+    return out
 
 
 def labelled_margins(logits, prompt: int):
@@ -2207,21 +2315,25 @@ def make_lm_batch(model, params, seed: int, spec, device="cuda"):
 
 
 def first_repeats(model, params, tree, n: int):
-    """The model cut to its first ``n`` stack repeats (0: as it is), with
-    the parameter rows and mask rows of those repeats (views on the
-    card)."""
+    """The model cut to its head blocks and its first ``n`` stack repeats
+    (0: as it is), with the parameter rows and mask rows of those repeats
+    (views on the card; a shared block's one parameter set as it is)."""
     from repro_torch.models.lm import LM
     cfg = model.cfg
     if not n or n >= cfg.n_repeats:
         return model, params, tree
-    if cfg.head_blocks or cfg.tail:
-        raise ValueError("first_repeats: the config has head or tail blocks")
-    cut = LM(dataclasses.replace(cfg, n_layers=n * len(cfg.pattern)))
+    if cfg.tail:
+        raise ValueError("first_repeats: the config has tail blocks")
+    cut = LM(dataclasses.replace(
+        cfg, n_layers=len(cfg.head_blocks) + n * len(cfg.pattern)))
 
     def rows(t):
         return {k: rows(v) for k, v in t.items()} if isinstance(t, dict) \
             else t[:n]
-    sub = dict(params, stack=rows(params["stack"]))
+    sub = dict(params, stack={
+        str(pos): params["stack"][str(pos)] if blk.shared
+        else rows(params["stack"][str(pos)])
+        for pos, blk in enumerate(cfg.pattern)})
     reps = model.site_repeats()
     return cut, sub, {k: v[:n] if k in reps else v for k, v in tree.items()}
 
@@ -2230,7 +2342,10 @@ def run_lm_forward(model, params, batch, seed: int, spec, device="cuda"):
     """Stacked vs un-stacked and stacked from the cached embedding (kernel
     2, and kernel 4 where the config has the fused route), un-stacked
     unfused vs fused (kernel 3) where it has, card vs CPU on 1 x
-    ``LM_CPU_TOKENS`` tokens, and one bfloat16 forward."""
+    ``LM_CPU_TOKENS`` tokens, and one bfloat16 forward.  On a MoE model
+    each comparison holds the logits to LM_LOGIT_TOL at every position
+    before the first token the two forwards routed differently
+    (:func:`held_diff`) and counts the rest."""
     from repro_torch.convert import to_device
     from repro_torch.core import masks as M
     rng = np.random.default_rng(seed)
@@ -2240,45 +2355,63 @@ def run_lm_forward(model, params, batch, seed: int, spec, device="cuda"):
     tokens = to_device(batch["tokens"], device)
     x = tokens[:, :-1]
     fused = spec.fused
+
+    def routed(fn):
+        rec = record_routes()
+        with rec:
+            out = fn()
+        return out, rec.calls
     with torch.no_grad():
         dev = [M.as_device(t, device) for t in trees]
-        plain = [model.forward(params, d, x, ties=False) for d in dev]
+        plain = [routed(lambda d=d: model.forward(params, d, x, ties=False))
+                 for d in dev]
         stacked = M.as_device(M.stack_trees(trees), device)
-        st_plain = model.forward(params, stacked, x, ties=False)
+        st_plain = routed(lambda: model.forward(params, stacked, x,
+                                                ties=False))
         pre = model.forward_pre(params, x)
-        st_pre = model.forward(params, stacked, None, pre=pre, fused=fused,
-                               ties=False)
-        diffs = {}
-        outs = plain + [st_plain, st_pre]
+        st_pre = routed(lambda: model.forward(params, stacked, None, pre=pre,
+                                              fused=fused, ties=False))
+        diffs, held = {}, {}
+        pairs = {"stacked_vs_unstacked": [(st_plain, plain[i], i)
+                                          for i in range(2)],
+                 "stacked_fused_pre_vs_unstacked" if fused else
+                 "stacked_pre_vs_unstacked": [(st_pre, plain[i], i)
+                                              for i in range(2)]}
+        outs = [p[0] for p in plain] + [st_plain[0], st_pre[0]]
         if fused:
-            fz = [model.forward(params, d, x, fused=True, ties=False)
-                  for d in dev]
-            diffs["fused_vs_unfused"] = max(float((a - b).abs().max())
-                                            for a, b in zip(plain, fz))
-            outs += fz
-        diffs["stacked_vs_unstacked"] = max(
-            float((st_plain[i] - plain[i]).abs().max()) for i in range(2))
-        diffs["stacked_fused_pre_vs_unstacked" if fused else
-              "stacked_pre_vs_unstacked"] = max(
-            float((st_pre[i] - plain[i]).abs().max()) for i in range(2))
+            fz = [routed(lambda d=d: model.forward(params, d, x, fused=True,
+                                                   ties=False)) for d in dev]
+            pairs = {"fused_vs_unfused": [(fz[i], plain[i], None)
+                                          for i in range(2)], **pairs}
+            outs += [f[0] for f in fz]
+        for name, items in pairs.items():
+            diffs[name], held[name] = held_diff(items, 2)
         finite = all(bool(torch.isfinite(t).all()) for t in outs)
-        margin = float(labelled_margins(plain[0], LM_PROMPT).min())
-        shapes = [list(plain[0].shape), list(st_plain.shape)]
-        ref_logits = plain[0]
-        del outs, plain, st_plain, st_pre, pre
+        dropped = [sum(int((~keep).sum()) for _, _, keep in p[1])
+                   for p in plain]
+        margin = float(labelled_margins(plain[0][0], LM_PROMPT).min())
+        shapes = [list(plain[0][0].shape), list(st_plain[0].shape)]
+        ref_logits = plain[0][0]
+        del outs, plain, st_plain, st_pre, pre, pairs
+        if fused:
+            del fz
         # the same network (or its first spec.cpu_repeats repeats) on the
         # CPU, through the plain versions
         small = x[:1, :LM_CPU_TOKENS]
         cut, cut_params, cut_tree = first_repeats(model, params, trees[0],
                                                   spec.cpu_repeats)
         cpu_params = to_device(cut_params, "cpu")
-        want = cut.forward(cpu_params, M.as_device(cut_tree, "cpu"),
-                           small.cpu(), ties=False)
+        want = routed(lambda: cut.forward(cpu_params,
+                                          M.as_device(cut_tree, "cpu"),
+                                          small.cpu(), ties=False))
         del cpu_params
-        got = cut.forward(cut_params, M.as_device(cut_tree, device), small,
-                          fused=fused, ties=False)
-        diffs["card_vs_cpu"] = float((got.cpu() - want).abs().max())
-        finite = finite and bool(torch.isfinite(got).all())
+        got = routed(lambda: cut.forward(
+            cut_params, M.as_device(cut_tree, device), small, fused=fused,
+            ties=False))
+        finite = finite and bool(torch.isfinite(got[0]).all())
+        got = (got[0].cpu(), [tuple(t.cpu() for t in c) for c in got[1]])
+        diffs["card_vs_cpu"], held["card_vs_cpu"] = held_diff(
+            [(got, want, None)], 1)
     seq = spec.seq - 1
     if shapes != [[LM_BATCH, seq, model.cfg.vocab],
                   [2, LM_BATCH, seq, model.cfg.vocab]]:
@@ -2287,15 +2420,22 @@ def run_lm_forward(model, params, batch, seed: int, spec, device="cuda"):
         fail(f"{spec.tag}_forward: non-finite logits")
     for k, v in diffs.items():
         if not v <= LM_LOGIT_TOL:
-            fail(f"{spec.tag}_forward: {k} = {v} exceeds {LM_LOGIT_TOL}")
+            fail(f"{spec.tag}_forward: {k} = {v} exceeds {LM_LOGIT_TOL} "
+                 f"({held[k]})")
+        if held[k]["positions_held"] < held[k]["positions"] / 2:
+            fail(f"{spec.tag}_forward: {k}: routes differ before half the "
+                 f"positions ({held[k]})")
     out = dict(model=model.cfg.name, dtype="float32", batch=LM_BATCH,
                tokens=seq, nonlinearities=model.relu_count(),
                mask_density=0.9, logit_tol=LM_LOGIT_TOL,
                max_abs_diff=diffs, cpu_check=f"1 x {LM_CPU_TOKENS} tokens, "
                f"{cut.cfg.n_layers} of {model.cfg.n_layers} layers",
                min_top2_margin_labelled=margin)
+    if any(h["moe_layers"] for h in held.values()):
+        out["routes"] = dict(held, dropped_pairs_unstacked=dropped)
     out["bfloat16"] = run_lm_bf16(model.cfg, trees[0], x, spec, ref_logits,
-                                  device)
+                                  device) if spec.bf16 else (
+        "not run: the float32 parameters leave no room for a bfloat16 copy")
     if spec.w_o_scale != 1.0:
         out["w_o_scale"] = spec.w_o_scale
         out["rounding_growth"] = rounding_growth(model, params, trees, x,
@@ -2303,13 +2443,74 @@ def run_lm_forward(model, params, batch, seed: int, spec, device="cuda"):
     return out
 
 
+class record_routes:
+    """Within the block, the experts each MoE routing chose, the source
+    token of each sorted (token, k) pair and whether it kept its slot
+    (``models.moe._sorted_slots`` wrapped): chip_smoke.py compares the
+    routes of two forwards and finds dropped pairs with it.  The port
+    itself never records."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.inner = moe, moe._sorted_slots
+
+        def wrapped(eidx, c, C):
+            out = self.inner(eidx, c, C)
+            self.calls.append((eidx, out[1], out[2]))
+            return out
+        moe._sorted_slots = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._sorted_slots = self.inner
+
+
+def held_diff(items, n: int):
+    """Largest |a - b| over every (a, b) pair of ``items`` at the
+    positions held, and the counts behind it.  Each item is ``((logits,
+    routes), (logits, routes), i)``: a forward's logits and the MoE
+    routings :class:`record_routes` kept, ``i`` the candidate of a stacked
+    first forward (of ``n``) to compare, or None.  A position is held
+    where both forwards routed every token up to and including it alike in
+    every MoE layer: a model without MoE layers holds every position."""
+    worst, worst_free, held_n, total, differ, compared, layers = \
+        0.0, 0.0, 0, 0, 0, 0, 0
+    for (la, ra), (lb, rb), i in items:
+        if i is not None:
+            la = la[i]
+        free = torch.zeros(lb.shape[:-1], dtype=torch.bool)      # (B, S)
+        layers = len(rb)
+        for (ea, _, _), (eb, _, _) in zip(ra, rb):
+            if i is not None:
+                ea = ea.reshape((n,) + tuple(eb.shape))[i]
+            ne = (ea != eb).cpu()
+            differ += int(ne.sum())
+            compared += ne.numel()
+            free |= ne.any(-1).reshape(free.shape)
+        free = torch.cummax(free.to(torch.int8), dim=-1).values.bool()
+        d = (la - lb).abs().amax(-1).cpu()
+        worst = max(worst, float(d[~free].max()) if (~free).any() else 0.0)
+        if free.any():
+            worst_free = max(worst_free, float(d[free].max()))
+        held_n += int((~free).sum())
+        total += free.numel()
+    return worst, dict(moe_layers=layers, routes_compared=compared,
+                       routes_differ=differ, positions=total,
+                       positions_held=held_n,
+                       max_abs_diff_not_held=worst_free)
+
+
 def rounding_growth(model, params, trees, x, spec, device="cuda"):
-    """Why the path scales the time-mix w_o: the largest logit difference
-    between a stacked and an un-stacked forward of the same masks, and
-    under 1e-7 relative noise on the embedding, at the path's scale and at
-    the init's own (w_o restored afterwards)."""
+    """Why the path scales its output projections (RWKV-6's time-mix
+    ``w_o``, Mamba2's ``w_out``): the largest logit difference between a
+    stacked and an un-stacked forward of the same masks, and under 1e-7
+    relative noise on the embedding, at the path's scale and at the init's
+    own (the projections restored afterwards)."""
     from repro_torch.core import masks as M
-    w_os = [layer["tmix"]["w_o"] for layer in params["stack"].values()]
+    w_os = output_projections(params)
     saved = [w.clone() for w in w_os]
     g = torch.Generator(device=device).manual_seed(SEED)
     out = {}
@@ -2414,6 +2615,7 @@ def run_lm_bcd(model, params, batch, steps: int, drc: int, spec,
                                misses=trie.misses)
         runs.append(run)
     if len(set(prints.values())) != 1:
+        emit({f"{spec.tag}_bcd_failed": runs})
         fail(f"{spec.tag}_bcd: engines selected different blocks: {prints}")
     distinct = [len(set(step_accs[i:i + rt]))
                 for i in range(0, len(step_accs), rt)]
@@ -2485,6 +2687,9 @@ def run_lm_sited(model, params, batch, drc: int, spec, device="cuda"):
                      "launch masked_act_matmul_2d_batched")
         for label, a in accs.items():
             if not np.array_equal(a, accs["batched"]):
+                emit({f"{spec.tag}_sited_failed": sited_diagnosis(
+                    model, params, batch, masks0, chunks, site, a,
+                    accs["batched"], label == "suffix_fused", device)})
                 fail(f"{spec.tag}_sited {site}: {label} accuracies {a} "
                      f"differ from batched {accs['batched']}")
         row["accs"] = [float(a) for a in accs["batched"]]
@@ -2497,24 +2702,196 @@ def run_lm_sited(model, params, batch, drc: int, spec, device="cuda"):
                 tokens=spec.seq - 1, timed_passes=reps, rows=out)
 
 
+def profile_forwards(model, params, batch, seed: int):
+    """One un-stacked forward and one of LM_CHUNK stacked candidates
+    (unfused, density-0.9 masks) under ``torch.profiler``: kernel launches
+    a forward, device time by kernel family and the device's busy share of
+    the wall-clock (:func:`profile_window`)."""
+    from repro_torch.core import masks as M
+    rng = np.random.default_rng(seed)
+    sites = model.mask_sites()
+    trees = [{k: (rng.random(s.shape) < 0.9).astype(np.float32)
+              for k, s in sites.items()} for _ in range(LM_CHUNK)]
+    x = torch.from_numpy(batch["tokens"][:, :-1]).cuda()
+    one = M.as_device(trees[0], "cuda")
+    stacked = M.as_device(M.stack_trees(trees), "cuda")
+    with torch.no_grad():
+        return {
+            "unstacked": profile_window(
+                lambda _: model.forward(params, one, x, ties=False), 2),
+            f"stacked_{LM_CHUNK}": profile_window(
+                lambda _: model.forward(params, stacked, x, ties=False), 2)}
+
+
+def run_family_serve(model, params, spec, device="cuda"):
+    """``launch.serve.generate`` of FAMILY_SERVE_BATCH Markov prompts of
+    FAMILY_SERVE_PROMPT tokens by FAMILY_SERVE_GEN tokens at full width
+    (density-0.9 masks), every served token held to the uncached forward's
+    argmax where its top-2 margin exceeds SERVE_MARGIN, and the decode
+    step's time.
+
+    A MoE decode step has one slot an expert and never drops a pair, while
+    the uncached forward of a longer sequence drops pairs at capacity (the
+    reference's rule; a random model's greedy tokens repeat and crowd their
+    experts), so the positions from a dropped generated pair on are
+    another function of the tokens.  The MoE is therefore judged with
+    ``capacity_factor = E / top_k`` (no pair of any length is ever
+    dropped, the decode step unchanged), and served once more at its own
+    capacity, where the positions after an uncached drop are counted."""
+    from repro_torch.core import masks as M
+    from repro_torch.data import MarkovTokens
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import LM
+    rng = np.random.default_rng(SEED + 3)
+    tree = {k: (rng.random(s.shape) < 0.9).astype(np.float32)
+            for k, s in model.mask_sites().items()}
+    masks = M.as_device(tree, device)
+    P, n_gen = FAMILY_SERVE_PROMPT, FAMILY_SERVE_GEN
+    prompts = torch.from_numpy(MarkovTokens(model.cfg.vocab, seed=SEED + 3)
+                               .batch(FAMILY_SERVE_BATCH, P, 0)["tokens"]
+                               ).long().to(device)
+    cfg = model.cfg
+    moe = any(b.kind == "moe" for b in cfg.head_blocks + cfg.pattern)
+
+    def served(m):
+        gen = serve.generate(m, params, masks, prompts, n_gen, ties=False,
+                             keep_logits=True)
+        seq = torch.cat([prompts, gen["tokens"].long()], dim=1)
+        fulls = []
+        judged = torch.ones((n_gen, FAMILY_SERVE_BATCH), dtype=torch.bool)
+        with torch.no_grad():
+            for t in range(n_gen):
+                rec = record_routes()
+                with rec:
+                    fulls.append(last_logits(m, params, masks,
+                                             seq[:, :P + t], spec.pad))
+                for _, st, keep in rec.calls:
+                    late = (st >= P) & ~keep            # (B, S·k)
+                    judged[t] &= ~late.any(-1).cpu()
+        j = judged.to(device)
+        worst, checked, matched, near = judge_served(
+            torch.stack(gen["logits"])[j], torch.stack(fulls)[j],
+            gen["tokens"].long().T[j])
+        return gen, dict(max_abs_diff_cached_vs_uncached=worst,
+                         tokens_checked=checked, tokens_matched=matched,
+                         tokens_within_margin=near,
+                         tokens_after_uncached_drop=int((~judged).sum()))
+    judge_model = LM(dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.top_k)) if moe else model
+    gen, check = served(judge_model)
+    if check["tokens_after_uncached_drop"]:
+        fail(f"{spec.tag}_serve: the uncached forward dropped a pair at "
+             f"capacity_factor E / top_k ({check})")
+    off = check["tokens_checked"] - check["tokens_matched"]
+    if off:
+        fail(f"{spec.tag}_serve: {off} of {check['tokens_checked']} served "
+             f"tokens are not the uncached argmax where its top-2 margin "
+             f"exceeds {SERVE_MARGIN}")
+    pbytes = param_bytes(params)
+    dec = gen["decode_ms"]
+    out = dict(model=cfg.name, dtype="float32", batch=FAMILY_SERVE_BATCH,
+               prompt=P, gen=n_gen, prefill_ms=gen["prefill_ms"],
+               decode_ms_mean=float(np.mean(dec)),
+               decode_ms_min=float(np.min(dec)), decode_steps=len(dec),
+               decode_bound_ms=pbytes / HBM_BYTES_PER_S * 1e3,
+               decode_bound_by="bytes (every parameter read once a step)",
+               margin=SERVE_MARGIN, check=check)
+    if moe:
+        out["check"]["capacity_factor"] = cfg.n_experts / cfg.top_k
+        out["own_capacity"] = dict(capacity_factor=cfg.capacity_factor,
+                                   **served(model)[1])
+    return out
+
+
+def sited_diagnosis(model, params, batch, masks0, chunks, site, got, want,
+                    fused, device="cuda"):
+    """Why a suffix evaluation disagreed with the batched one: for each
+    chunk holding a disagreeing candidate, the largest logit difference
+    between the suffix forward over the shared prefix and the full stacked
+    forward, the labelled positions whose argmax differs and their top-2
+    margins there, and the MoE routes that differ."""
+    from repro_torch.core import masks as M
+    tokens = torch.from_numpy(batch["tokens"]).to(device).long()
+    x, labels = tokens[:, :-1], tokens[:, 1:]
+    base = M.as_device(masks0, device)
+    out = []
+    bad = np.flatnonzero(np.asarray(got) != np.asarray(want))
+    with torch.no_grad():
+        for c in sorted({int(b) // LM_CHUNK for b in bad}):
+            st = M.as_device(chunks[c], device)
+            ra, rb = record_routes(), record_routes()
+            with ra:
+                full = model.forward(params, st, x, ties=False)
+            cached = model.forward_prefix(params, base, x, site)
+            sub = {k: st[k] for k in model.suffix_sites(site)}
+            with rb:
+                suf = model.forward_suffix(params, sub, cached, site,
+                                           fused=fused, ties=False)
+            flip = full.argmax(-1) != suf.argmax(-1)
+            top2 = full.topk(2, dim=-1).values
+            margin = (top2[..., 0] - top2[..., 1])[flip]
+            out.append(dict(
+                chunk=c, max_abs_logit_diff=float((full - suf).abs().max()),
+                argmax_flips=int(flip.sum()),
+                flips_at_labels=int((flip & ((full.argmax(-1) == labels) |
+                                             (suf.argmax(-1) == labels)))
+                                    .sum()),
+                margins_at_flips=[float(m) for m in margin[:8]],
+                moe_routes_differ=sum(
+                    int((a[0].reshape((-1,) + tuple(b[0].shape)) != b[0])
+                        .sum())
+                    for a, b in zip(ra.calls[-len(rb.calls):], rb.calls))
+                if rb.calls else None))
+    return out
+
+
 def run_lm_path(spec, by_path, device="cuda"):
     """One LM path: the eval tokens are built first (set-up), then the
-    launch counts are set to 0 just before the path and read just after."""
+    launch counts are set to 0 just before the path and read just after.
+    A family path (``FAMILY_PATHS``) also profiles its forwards, serves,
+    and reports the card's peak memory."""
     from repro_torch.kernels import build
+    family = spec.arch in {p.arch for p in FAMILY_PATHS}
+    cuda = torch.device(device).type == "cuda"
+    memory = {}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        memory["allocated_before_init"] = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
     model, params = make_lm(SEED, spec, device)
+    sync(device)
+    memory.update(param_bytes=param_bytes(params),
+                  init_s=time.perf_counter() - t0)
+    if cuda:
+        memory["after_init_max_allocated"] = torch.cuda.max_memory_allocated()
     batch, batch_info = make_lm_batch(model, params, SEED, spec, device)
     emit({f"{spec.tag}_batch": batch_info})
     build.reset_launch_counts()
     forward = run_lm_forward(model, params, batch, SEED, spec, device)
-    bcd_report = run_lm_bcd(model, params, batch, LM_STEPS, LM_DRC, spec,
+    if family and cuda:
+        forward["profile"] = profile_forwards(model, params, batch, SEED)
+    bcd_report = run_lm_bcd(model, params, batch, LM_STEPS, spec.drc, spec,
                             device)
     sited = run_lm_sited(model, params, batch, LM_SITED_DRC, spec, device)
+    served = run_family_serve(model, params, spec, device) if family \
+        else None
     by_path[spec.arch] = counts()
+    if cuda:
+        memory["max_allocated"] = torch.cuda.max_memory_allocated()
+        memory["device_total"] = torch.cuda.get_device_properties(0) \
+            .total_memory
+    if family:
+        forward["memory"] = memory
     emit({f"{spec.tag}_forward": forward})
     emit({f"{spec.tag}_bcd": bcd_report})
     emit({f"{spec.tag}_sited": sited})
+    if served is not None:
+        emit({f"{spec.tag}_serve": served})
     del model, params
-    if torch.device(device).type == "cuda":
+    # the evaluators hold the parameters in reference cycles: collect them
+    # before the next path allocates its own (DeepSeek's take 64.7 GB)
+    gc.collect()
+    if cuda:
         torch.cuda.empty_cache()
 
 
@@ -2888,18 +3265,30 @@ def main() -> None:
                     help="build the kernels and run the RWKV-6 3B path "
                          "alone, without the kernel comparison (prints no "
                          "result line)")
+    ap.add_argument("--only-moe", action="store_true",
+                    help="build the kernels and run the DeepSeek-MoE-16B "
+                         "path alone, without the kernel comparison (prints "
+                         "no result line)")
+    ap.add_argument("--only-hybrid", action="store_true",
+                    help="build the kernels and run the Zamba2-2.7B path "
+                         "alone, without the kernel comparison (prints no "
+                         "result line)")
     ap.add_argument("--only-serve", action="store_true",
                     help="build the kernels and run the serving phase "
                          "alone, without the kernel comparison (prints no "
                          "result line)")
     ap.add_argument("--src", default=None,
-                    help="with --only-rwkv: import repro_torch from this "
-                         "directory (another checkout's src/), to compare "
-                         "two trees with the same script")
+                    help="with --only-rwkv, --only-moe or --only-hybrid: "
+                         "import repro_torch from this directory (another "
+                         "checkout's src/), to compare two trees with the "
+                         "same script")
     args = ap.parse_args()
+    alone = {"rwkv6_3b": args.only_rwkv,
+             "deepseek_moe_16b": args.only_moe,
+             "zamba2_2p7b": args.only_hybrid}
     if args.src:
-        if not args.only_rwkv:
-            fail("--src is for --only-rwkv")
+        if not any(alone.values()):
+            fail("--src is for --only-rwkv, --only-moe or --only-hybrid")
         sys.path.insert(0, os.path.abspath(args.src))
 
     if not torch.cuda.is_available():
@@ -2941,11 +3330,15 @@ def main() -> None:
                     "ptxas": ptxas_summary(build.build_log()),
                     "rcp_rn_fast_mismatches_of_1056964609": 0}})
 
-    if args.only_rwkv:
-        import repro_torch.kernels as K
-        emit({"only_rwkv": {"repro_torch": os.path.dirname(K.__file__)}})
-        run_lm_path(LM_PATHS[1], {})
-        return
+    for spec in LM_PATHS[1:] + FAMILY_PATHS:
+        if alone[spec.arch]:
+            import repro_torch.kernels as K
+            by_path = {}
+            emit({f"only_{spec.tag}": {
+                "repro_torch": os.path.dirname(K.__file__)}})
+            run_lm_path(spec, by_path)
+            check_launches(by_path, (spec.arch,))
+            return
     if args.only_sweep:
         by_path = {}
         emit({"sweep": run_sweep_path(by_path)})
@@ -2990,8 +3383,9 @@ def main() -> None:
     sweep_line = run_sweep_path(by_path)
     torch.cuda.empty_cache()
 
-    # ---- paths 2 and 3, StableLM-2-1.6B and RWKV-6 3B
-    for spec in LM_PATHS:
+    # ---- paths 2 to 5, StableLM-2-1.6B, RWKV-6 3B, DeepSeek-MoE-16B and
+    # Zamba2-2.7B
+    for spec in LM_PATHS + FAMILY_PATHS:
         run_lm_path(spec, by_path)
 
     # ---- serving StableLM-2-1.6B and RWKV-6 3B, counted on its own

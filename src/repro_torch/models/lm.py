@@ -1,4 +1,4 @@
-"""Unified LM backbone, dense and RWKV-6 blocks: eval, prefill and decode.
+"""Unified LM backbone for every block kind: eval, prefill and decode.
 
 Counterpart of ``repro/models/lm.py``.  A model is ``head_blocks`` + a stack
 of ``n_repeats`` copies of ``cfg.pattern`` + a ``tail`` (the pattern
@@ -6,12 +6,19 @@ remainder).  Parameters keep the reference's tree: ``params["stack"][pos]``
 leaves carry a leading repeat axis ``(R, ...)``, so a converted reference
 tree (``repro_torch.convert.params_from_reference``) maps one to one.  The
 reference's ``lax.scan`` over repeats is a Python loop here; its
-compilation fences have no counterpart in eager PyTorch.
+compilation fences have no counterpart in eager PyTorch.  A ``shared``
+pattern block (Zamba2's attention) keeps one parameter set with no repeat
+axis, read by every repeat; its caches do have the repeat axis.
 
-Every block has one mask site, its elementwise nonlinearity: a dense
-block's FFN activation (suffix ``ffn``), an RWKV-6 block's channel-mix
-``sqrelu`` (suffix ``rwkv``) — ``h<i>.<suf>`` and ``t<i>.<suf>`` of shape
-``(d_ff,)``, ``s<pos>.<suf>`` of shape ``(R, d_ff)``.
+Block kinds and their mask sites (the elementwise nonlinearities):
+``dense`` (attention + FFN: the FFN activation, suffix ``ffn``, (d_ff,)),
+``moe`` (attention + MoE: the routed experts' gate ``moe``, (E, F), and
+the shared expert's ``moe_shared``, (d_ff_shared,), where the config has
+one), ``mamba`` (Mamba2: the silu gate on z, ``mamba``, (d_inner,)),
+``rwkv`` (RWKV-6: the channel-mix ``sqrelu``, ``rwkv``, (d_ff,)) and
+``attn_only`` (attention alone, no site).  Head and tail sites are named
+``h<i>.<suf>`` and ``t<i>.<suf>``; a stack site ``s<pos>.<suf>`` carries a
+leading repeat axis, ``(R, *shape)``.
 
 **The candidate axis is explicit.**  A mask tree is one candidate (leaves
 of the site shapes) or N stacked ones (leaves ``(N, ...)``).  The activation
@@ -19,16 +26,17 @@ stays ``(B, S, D)`` while the candidates share it and becomes
 ``(N, B, S, D)`` at the first stacked gate: attention and the gate and up
 projections of the first layer after a cached prefix run once, not N times,
 and attention and the RWKV time-mix scan fold ``N·B`` into their batch after
-that.  RWKV blocks stay on the gate route under ``fused=``, as the
-reference routes them.
+that.  A MoE block routes per row of that explicit axis
+(``models.moe``).  Under ``fused=`` dense FFNs and MoE shared experts take
+the fused gate→matmul kernels; routed experts, Mamba2 and RWKV blocks stay
+on the gate route, as the reference routes them.
 
-**Serving** (``forward(cache=, cache_len=)``, :meth:`LM.init_cache`): a
-dense block keeps a KV cache, an RWKV-6 block its scan state and the two
-token shifts' last inputs, in the reference's cache tree.  The port writes
-the cache **in place** where the reference returns a new one.
-
-Block kinds ``moe``, ``mamba`` and ``attn_only`` are not ported yet
-(``ROADMAP.md`` Queue A9) and raise.
+**Serving** (``forward(cache=, cache_len=)``, :meth:`LM.init_cache`):
+``dense``, ``moe`` and ``attn_only`` blocks keep a KV cache, a Mamba2
+block its scan state and its convolution's trailing inputs, an RWKV-6
+block its scan state and the two token shifts' last inputs, in the
+reference's cache tree.  The port writes the cache **in place** where the
+reference returns a new one.
 """
 from __future__ import annotations
 
@@ -42,7 +50,7 @@ import repro_torch
 from repro_torch.configs.base import ArchConfig, Block
 from repro_torch.convert import to_device
 from repro_torch.core import linearize, masks as M
-from . import layers, ssm
+from . import layers, moe as moe_lib, ssm
 
 
 def _attn_cfg(cfg: ArchConfig, blk: Block) -> layers.AttnCfg:
@@ -50,6 +58,22 @@ def _attn_cfg(cfg: ArchConfig, blk: Block) -> layers.AttnCfg:
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim, qk_norm=cfg.qk_norm, window=blk.window,
         rope_theta=blk.rope_theta)
+
+
+def _moe_cfg(cfg: ArchConfig) -> moe_lib.MoECfg:
+    return moe_lib.MoECfg(
+        d_model=cfg.d_model, n_experts=cfg.n_experts, top_k=cfg.top_k,
+        d_ff_expert=cfg.d_ff_expert,
+        n_shared=1 if cfg.n_shared_experts else 0,
+        d_ff_shared=cfg.d_ff_shared, capacity_factor=cfg.capacity_factor,
+        dispatch=cfg.moe_dispatch)
+
+
+def _mamba_cfg(cfg: ArchConfig) -> ssm.MambaCfg:
+    di = cfg.d_inner
+    return ssm.MambaCfg(d_model=cfg.d_model, d_inner=di,
+                        n_heads=di // cfg.mamba_head_dim,
+                        head_dim=cfg.mamba_head_dim, d_state=cfg.ssm_state)
 
 
 def _rwkv_cfg(cfg: ArchConfig) -> ssm.RWKVCfg:
@@ -61,12 +85,21 @@ def _sites_for(cfg: ArchConfig, blk: Block) -> Dict[str, linearize.MaskSite]:
     rep = cfg.act_when_masked
     if blk.kind == "dense":
         return {"ffn": linearize.MaskSite((cfg.d_ff,), cfg.act, rep)}
+    if blk.kind == "moe":
+        out = {"moe": linearize.MaskSite(
+            (cfg.n_experts, cfg.d_ff_expert), cfg.act, rep)}
+        if cfg.n_shared_experts:
+            out["moe_shared"] = linearize.MaskSite(
+                (cfg.d_ff_shared,), cfg.act, rep)
+        return out
+    if blk.kind == "mamba":
+        return {"mamba": linearize.MaskSite((cfg.d_inner,), "silu", rep)}
     if blk.kind == "rwkv":
         return {"rwkv": linearize.MaskSite((cfg.d_ff,), "sqrelu", rep)}
-    raise NotImplementedError(
-        f"block kind {blk.kind!r} is not ported yet: the port's LM runs "
-        "dense and rwkv blocks; moe, mamba and attn_only blocks come with "
-        "ROADMAP.md Queue A9")
+    if blk.kind == "attn_only":
+        return {}
+    raise ValueError(f"unknown block kind {blk.kind!r} (dense, moe, mamba, "
+                     "rwkv or attn_only)")
 
 
 def token_accuracy(logits, labels):
@@ -79,7 +112,7 @@ def token_accuracy(logits, labels):
 
 
 class LM:
-    """Dense- and RWKV-block LM: plain functions over a parameter tree.
+    """The LM of every block kind: plain functions over a parameter tree.
 
     Building one turns TF32 off process-wide
     (:func:`repro_torch.use_full_float32`): the fused kernels accumulate in
@@ -88,7 +121,7 @@ class LM:
     def __init__(self, cfg: ArchConfig):
         blocks = tuple(cfg.head_blocks) + tuple(cfg.pattern) + tuple(cfg.tail)
         for blk in blocks:
-            _sites_for(cfg, blk)          # raises for kinds not ported yet
+            _sites_for(cfg, blk)          # raises for an unknown kind
         repro_torch.use_full_float32()
         self.cfg = cfg
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" \
@@ -97,26 +130,41 @@ class LM:
     # ------------------------------------------------------------ init
 
     def _layer_init(self, gen, blk: Block, device):
+        """One block's parameters, in the reference's tree, drawn from
+        ``gen`` in the order of the tree's keys."""
         cfg, dt = self.cfg, self.dtype
         d = cfg.d_model
         if blk.kind == "rwkv":
             return {"ln1": layers.rmsnorm_init(d, device),
                     "ln2": layers.rmsnorm_init(d, device),
                     "tmix": ssm.rwkv_init(gen, _rwkv_cfg(cfg), dt, device)}
-        return {"ln1": layers.rmsnorm_init(d, device),
-                "attn": layers.attn_init(gen, _attn_cfg(cfg, blk), dt,
-                                         device),
-                "ln2": layers.rmsnorm_init(d, device),
-                "ffn": layers.ffn_init(gen, d, cfg.d_ff,
-                                       gated=cfg.gated_ffn, dtype=dt,
-                                       device=device)}
+        if blk.kind == "mamba":
+            return {"ln": layers.rmsnorm_init(d, device),
+                    "mamba": ssm.mamba_init(gen, _mamba_cfg(cfg), dt,
+                                            device)}
+        p = {"ln1": layers.rmsnorm_init(d, device),
+             "attn": layers.attn_init(gen, _attn_cfg(cfg, blk), dt, device)}
+        if blk.kind == "dense":
+            p["ln2"] = layers.rmsnorm_init(d, device)
+            p["ffn"] = layers.ffn_init(gen, d, cfg.d_ff, gated=cfg.gated_ffn,
+                                       dtype=dt, device=device)
+        elif blk.kind == "moe":
+            p["ln2"] = layers.rmsnorm_init(d, device)
+            p["moe"] = moe_lib.moe_init(gen, _moe_cfg(cfg), dt, device)
+        return p
 
     def init(self, generator: torch.Generator, device="cuda"):
         """Random parameters drawn from an explicit generator and placed on
         ``device`` (the draws happen on the generator's device).  Same tree,
         keys, shapes and dtypes as the reference's ``LM.init``; not the same
         numbers — tests that compare the two packages convert the
-        reference's parameters instead of re-initialising."""
+        reference's parameters instead of re-initialising.
+
+        Draw order: the embedding, the head blocks, the tail blocks, then
+        the stack position by position — a shared block once, any other
+        block repeat by repeat, each repeat's leaves in its tree's order.
+        Every stacked leaf is allocated once and each repeat is drawn into
+        its row, so the peak is the parameters and one block more."""
         cfg, g = self.cfg, generator
         params = {
             "embed": layers.normal(g, (cfg.vocab, cfg.d_model),
@@ -128,9 +176,16 @@ class LM:
         }
         stack = {}
         for pos, blk in enumerate(cfg.pattern):
-            reps = [self._layer_init(g, blk, device)
-                    for _ in range(cfg.n_repeats)]
-            stack[str(pos)] = _stack_trees(reps)
+            first = self._layer_init(g, blk, device)
+            if blk.shared:
+                stack[str(pos)] = first
+                continue
+            rows = _alloc_stacked(first, cfg.n_repeats)
+            _write_row(rows, first, 0)
+            del first
+            for r in range(1, cfg.n_repeats):
+                _write_row(rows, self._layer_init(g, blk, device), r)
+            stack[str(pos)] = rows
         params["stack"] = stack
         return params
 
@@ -171,17 +226,34 @@ class LM:
         ``cache``: the block's own cache (views of the model's cache
         tree), updated in place."""
         poly, soft, fused, ties = opt
-        (suf, site), = _sites_for(self.cfg, blk).items()
-        name = f"{prefix}.{suf}"
-        m = masks[name]
-        ply = poly.get(name)
-        if repeat is not None:
-            stacked = m.dim() == 3              # (N, R, F)
-            m = m[:, repeat] if stacked else m[repeat]
-            if ply is not None:                 # (3, R, F)
-                ply = ply[:, repeat]
+        sites = _sites_for(self.cfg, blk)
+        ms, plys = {}, {}
+        for suf, site in sites.items():
+            name = f"{prefix}.{suf}"
+            m, ply = masks[name], poly.get(name)
+            if repeat is not None:
+                stacked = m.dim() == len(site.shape) + 2  # (N, R, *shape)
+                m = m[:, repeat] if stacked else m[repeat]
+                if ply is not None:                       # (3, R, *shape)
+                    ply = ply[:, repeat]
+            ms[suf], plys[suf] = m, ply
+        if blk.kind == "mamba":
+            mc = _mamba_cfg(self.cfg)
+            h = layers.rmsnorm(p["ln"], x)
+            kw = dict(poly=plys["mamba"], soft=soft, ties=ties)
+            if cache is None:
+                return x + ssm.mamba_block(p["mamba"], mc, h, ms["mamba"],
+                                           sites["mamba"], **kw)
+            y, (state, conv) = ssm.mamba_block(
+                p["mamba"], mc, h, ms["mamba"], sites["mamba"],
+                cache=(cache["ssm"], cache["conv"]), **kw)
+            cache["ssm"].copy_(state)
+            cache["conv"].copy_(conv)
+            return x + y
         h = layers.rmsnorm(p["ln1"], x)
         if blk.kind == "rwkv":
+            (suf, site), = sites.items()
+            m, ply = ms[suf], plys[suf]
             rc = _rwkv_cfg(self.cfg)
             if cache is None:
                 x = x + ssm.rwkv_time_mix(p["tmix"], rc, h)
@@ -207,9 +279,18 @@ class LM:
             x = x + layers.attention(p["attn"], ac, h, positions,
                                      kv_cache=cache["kv"],
                                      cache_len=cache_len)[0]
+        if blk.kind == "attn_only":
+            return x
         h = layers.rmsnorm(p["ln2"], x)
-        return x + layers.ffn(p["ffn"], h, m, site, poly=ply, soft=soft,
-                              fused=fused, ties=ties)
+        if blk.kind == "moe":
+            return x + moe_lib.moe_ffn(
+                p["moe"], _moe_cfg(self.cfg), h, ms["moe"], sites["moe"],
+                ms.get("moe_shared"), sites.get("moe_shared"),
+                poly=plys["moe"], shared_poly=plys.get("moe_shared"),
+                soft=soft, fused=fused, ties=ties)
+        return x + layers.ffn(p["ffn"], h, ms["ffn"], sites["ffn"],
+                              poly=plys["ffn"], soft=soft, fused=fused,
+                              ties=ties)
 
     # The forward is a fold over segments: 0 = the embedding (done before
     # the fold), 1..H = head blocks, 1+H..H+R = stack repeats, then the tail
@@ -242,7 +323,8 @@ class LM:
             elif seg <= H + R:
                 r = seg - 1 - H
                 for pos, blk in enumerate(cfg.pattern):
-                    lp = _index(params["stack"][str(pos)], r)
+                    lp = params["stack"][str(pos)]
+                    lp = lp if blk.shared else _index(lp, r)
                     lc = None if cache is None \
                         else _index(cache["stack"][str(pos)], r)
                     x = self._layer_apply(blk, lp, x, masks, f"s{pos}", opt,
@@ -282,7 +364,10 @@ class LM:
         cache, …], "stack": {"<pattern position>": block cache with a
         leading repeats axis on every leaf}, "tail": [block cache, …]}``,
         where a dense block's cache is ``{"kv": (K, V)}``, each (B,
-        max_len, KV, hd) in the model's dtype, and an RWKV-6 block's is
+        max_len, KV, hd) in the model's dtype (a ``moe`` and an
+        ``attn_only`` block's too), a Mamba2 block's is ``{"ssm": (B, nh,
+        N, hd) float32, "conv": (B, d_conv - 1, d_inner)}`` (the scan state
+        and the convolution's trailing inputs) and an RWKV-6 block's is
         ``{"state": (B, H, hd, hd) float32, "ptm": (B, D), "pcm": (B, D)}``
         (the scan state and the time- and channel-mix shifts' last
         inputs).  The tokens sit at positions ``cache_len …`` — an int, or
@@ -517,6 +602,13 @@ class LM:
 
     def _layer_cache(self, blk: Block, B: int, max_len: int, device):
         cfg, dt = self.cfg, self.dtype
+        if blk.kind == "mamba":
+            mc = _mamba_cfg(cfg)
+            return {"ssm": torch.zeros((B, mc.n_heads, mc.d_state,
+                                        mc.head_dim), dtype=torch.float32,
+                                       device=device),
+                    "conv": torch.zeros((B, mc.d_conv - 1, mc.d_inner),
+                                        dtype=dt, device=device)}
         if blk.kind == "rwkv":
             rc = _rwkv_cfg(cfg)
             return {"state": torch.zeros((B, rc.n_heads, rc.head_dim,
@@ -533,7 +625,8 @@ class LM:
     def init_cache(self, B: int, max_len: int, device="cuda"):
         """A zero cache for B sequences of up to ``max_len`` tokens, in the
         tree :meth:`forward` documents; the stack's leaves carry a leading
-        repeats axis and every leaf is a tensor of its own (they are
+        repeats axis (a shared block's too: its parameters are shared, its
+        caches are not) and every leaf is a tensor of its own (they are
         written in place)."""
         cfg, R = self.cfg, self.cfg.n_repeats
         stack = {}
@@ -571,6 +664,22 @@ def _cache_len(cache_len, B: int, device):
         raise ValueError(f"cache_len must be an int or ({B},), got "
                          f"{tuple(t.shape)}")
     return t.to(device=device, dtype=torch.int64)
+
+
+def _alloc_stacked(tree, n: int):
+    """Uninitialised leaves ``(n, *leaf.shape)`` for a parameter tree."""
+    if isinstance(tree, dict):
+        return {k: _alloc_stacked(v, n) for k, v in tree.items()}
+    return tree.new_empty((n,) + tuple(tree.shape))
+
+
+def _write_row(rows, tree, r: int):
+    """Copy a parameter tree into row ``r`` of its stacked leaves."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _write_row(rows[k], v, r)
+    else:
+        rows[r].copy_(tree)
 
 
 def _stack_trees(trees):

@@ -1,25 +1,28 @@
-"""Recurrent blocks: RWKV-6 (Finch), eval path, prefill and decode.
+"""Recurrent blocks: Mamba2 (SSD) and RWKV-6 (Finch), eval path, prefill
+and decode.
 
-Counterpart of ``repro/models/ssm.py``, RWKV part, the shared chunked
-linear attention and the single-token decode step (``linattn_step``);
-Mamba2 comes later (``ROADMAP.md`` Queue A9).
+Counterpart of ``repro/models/ssm.py``: the shared chunked linear attention
+and the single-token decode step (``linattn_step``), the Mamba2 block and
+the RWKV-6 time- and channel-mix.
 
 The reference's time-mix calls its jnp ``linattn_chunked``, whose
 arithmetic is that of its TPU scan kernel: here the time-mix calls
 ``kernels.ops.rwkv6``, which is the hand-written CUDA kernel for a CUDA
 tensor and the chunked plain version for a CPU one, on ``(lead·B·H, S, hd)``
-views, where ``lead`` is the candidate axis of a stacked activation.  A
-decode step (one token, with a cache) takes the exact O(1) recurrence
-``linattn_step`` in plain PyTorch, as the reference computes it in jnp
-outside any kernel.
+views, where ``lead`` is the candidate axis of a stacked activation.  The
+Mamba2 scan (``decay_first=True``) is jnp code in the reference, not a TPU
+kernel, and runs here as the plain chunked version
+(:func:`linattn_chunked`).  A decode step (one token, with a cache) takes
+the exact O(1) recurrence ``linattn_step`` in plain PyTorch, as the
+reference computes it in jnp outside any kernel.
 
 State locality: the recurrent state (the scan's state, the token shift's
-left neighbour) lives within one block application.  Without a cache it
-starts from zeros, so nothing recurrent crosses stack repeats, a cut
-between repeats is a plain checkpoint of the (…, B, S, D) residual stream
-and ``prefix ∘ suffix == forward`` holds as for dense blocks.  With a cache
-(serving) it starts from the cache and the new state is written back into
-it, block by block.
+left neighbour, the causal convolution's trailing inputs) lives within one
+block application.  Without a cache it starts from zeros, so nothing
+recurrent crosses stack repeats, a cut between repeats is a plain
+checkpoint of the (…, B, S, D) residual stream and ``prefix ∘ suffix ==
+forward`` holds as for dense blocks.  With a cache (serving) it starts from
+the cache and the new state is written back into it, block by block.
 """
 from __future__ import annotations
 
@@ -60,6 +63,129 @@ def linattn_step(r, k, v, w, u, S, decay_first=False):
         y = y + torch.einsum("bhk,hk,bhk->bh", r, u, k)[..., None] * v
     S = w[..., None] * S + k[..., None] * v[..., None, :]
     return y, S
+
+
+# ================================================================= Mamba2
+
+
+@dataclasses.dataclass(frozen=True)
+class MambaCfg:
+    d_model: int
+    d_inner: int        # typically 2·d_model
+    n_heads: int        # d_inner / head_dim
+    head_dim: int = 64
+    d_state: int = 64
+    d_conv: int = 4
+    chunk: int = 64
+
+
+def mamba_init(gen: torch.Generator, c: MambaCfg, dtype=torch.bfloat16,
+               device="cuda"):
+    """Random parameters drawn from ``gen``: the reference's tree (keys,
+    shapes, dtypes; ``dt_bias``, ``A_log`` and ``D`` stay float32), not its
+    numbers.  ``A_log`` starts at -4, decays of about 0.99 a token, as the
+    reference's: the chunked scan divides by in-chunk decay products, which
+    a stronger decay would underflow within a 64-token chunk."""
+    d, di, nh, N = c.d_model, c.d_inner, c.n_heads, c.d_state
+    s = d ** -0.5
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=torch.float32, device=device)
+    return {
+        "w_z": layers.normal(gen, (d, di), s, dtype, device),
+        "w_x": layers.normal(gen, (d, di), s, dtype, device),
+        "conv": layers.normal(gen, (c.d_conv, di), 0.1, dtype, device),
+        "w_bcdt": layers.normal(gen, (d, 2 * N + nh), s, dtype, device),
+        "dt_bias": full((nh,), 0.0),
+        "A_log": full((nh,), -4.0),
+        "D": full((nh,), 1.0),
+        "w_out": layers.normal(gen, (di, d), di ** -0.5, dtype, device),
+    }
+
+
+def _causal_conv(xin, conv, state=None):
+    """Depthwise causal convolution along the sequence.  xin: (G, S, di);
+    conv: (dc, di); state: (G, dc-1, di), the trailing inputs of earlier
+    steps (decode), or None for zeros.  Returns the output and the new
+    state, the last dc-1 inputs."""
+    dc = conv.shape[0]
+    if state is None:
+        pad = torch.zeros_like(xin[:, :dc - 1])
+    else:
+        pad = state.to(xin.dtype)
+    xp = torch.cat([pad, xin], dim=1)
+    S = xin.shape[1]
+    out = xp[:, 0:S] * conv[0]
+    for i in range(1, dc):           # in the reference's order
+        out = out + xp[:, i:i + S] * conv[i]
+    return out, xp[:, -(dc - 1):]
+
+
+def mamba_block(p, c: MambaCfg, x, mask, site: linearize.MaskSite, *,
+                poly=None, soft=False, ties=True, cache=None):
+    """The Mamba2 block of (…, B, S, d) activations, its mask site the silu
+    gate on z, of shape (d_inner,).  The scan runs on G = (product of the
+    leading axes) rows at ``chunk = min(c.chunk, S)``; raises
+    ``ValueError`` where S exceeds the chunk and is not a multiple of it
+    (the reference's ``linattn_chunked`` needs the same).
+
+    mask: (di,), or (N, di) stacked; a shared x under stacked masks runs
+    everything before the gate once and reaches the gate as a stride-0
+    candidate view.  Without a cache returns y alone.
+    ``cache=(ssm_state (B, nh, N, hd) float32, conv_state (B, dc-1, di))``
+    takes x (B, S, d) and returns ``(y, (ssm_state, conv_state))``, the
+    scan starting from the cached state; one token takes the exact
+    recurrence :func:`linattn_step` instead of the scan, as the reference
+    does."""
+    *lead, S, d = x.shape
+    di, nh, hd, N = c.d_inner, c.n_heads, c.head_dim, c.d_state
+    chunk = min(c.chunk, S)
+    step = S == 1 and cache is not None
+    if S % chunk and not step:
+        raise ValueError(
+            f"mamba block: sequence length {S} is not a multiple of the scan "
+            f"chunk {chunk} (min({c.chunk}, S)); the reference's "
+            "linattn_chunked refuses it too")
+    G = x.numel() // (S * d)
+    xg = x.reshape(G, S, d)
+    z = x @ p["w_z"]
+    xin, conv_state = _causal_conv(xg @ p["w_x"], p["conv"],
+                                   None if cache is None else cache[1])
+    xin = F.silu(xin)
+    bcdt = xg @ p["w_bcdt"]
+    b, cc, dt = bcdt[..., :N], bcdt[..., N:2 * N], bcdt[..., 2 * N:]
+    dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])       # (G, S, nh)
+    a = torch.exp(-torch.exp(p["A_log"]) * dt)                  # (G, S, nh)
+    v = xin.reshape(G, S, nh, hd).transpose(1, 2)               # (G,nh,S,hd)
+    kk = (b[..., None, :] * dt[..., None]).transpose(1, 2) \
+        .to(torch.float32)                                      # (G,nh,S,N)
+    rr = cc[..., None, :].expand(G, S, nh, N).transpose(1, 2) \
+        .to(torch.float32)
+    ww = a[..., None].expand(G, S, nh, N).transpose(1, 2)
+    vf = v.to(torch.float32)
+    if cache is None:
+        s0 = torch.zeros((1, 1, N, hd), dtype=torch.float32,
+                         device=x.device).expand(G, nh, N, hd)
+    else:
+        s0 = cache[0]
+    if step:
+        y1, s_end = linattn_step(rr[:, :, 0], kk[:, :, 0], vf[:, :, 0],
+                                 ww[:, :, 0], None, s0, decay_first=True)
+        y = y1[:, :, None]
+    else:
+        y, s_end = linattn_chunked(rr, kk, vf, ww, None, s0, chunk=chunk,
+                                   decay_first=True)
+    y = y + p["D"][None, :, None, None] * v.to(y.dtype)
+    y = y.transpose(1, 2).reshape(*lead, S, di).to(x.dtype)
+    if mask.dim() == len(site.shape) + 1 and x.dim() == 3:
+        z = z.unsqueeze(0).expand((mask.shape[0],) + tuple(z.shape))
+    gate = linearize.apply_masked_act(z, mask, site, poly=poly, soft=soft,
+                                      ties=ties)
+    out = (y * gate) @ p["w_out"]
+    return out if cache is None else (out, (s_end, conv_state))
+
+
+# ================================================================= RWKV-6
 
 
 @dataclasses.dataclass(frozen=True)

@@ -46,7 +46,7 @@ def reference():
                             runner)
     from repro.kernels import masked_act, ops, ref, rwkv6_scan
     from repro.launch import faults, serve_loop, sweep
-    from repro.models import layers, lm, resnet, ssm
+    from repro.models import layers, lm, moe, resnet, ssm
     from repro.training import checkpoint, serve
     import repro.configs as configs
     import repro.data as data
@@ -54,7 +54,8 @@ def reference():
         jax=jax, jnp=jnp, bcd=bcd, engine=engine, linearize=linearize,
         masks=masks, masked_act=masked_act, ops=ops, ref=ref, resnet=resnet,
         data=data, roofline=roofline, lm=lm, layers=layers, configs=configs,
-        ssm=ssm, rwkv6_scan=rwkv6_scan, analysis=analysis, pi_cost=pi_cost,
+        ssm=ssm, moe=moe, rwkv6_scan=rwkv6_scan, analysis=analysis,
+        pi_cost=pi_cost,
         runner=runner, sweep=sweep, checkpoint=checkpoint, faults=faults,
         serve_loop=serve_loop, serve=serve)
     return _REFERENCE
@@ -101,7 +102,8 @@ def test_port_imports_neither_jax_nor_reference_package():
         assert len(names) >= 15, names
         assert {"repro_torch.configs", "repro_torch.configs.base",
                 "repro_torch.configs.stablelm_1p6b", "repro_torch.models.lm",
-                "repro_torch.models.layers",
+                "repro_torch.models.layers", "repro_torch.models.moe",
+                "repro_torch.models.ssm",
                 "repro_torch.training.checkpoint", "repro_torch.core.runner",
                 "repro_torch.launch.coordinator", "repro_torch.launch.sweep",
                 "repro_torch.launch.faults", "repro_torch.launch.serve",

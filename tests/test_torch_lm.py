@@ -441,15 +441,30 @@ def test_params_from_reference_carries_lists_and_bfloat16():
 
 
 def test_unported_parts_raise_and_name_the_queue():
-    from repro_torch.configs import get_config
+    """Every architecture builds (the MoE and hybrid blocks came with
+    Queue A9); what still raises is the multi-device part (Queue A11): the
+    sharded candidate engine and sharded serving."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.configs.base import Block
+    from repro_torch.core import engine
+    from repro_torch.launch import serve_loop
     from repro_torch.models.lm import LM
-    for arch in ("mixtral_8x22b", "zamba2_2p7b", "deepseek_moe_16b"):
-        with pytest.raises(NotImplementedError, match="Queue A9"):
-            LM(get_config(arch).reduced())
-    # the KV cache, once Queue A10, is ported: a cached forward returns
-    # the logits and the cache it wrote
+    for arch in ARCH_IDS:
+        assert LM(get_config(arch).reduced()).relu_count() > 0
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        engine.make_evaluator("sharded", eval_fn=lambda m: None)
     m = LM(get_config("stablelm_1p6b").reduced())
     params = m.init(torch.Generator().manual_seed(0), "cpu")
+    store = serve_loop.threshold_mask_sets(m, [1.0], device="cpu")
+    with pytest.raises(NotImplementedError, match="A11"):
+        serve_loop.ServeLoop(m, params, store,
+                             serve_loop.default_classes(store),
+                             mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="unknown block kind"):
+        LM(dataclasses.replace(get_config("stablelm_1p6b").reduced(),
+                               pattern=(Block("conv"),)))
+    # the KV cache is ported: a cached forward returns the logits and the
+    # cache it wrote
     from repro_torch.core import linearize, masks as M
     masks = M.as_device(linearize.init_masks(m.mask_sites()), "cpu")
     cache = m.init_cache(1, 4, "cpu")

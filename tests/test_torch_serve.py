@@ -9,7 +9,10 @@ with numpy from a seed.  Under test:
   reference's logits within 1e-4 on the six reduced dense configs of
   ``tests/test_torch_lm.py``, ``gemma3_27b`` with a 3-token sliding window
   and reduced ``rwkv6_3b``, with a scalar ``cache_len`` and with a ragged
-  ``(B,)`` one (slots filled by ``make_insert_slot`` from B=1 prefills);
+  ``(B,)`` one (slots filled by ``make_insert_slot`` from B=1 prefills),
+  and on reduced ``deepseek_moe_16b``, ``mixtral_8x22b`` and
+  ``zamba2_2p7b`` (MoE decode steps, Mamba2 states, the shared attention
+  block's per-repeat KV caches);
 - cached against uncached, in the port itself;
 - ``make_insert_slot`` copies, never aliases, and a refilled slot does not
   see its previous occupant;
@@ -34,7 +37,8 @@ from test_torch_helpers import (random_masks, reference, to_numpy_tree,
 
 TOL = dict(rtol=0.0, atol=1e-4)
 ARCHS = ["stablelm_1p6b", "qwen3_32b", "gemma3_27b", "mistral_nemo_12b",
-         "musicgen_large", "paligemma_3b", "gemma3_27b@window3", "rwkv6_3b"]
+         "musicgen_large", "paligemma_3b", "gemma3_27b@window3", "rwkv6_3b",
+         "deepseek_moe_16b", "mixtral_8x22b", "zamba2_2p7b"]
 MAX_LEN = 24
 _CACHE = {}
 
@@ -229,7 +233,8 @@ def test_cache_refusals():
 def test_init_cache_tree_equals_reference():
     """Same keys, nesting, shapes and dtypes as the reference's cache, and
     every leaf a tensor of its own."""
-    for arch in ("stablelm_1p6b", "rwkv6_3b"):
+    for arch in ("stablelm_1p6b", "rwkv6_3b", "deepseek_moe_16b",
+                 "zamba2_2p7b"):
         ref, rmodel, _, _, tmodel, _ = _build(arch)
         rc = ref.jax.tree.map(np.asarray, rmodel.init_cache(3, 10))
         tc = tmodel.init_cache(3, 10, "cpu")
@@ -241,7 +246,8 @@ def test_init_cache_tree_equals_reference():
 
 # ------------------------------------------------------------ slot surgery
 
-@pytest.mark.parametrize("arch", ["stablelm_1p6b", "rwkv6_3b"])
+@pytest.mark.parametrize("arch", ["stablelm_1p6b", "rwkv6_3b",
+                                  "deepseek_moe_16b", "zamba2_2p7b"])
 def test_insert_slot_copies_and_a_reused_slot_forgets(arch):
     """Inserting copies (the B=1 cache can be zeroed and refilled without
     touching the lane), and a slot refilled after a finish decodes exactly
