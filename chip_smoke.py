@@ -172,9 +172,11 @@ are 5·K·V a token and row (r·S, the state update) plus the bonus.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -204,6 +206,7 @@ SOURCE = {
     "fma": _CSRC + "masked_act_matmul.cu",
     "wgmma": _CSRC + "masked_act_matmul_sm90.cu",
     "rwkv6_scan": _CSRC + "rwkv6_scan_sm90.cu",
+    "rwkv6_scan_bwd": _CSRC + "rwkv6_scan_bwd.cu",
 }
 # the fused conv's routes (kernels.masked_act.conv_route)
 CONV_SOURCE = {"tf32x3": _CSRC + "masked_act_conv_sm90.cu",
@@ -222,6 +225,9 @@ REPLACES = {
     "masked_act_matmul_2d": "src/repro/kernels/masked_act.py:235",
     "masked_act_matmul_2d_batched": "src/repro/kernels/masked_act.py:299",
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:69",
+    # port-only: the gradient of kernel 7, which the reference takes by
+    # autodiff of its jnp scan (no backward pallas_call exists)
+    "rwkv6_scan_bwd": "src/repro/kernels/rwkv6_scan.py:69",
 }
 # the kernels each main path must launch
 PATH_KERNELS = {
@@ -239,11 +245,20 @@ PATH_KERNELS = {
     "resnet18_sweep": ("masked_act_2d", "masked_act_2d_batched",
                        "masked_act_conv3x3_batched", "masked_act_2d_bwd"),
     "serve": ("masked_act_2d", "rwkv6_scan"),
+    # DeepSeek's fused suffix forwards add kernel 4 (no un-stacked fused
+    # forward runs on this path: training and the batched engine are
+    # unfused)
+    "family_sweep": ("masked_act_2d", "masked_act_2d_bwd",
+                     "masked_act_2d_batched", "rwkv6_scan",
+                     "rwkv6_scan_bwd", "masked_act_matmul_2d_batched"),
 }
 # kernels with no TPU counterpart
 PORT_ONLY = {"masked_act_2d_bwd": "the gradient of kernel 1 (the reference "
              "has no backward pallas_call; JAX differentiates the plain "
-             "gate)"}
+             "gate)",
+             "rwkv6_scan_bwd": "the gradient of kernel 7 (the reference has "
+             "no backward pallas_call; JAX differentiates its jnp "
+             "linattn_chunked)"}
 # ... and the routes (build.route_counts): ResNet18's float32 convs on
 # route T (tensor cores); StableLM's float32 path on route B, its bfloat16
 # forward on route A; RWKV-6's scans on route C (tensor cores), every one;
@@ -258,6 +273,8 @@ PATH_ROUTES = {
                          "masked_act_matmul_2d_batched:fma"),
     "resnet18_sweep": ("masked_act_conv3x3_batched:tf32x3",),
     "serve": ("rwkv6_scan:tf32x3",),
+    "family_sweep": ("rwkv6_scan:tf32x3",
+                     "masked_act_matmul_2d_batched:fma"),
 }
 # (rows, K, N_out) of the LM paths' fused products: every bfloat16 case at
 # one of these must take route A
@@ -282,6 +299,12 @@ TOL = {
     ("matmul", torch.bfloat16): (1e-2, 1e-2),
     ("scan", torch.float32): (3e-4, 3e-4),
 }
+# the scan's backward against its plain version, each of dr, dk, dv, dw, du
+# and ds0 elementwise: |kernel - plain| <= SCAN_BWD_ATOL * max|plain| (that
+# gradient's scale) + SCAN_BWD_RTOL * |plain|; and each one's largest error
+# against the float64 plain backward within SCAN_ERR_RATIO times the
+# float32 plain version's
+SCAN_BWD_ATOL, SCAN_BWD_RTOL = 1e-5, 1e-5
 LOGIT_TOL = 2e-3
 SEED = 0            # weights, data and masks
 LM_BATCH = 8                # eval sequences on the LM paths
@@ -329,6 +352,9 @@ SERVE_TICK_CACHE_LENS = (40, 64, 88, 112)
 SERVE_TIMED_TICKS = 10
 RWKV_SERVE_BATCH, RWKV_SERVE_PROMPT, RWKV_SERVE_GEN = 4, 20, 12
 RWKV_LOOP_PROMPTS, RWKV_LOOP_MAX_LEN = (7, 20, 32, 64), 72
+# the family sweep (examples/torch_family_bcd_sweep.py): its batch of
+# sequences of its sequence length, as the reference's CI runs it
+FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ = 4, 32
 
 
 def counts() -> dict:
@@ -843,6 +869,107 @@ def scan_case(bh, T, K, V, chunk, heads, shared_state, primary, seed,
     return case
 
 
+def scan_bwd_case(bh, T, K, V, heads, shared_state, with_ds_end, primary,
+                  seed, timed=False, strong=False):
+    """The scan's backward kernel (``rwkv6_scan_bwd``) against its plain
+    version ``ref.rwkv6_scan_bwd_ref`` on the same inputs, gradient by
+    gradient (``SCAN_BWD_ATOL``, ``SCAN_BWD_RTOL``), and both against the
+    plain backward in float64 (the kernel's error within
+    ``SCAN_ERR_RATIO`` times the plain version's); a second launch must
+    give the same bits (du is summed over each head's rows in a fixed
+    order).  ``heads``, ``shared_state`` and ``strong`` as
+    :func:`scan_case`; the path's calls have a stride-0 zero state that
+    needs no gradient and no gradient of the final state
+    (``with_ds_end=False``: ds0 is not asked for)."""
+    from repro_torch.kernels import ref, rwkv6_scan as RS
+    name = "rwkv6_scan_bwd"
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+    r, k = randn(bh, T, K, scale=0.5), randn(bh, T, K, scale=0.5)
+    v = randn(bh, T, V)
+    uniform = torch.rand((bh, T, K), generator=g, device="cuda")
+    w = torch.exp(-torch.exp(4.0 * uniform - 1.0)) if strong else \
+        0.7 + 0.299 * uniform
+    u = randn(heads or bh, K, scale=0.3)
+    if heads == 1:
+        u = u.expand(bh, K)
+    state = torch.zeros((1, K, V), device="cuda").expand(bh, K, V) \
+        if shared_state else randn(bh, K, V, scale=0.1)
+    dy = randn(bh, T, V)
+    ds_end = randn(bh, K, V) if with_ds_end else None
+    names = ("dr", "dk", "dv", "dw", "du", "ds0")
+
+    def kernel():
+        return RS.rwkv6_scan_bwd(r, k, v, w, u, state, dy, ds_end,
+                                 need_ds0=with_ds_end)
+
+    def plain():
+        return ref.rwkv6_scan_bwd_ref(r, k, v, w, u, state, dy, ds_end)
+
+    got, want = kernel(), plain()
+    again = kernel()
+    torch.cuda.synchronize()
+    extra = dict(shape=[bh, T, K, V],
+                 decay="exp(-exp(U(-1, 3)))" if strong else "U(0.7, 0.999)",
+                 u="(H, K) table" if heads > 1 else
+                 "stride-0 row" if heads == 1 else "(BH, K)",
+                 state="shared zeros" if shared_state else "random",
+                 ds_end=with_ds_end,
+                 tol=f"{SCAN_BWD_ATOL}*max|plain| + {SCAN_BWD_RTOL}*|plain|")
+    for n_, a, b in zip(names, got, again):
+        if a is not None and not torch.equal(a, b):
+            fail(f"{name} {extra}: two launches gave different {n_} bits")
+    del again
+    f64 = ref.rwkv6_scan_bwd_ref(*(t.double() for t in (r, k, v, w, u,
+                                                       state, dy)),
+                                 None if ds_end is None else ds_end.double())
+    max_err, errs = 0.0, {}
+    for n_, a, b, c in zip(names, got, want, f64):
+        if a is None:
+            continue
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            fail(f"{name} {extra}: {n_} {tuple(a.shape)} is not finite or "
+                 f"not the plain version's {tuple(b.shape)}")
+        scale = float(b.abs().max())
+        err = (a - b).abs()
+        if bool((err > SCAN_BWD_ATOL * scale + SCAN_BWD_RTOL * b.abs())
+                .any()):
+            fail(f"{name} {extra}: {n_} misses its tolerance by "
+                 f"{float(err.max())} (scale {scale})")
+        k_err = float((a.double() - c).abs().max())
+        p_err = float((b.double() - c).abs().max())
+        if not k_err <= SCAN_ERR_RATIO * p_err:
+            fail(f"{name} {extra}: {n_}'s error against float64 {k_err} is "
+                 f"above {SCAN_ERR_RATIO}x the plain version's {p_err}")
+        errs[n_] = dict(max_abs_err=float(err.max()), scale=scale,
+                        kernel_err_vs_f64=k_err, plain_err_vs_f64=p_err)
+        max_err = max(max_err, float(err.max()))
+    del f64, got, want
+    torch.cuda.empty_cache()
+    case = dict(name=name, dtype="float32", max_abs_err=max_err,
+                atol=SCAN_BWD_ATOL, rtol=SCAN_BWD_RTOL, primary=primary,
+                errors=errs, **extra)
+    if primary or timed:
+        # read r, k, v, w, u, the state, dy (and ds_end) once, write dr, dk,
+        # dv, dw, du (and ds0) once; per token and row: the state step
+        # recomputed once (2KV), dS's step, dr, dk, dv, dw (2KV each)
+        byts = nbytes(r, k, v, w, u, state, dy, ds_end) + 4 * (
+            3 * bh * T * K + bh * T * V + u.shape[0] * K +
+            (bh * K * V if with_ds_end else 0))
+        flops = bh * T * 12.0 * K * V
+        t_bytes = byts / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOP_PER_S * 1e3
+        case.update(ms=time_ms(kernel), queued_ms=queued_ms(kernel),
+                    plain_ms=time_ms(plain, reps=3, warm=1),
+                    library_ms=None, bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    bytes=byts, flops=flops)
+    torch.cuda.empty_cache()
+    return case
+
+
 def finish_case(name, family, dtype, out, want, kernel, plain,
                 plain_is_library, byts, flops, primary, extra, timed=False,
                 library=None, rate=None):
@@ -1207,6 +1334,24 @@ def run_kernel_cases():
     cases.append(scan_case(H3, RWKV_SERVE_PROMPT, 64, 64, RWKV_SERVE_PROMPT,
                            H3, False, primary=False, seed=139, timed=True,
                            with_serial=True))
+
+    # ---- rwkv6_scan_bwd: kernel 7's primary shape, and the family sweep's
+    # training shape (a batch of FAMILY_TRAIN_BATCH x 40 heads of
+    # FAMILY_TRAIN_SEQ tokens), as the time-mix calls it: the (H, K) table,
+    # a stride-0 zero state, no final-state gradient; then strong decay, and
+    # ragged shapes with a random state, a final-state gradient and ds0
+    cases.append(scan_bwd_case(LM_CHUNK * LM_BATCH * H3, T3, 64, 64, H3,
+                               True, False, primary=True, seed=230))
+    train_bh = FAMILY_TRAIN_BATCH * H3
+    cases.append(scan_bwd_case(train_bh, FAMILY_TRAIN_SEQ, 64, 64, H3, True,
+                               False, primary=False, seed=231, timed=True))
+    cases.append(scan_bwd_case(train_bh, FAMILY_TRAIN_SEQ, 64, 64, H3, True,
+                               False, primary=False, seed=232, strong=True))
+    for i, (bh, T, K, V, heads) in enumerate(((6, 13, 5, 7, 0),
+                                              (12, 40, 64, 33, 3),
+                                              (4, 8, 64, 64, 1))):
+        cases.append(scan_bwd_case(bh, T, K, V, heads, False, True,
+                                   primary=False, seed=233 + i))
     return cases
 
 
@@ -1538,6 +1683,7 @@ def device_families(prof, n: int):
     launches per step, from a finished ``torch.profiler`` window of ``n``
     steps."""
     fams = {"gate_bwd_kernel": 0.0, "gate_kernel": 0.0, "rwkv6_scan": 0.0,
+            "rwkv6_scan_bwd": 0.0,
             "conv": 0.0, "gemm": 0.0, "reduce": 0.0, "elementwise": 0.0,
             "copy": 0.0, "other": 0.0}
     launches = 0
@@ -1554,6 +1700,8 @@ def device_families(prof, n: int):
             fam = "gate_bwd_kernel"
         elif "gate_kernel" in k:
             fam = "gate_kernel"
+        elif "rwkv6_scan_bwd" in k or "rwkv6_du_reduce" in k:
+            fam = "rwkv6_scan_bwd"
         elif "rwkv6_scan" in k:
             fam = "rwkv6_scan"
         elif any(t in low for t in ("conv", "cudnn", "wgrad", "dgrad",
@@ -3231,6 +3379,593 @@ def run_serve_path(by_path, device="cuda"):
                 launches={k: v for k, v in by_path["serve"].items() if v})
 
 
+# ------------------------------------------------- training the families
+
+
+FAMILY_EXAMPLE = os.path.join(HERE, "examples", "torch_family_bcd_sweep.py")
+# the reference's CI schedule (.github/workflows/ci.yml family-smoke) with
+# the example's batch of FAMILY_TRAIN_BATCH x FAMILY_TRAIN_SEQ tokens
+FAMILY_FLAGS = ("--sweep", "0.6,0.45", "--ref-frac", "0.75",
+                "--train-steps", "10", "--batch", str(FAMILY_TRAIN_BATCH),
+                "--seq", str(FAMILY_TRAIN_SEQ))
+FAMILY_GRAD_REPEATS = 2      # the card-vs-CPU gradient check: 2 of 32
+FAMILY_GRAD_TOL = 1e-3       # each leaf's relative L2 error, card vs CPU
+FAMILY_PROFILED_STEPS = 3
+@dataclasses.dataclass(frozen=True)
+class FamilySweep:
+    spec: LMPath        # the LM path's config, tag and output scaling
+    engines: tuple      # the engines swept, from one persisted warm start
+    layers: int = 0     # n_layers cut (0: every layer)
+    lr_scale: float = 1.0   # factor on the example's learning rates
+    lr_why: str = ""    # the loss seen first at the example's own
+
+
+FAMILY_SWEEPS = (
+    FamilySweep(LM_PATHS[1], ("batched", "suffix")),
+    # AdamW's state for all 16.2 B parameters (~259 GB with the gradients
+    # and the parameters) fits no single card: the dense head block and 4
+    # MoE repeats, ~10.7 GB
+    FamilySweep(FAMILY_PATHS[0], ("batched", "suffix"), layers=5),
+    # at the example's learning rates (tuned on the reduced configs),
+    # SNL's SGD at 1e-2 turned the full-width model's loss to NaN in its
+    # first epoch (10.88 after training; measured on one H100)
+    FamilySweep(FAMILY_PATHS[1], ("suffix",), lr_scale=1 / 32,
+                lr_why="at the example's own, the loss after SNL was NaN "
+                       "(10.88 after training)"),
+)
+
+
+def load_family_example():
+    """``examples/torch_family_bcd_sweep.py`` as a module: the family path
+    runs through the functions a user's run calls."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("torch_family_example",
+                                                  FAMILY_EXAMPLE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def family_grad_check(model, params, ex, device="cuda"):
+    """One float32 train step's gradients of RWKV-6 3B at full width, cut
+    to its embedding and first ``FAMILY_GRAD_REPEATS`` of 32 repeats, on
+    the card (the gates through ``gate_bwd_kernel``, the scans through
+    ``rwkv6_scan_bwd``) and on the CPU (the plain versions), from the same
+    parameters, random hard masks and the example's first batch: each
+    leaf's relative L2 error within ``FAMILY_GRAD_TOL``."""
+    from repro_torch.convert import to_device
+    from repro_torch.core import masks as M
+    from repro_torch.data import MarkovTokens
+    from repro_torch.training import optimizer as opt_lib, train
+    rng = np.random.default_rng(SEED)
+    tree = {k: (rng.random(s.shape) < 0.6).astype(np.float32)
+            for k, s in model.mask_sites().items()}
+    cut, sub, sub_tree = first_repeats(model, params, tree,
+                                       FAMILY_GRAD_REPEATS)
+    args = ex.parse_args(["--out-dir", "unused"] + list(FAMILY_FLAGS))
+    batch = MarkovTokens(cut.cfg.vocab, seed=0).batch(args.batch, args.seq,
+                                                      0)
+
+    def loss_fn(p, m, b):
+        return train.cross_entropy(cut.forward(p, m, b["tokens"]),
+                                   b["labels"])
+    before = counts()
+    with train.deterministic():
+        loss_c, g_card = train.loss_and_grads(
+            loss_fn, sub, M.as_device(sub_tree, device),
+            to_device(batch, device))
+    sync(device)
+    launched = {k: v - before[k] for k, v in counts().items()
+                if v != before[k]}
+    sub_cpu = to_device(sub, "cpu")
+    loss_h, g_cpu = train.loss_and_grads(loss_fn, sub_cpu,
+                                         M.as_device(sub_tree, "cpu"),
+                                         to_device(batch, "cpu"))
+    names = opt_lib.tree_leaves(_leaf_names(sub))
+    per_leaf = {}
+    for name, gc, gh in zip(names, opt_lib.tree_leaves(g_card),
+                            opt_lib.tree_leaves(g_cpu)):
+        gc = gc.cpu()
+        if not bool(torch.isfinite(gc).all()):
+            fail(f"family_grad: the card's gradient of {name} is not finite")
+        per_leaf[name] = float((gc - gh).norm() / max(float(gh.norm()),
+                                                      1e-30))
+    worst = max(per_leaf, key=per_leaf.get)
+    if per_leaf[worst] > FAMILY_GRAD_TOL:
+        fail(f"family_grad: {worst}'s gradient on the card is "
+             f"{per_leaf[worst]} (relative L2) from the CPU's, above "
+             f"{FAMILY_GRAD_TOL}")
+    for k in ("masked_act_2d_bwd", "rwkv6_scan_bwd"):
+        if torch.device(device).type == "cuda" and not launched.get(k):
+            fail(f"family_grad: the card's step launched no {k}")
+    del g_card, g_cpu, sub_cpu
+    return dict(model=cut.cfg.name, layers=cut.cfg.n_layers,
+                repeats=FAMILY_GRAD_REPEATS, batch=[args.batch, args.seq],
+                loss_card=float(loss_c), loss_cpu=float(loss_h),
+                worst_leaf=worst, worst_l2_rel=per_leaf[worst],
+                tol=FAMILY_GRAD_TOL, launched=launched,
+                l2_rel_by_leaf=per_leaf)
+
+
+class scored_losses:
+    """Within the block, the example's stage scoring also records the
+    held-out loss of the parameters it scores (each stage's, after the
+    stage's finetune, in ``losses``), and each finetune's result its own
+    (``ft_losses``, the BCD steps' and the stages'): measurement only, the
+    functions are put back on exit."""
+
+    def __init__(self, ex, device):
+        self.ex, self.device, self.losses, self.ft_losses = ex, device, [], []
+        self.ft_allocated = []      # the card's allocated bytes after each
+
+    def __enter__(self):
+        from repro_torch.convert import to_device
+        from repro_torch.core import masks as M
+        self.orig = orig = self.ex.make_closures
+        self.orig_ft = orig_ft = self.ex.finetune
+        held = {}
+
+        def finetune(params, masks, sloss, batches, **kw):
+            out = orig_ft(params, masks, sloss, batches, **kw)
+            if torch.device(self.device).type == "cuda":
+                self.ft_allocated.append(torch.cuda.memory_allocated())
+            with torch.no_grad():
+                self.ft_losses.append(float(sloss(
+                    out, M.as_device(masks, self.device), held["b"],
+                    False)[0]))
+            return out
+        self.ex.finetune = finetune
+
+        def make_closures(model, mt, args, device="cuda"):
+            batches, sloss, test_acc = orig(model, mt, args, device)
+            test_b = held["b"] = to_device(
+                mt.batch(args.eval_batch, args.seq, 10**6), device)
+
+            def scored(m, p):
+                with torch.no_grad():
+                    self.losses.append(float(sloss(
+                        p, M.as_device(m, device), test_b, False)[0]))
+                return test_acc(m, p)
+            return batches, sloss, scored
+        self.ex.make_closures = make_closures
+        return self
+
+    def __exit__(self, *exc):
+        self.ex.make_closures = self.orig
+        self.ex.finetune = self.orig_ft
+
+
+def profile_family_steps(ex, model, params, masks0, args, device):
+    """The warm start's train step (AdamW, leaf by leaf, as
+    ``snl.finetune`` takes it): ``FAMILY_PROFILED_STEPS`` steps profiled
+    (:func:`profile_window`) after one that warms up, then one step
+    outside the profiler with its forward + backward and its optimizer
+    timed apart (host issue time, and time until the card is done)."""
+    from repro_torch.core import masks as M
+    from repro_torch.core.snl import _grad_leaves
+    from repro_torch.data import MarkovTokens
+    from repro_torch.training import optimizer as opt_lib, train
+    batches, sloss, _ = ex.make_closures(
+        model, MarkovTokens(model.cfg.vocab, seed=0), args, device)
+    m_dev = M.as_device(masks0, device)
+    opt = opt_lib.adamw(lr=ex.TRAIN_LR)
+    leaves = opt_lib.tree_leaves(params)
+    state = {"o": opt.init(leaves)}
+
+    def loss(p, b):
+        return sloss(p, m_dev, b, False)[0]
+
+    def one(i):
+        grads = _grad_leaves(loss, params, leaves, batches(i))
+        opt_lib.step_leaves(opt, grads, state["o"], leaves)
+    out = profile_window(one, FAMILY_PROFILED_STEPS)
+    # one more step outside the profiler, its parts apart: the host's time
+    # to issue each part, then the card's to finish it
+    parts = {}
+    t0 = time.perf_counter()
+    b = batches(FAMILY_PROFILED_STEPS + 1)
+    tree = opt_lib.tree_unflatten(params, leaves)
+    for name, fn in (
+            ("forward_backward",
+             lambda: train.loss_and_grads(loss, tree, b)),
+            ("optimizer", lambda: opt_lib.step_leaves(
+                opt, opt_lib.tree_leaves(parts.pop("grads")), state["o"],
+                leaves))):
+        t1 = time.perf_counter()
+        res = fn()
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if name == "forward_backward":
+            parts["grads"] = res[1]
+        parts[f"{name}_issue_ms"] = (t2 - t1) * 1e3
+        parts[f"{name}_ms"] = (t3 - t1) * 1e3
+    parts["step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["unprofiled_step"] = parts
+    del leaves, state, tree, b
+    return out
+
+
+class checkpoints_without_parameters:
+    """Within the block, the sweep's checkpoints keep all but the
+    parameters: each BCD runner's run state and each stage's final masks
+    are written, without the parameters beside them; a warm start saved
+    to a path in ``whole`` is written whole.  A full-width RWKV-6 3B's
+    parameters are 12.4 GB a checkpoint, the example writes one after every
+    accepted block and one a stage (~150 GB over the family path), and the
+    machine allows 45 GiB of disk writes a run.  The functions are put back
+    on exit."""
+
+    def __init__(self, whole):
+        self.whole = {os.path.abspath(p) for p in whole}
+
+    def __enter__(self):
+        from repro_torch.core import runner
+        self.runner = runner
+        self.orig = orig_save, orig_ck = (runner.save_stage_init,
+                                          runner.BCDRunner._checkpoint)
+        whole = self.whole
+
+        def save_stage_init(path, init, **kw):
+            if os.path.abspath(path) not in whole:
+                init = dict(init, params=None)
+            return orig_save(path, init, **kw)
+
+        def _checkpoint(bcd_runner, state):
+            io, bcd_runner._params_io = bcd_runner._params_io, None
+            try:
+                orig_ck(bcd_runner, state)
+            finally:
+                bcd_runner._params_io = io
+        runner.save_stage_init = save_stage_init
+        runner.BCDRunner._checkpoint = _checkpoint
+        return self
+
+    def __exit__(self, *exc):
+        self.runner.save_stage_init, self.runner.BCDRunner._checkpoint = \
+            self.orig
+
+
+def finetune_repeats(ex, params, masks, sloss, batches, device="cuda"):
+    """The example's stage finetune (AdamW, ``FT_STEPS`` steps at
+    ``FT_LR``) twice from the same parameters, hard masks and batches: the
+    two results must be the same bits, leaf by leaf.  The BCD engines
+    agree, and a resumed sweep repeats an interrupted one, only if they
+    are."""
+    from repro_torch.core.snl import finetune
+    from repro_torch.training import optimizer as opt_lib
+    results, secs = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = finetune(params, masks, sloss, batches, steps=ex.FT_STEPS,
+                       lr=ex.FT_LR, use_adam=True, device=device)
+        sync(device)
+        secs.append(time.perf_counter() - t0)
+        results.append([t.cpu() for t in opt_lib.tree_leaves(out)])
+        del out
+    names = opt_lib.tree_leaves(_leaf_names(params))
+    differ = [n for n, a, b in zip(names, *results) if not torch.equal(a, b)]
+    if differ:
+        fail(f"finetune_repeats: two finetunes from the same parameters, "
+             f"masks and batches differ in {len(differ)} of {len(names)} "
+             f"leaves, first {differ[:5]}")
+    return dict(steps=ex.FT_STEPS, leaves=len(names), equal_bits=True,
+                seconds=secs)
+
+
+class warm_start_probe:
+    """Within the block, the example's ``train_base`` and
+    ``snl_warm_start`` (the first run's warm start, which ``ex.run`` makes
+    itself) are timed and read: the held-out loss after each, a profile of
+    the train step, ``rounding_growth`` for a scaled model and the
+    finetune's repeatability (:func:`finetune_repeats`), all on the trained
+    parameters.  Measurement only: the functions are put back on exit."""
+
+    def __init__(self, ex, model, spec, held_loss, held, device):
+        self.ex, self.model, self.spec = ex, model, spec
+        self.held_loss, self.held, self.device = held_loss, held, device
+        self.warm, self.allocated = {}, {}
+        self.warm["allocated"] = self.allocated
+
+    def mark(self, name):
+        if torch.device(self.device).type == "cuda":
+            self.allocated[name] = torch.cuda.memory_allocated()
+
+    def __enter__(self):
+        from repro_torch.core.snl import finetune as snl_finetune
+        ex, warm, dev = self.ex, self.warm, self.device
+        self.orig = orig_train, orig_snl = ex.train_base, ex.snl_warm_start
+
+        def train_base(args, params, masks0, sloss, batches, device="cuda"):
+            self.mark("init")
+            # the warm start's training is none of the sweep's finetunes
+            # that scored_losses records
+            scored, ex.finetune = ex.finetune, snl_finetune
+            t0 = time.perf_counter()
+            try:
+                trained = orig_train(args, params, masks0, sloss, batches,
+                                     device)
+            finally:
+                ex.finetune = scored
+            sync(dev)
+            warm["train_s"] = time.perf_counter() - t0
+            self.mark("trained")
+            warm["loss_trained"] = self.held_loss(trained, masks0)
+            if not math.isfinite(warm["loss_trained"]):
+                fail(f"{self.spec.tag}_family_sweep: the loss after "
+                     f"training is {warm['loss_trained']} (before: "
+                     f"{warm.get('loss_init')})")
+            if torch.device(dev).type == "cuda":
+                warm["train_step"] = profile_family_steps(
+                    ex, self.model, trained, masks0, args, dev)
+                self.mark("profiled")
+            rng = np.random.default_rng(SEED)
+            hard = {k: (rng.random(v.shape) < 0.6).astype(np.float32)
+                    for k, v in masks0.items()}
+            warm["finetune_repeats"] = finetune_repeats(
+                ex, trained, hard, sloss, batches, dev)
+            self.mark("finetune_repeats")
+            if self.spec.w_o_scale != 1.0:
+                warm["rounding_growth_trained"] = rounding_growth(
+                    self.model, trained, [masks0, hard],
+                    self.held["tokens"], self.spec, dev)
+            self.mark("rounding_growth")
+            return trained
+
+        def snl_warm_start(params, masks0, sloss, batches, b_ref,
+                           device="cuda"):
+            t0 = time.perf_counter()
+            init = orig_snl(params, masks0, sloss, batches, b_ref, device)
+            sync(dev)
+            warm["snl_s"] = time.perf_counter() - t0
+            self.mark("snl")
+            warm["loss_snl"] = self.held_loss(init["params"], init["masks"])
+            if not math.isfinite(warm["loss_snl"]):
+                fail(f"{self.spec.tag}_family_sweep: the loss after SNL is "
+                     f"{warm['loss_snl']}")
+            return init
+        ex.train_base, ex.snl_warm_start = train_base, snl_warm_start
+        return self
+
+    def __exit__(self, *exc):
+        self.ex.train_base, self.ex.snl_warm_start = self.orig
+
+
+def run_family_sweep(fam, ex, root, device="cuda"):
+    """One family's sweep at its published widths: the example's ``run``
+    on each engine, the first from the initial parameters (the warm start,
+    train then SNL to B_ref, made by ``run`` itself and read by
+    :class:`warm_start_probe`), each later one from the warm start the
+    first persisted.  Returns the ``<tag>_family_sweep`` line and the
+    launch counts of the path (set to 0 just before the first run, read
+    after the last)."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.convert import to_device
+    from repro_torch.core import linearize, masks as M
+    from repro_torch.data import MarkovTokens
+    from repro_torch.kernels import build
+    spec = fam.spec
+    cuda = torch.device(device).type == "cuda"
+    cfg = get_config(spec.arch)
+    if fam.layers:
+        cfg = dataclasses.replace(cfg, n_layers=fam.layers)
+    t0 = time.perf_counter()
+    model, params = make_lm(SEED, spec, device, cfg=cfg)
+    sync(device)
+    line = dict(model=model.cfg.name, layers=model.cfg.n_layers,
+                param_bytes=param_bytes(params),
+                init_s=time.perf_counter() - t0, engines=list(fam.engines),
+                flags=list(FAMILY_FLAGS))
+    grad = family_grad_check(model, params, ex, device) \
+        if spec.arch == "rwkv6_3b" else None
+    dirs = {e: os.path.join(root, f"{spec.tag}_{e}") for e in fam.engines}
+    argv = {e: ["--arch", spec.arch, "--engine", e, "--out-dir", dirs[e],
+                "--bench-history", os.path.join(root, "BENCH_history.jsonl")]
+            + list(FAMILY_FLAGS) for e in fam.engines}
+    args = ex.parse_args(argv[fam.engines[0]])
+    mt = MarkovTokens(model.cfg.vocab, seed=0)
+    _, sloss, _ = ex.make_closures(model, mt, args, device)
+    held = to_device(mt.batch(args.eval_batch, args.seq, 10**6), device)
+    masks0 = linearize.init_masks(model.mask_sites())
+    total = M.count(masks0)
+    line["learning_rates"] = dict(train=ex.TRAIN_LR, snl=ex.SNL_CFG["lr"],
+                                  finetune=ex.FT_LR)
+
+    def held_loss(p, m):
+        with torch.no_grad():
+            return float(sloss(p, M.as_device(m, device), held, False)[0])
+
+    loss_init = held_loss(params, masks0)
+    # the initial parameters go to the host: the first run trains from
+    # them there, each later one restores the persisted warm start into
+    # their structure, and the card holds the live parameters alone
+    params = to_device(params, "cpu")
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    init_dir = os.path.join(dirs[fam.engines[0]], "init")
+    probe = warm_start_probe(ex, model, spec, held_loss, held, device)
+    probe.warm.update(loss_init=loss_init, b_ref=int(total * args.ref_frac),
+                      total=total)
+    line["warm_start"] = probe.warm
+    build.reset_launch_counts()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    peak = 0
+    runs = {}
+    for e in fam.engines:
+        if e != fam.engines[0]:
+            # the warm start moves on (a copy would need another 12.4 GB
+            # of the disk's 80)
+            os.makedirs(dirs[e])
+            shutil.move(init_dir, os.path.join(dirs[e], "init"))
+            init_dir = os.path.join(dirs[e], "init")
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with scored_losses(ex, device) as sc, \
+                checkpoint_costs(device) as ck, \
+                checkpoints_without_parameters([init_dir]), probe:
+            payload = ex.run(ex.parse_args(argv[e]), model, params,
+                             device=device)
+        sync(device)
+        wall = time.perf_counter() - t0
+        stages = [dict(budget=st["budget"], steps=st["steps"],
+                       trials=st["trials_total"], wall_s=st["wall_s"],
+                       test_acc=st.get("test_acc"),
+                       fingerprint=st["mask_fingerprint"])
+                  for st in payload["stages"]]
+        if not payload["complete"] or len(stages) != len(args.sweep):
+            fail(f"{spec.tag}_family_sweep ({e}): the sweep did not "
+                 f"complete: {stages}")
+        for st, loss in zip(stages, sc.losses):
+            st["loss_after"] = loss
+        mid = payload.get("midscan")
+        runs[e] = dict(
+            warm_start="made" if e == fam.engines[0] else "reused",
+            wall_s=wall, stages=stages, finetune_losses=sc.ft_losses,
+            allocated_after_finetunes=sc.ft_allocated,
+            checkpoint_s=sum(c["ms"] for c in ck.calls) / 1e3,
+            checkpoint_bytes=sum(c.get("bytes", 0) for c in ck.calls),
+            midscan=None if mid is None else mid["per_site_depth"]
+            ["midscan"])
+        if e == fam.engines[0]:
+            probe.warm["persist_s"] = sum(
+                c["ms"] for c in ck.calls if c["op"] == "save" and
+                c["dir"].startswith(init_dir)) / 1e3
+        if cuda:
+            runs[e]["max_allocated"] = torch.cuda.max_memory_allocated()
+            peak = max(peak, runs[e]["max_allocated"])
+        del payload
+        if len(sc.losses) != len(stages) or \
+                not all(math.isfinite(x) for x in sc.losses):
+            line["runs"] = runs
+            emit({f"{spec.tag}_family_sweep_failed": line})
+            fail(f"{spec.tag}_family_sweep ({e}): losses after the stages "
+                 f"{sc.losses} are not one finite value a stage")
+        gc.collect()
+        # the stages' checkpoints go; the warm start stays for the next run
+        for name in os.listdir(dirs[e]):
+            if name.startswith("stage_"):
+                shutil.rmtree(os.path.join(dirs[e], name))
+    # the engines agree on the masks of every stage and, their finetunes
+    # being deterministic, on the parameters' losses after every step
+    for key, what in (("fingerprint", "stage fingerprints"),
+                      ("loss_after", "held-out losses after the stages")):
+        got = {e: [st[key] for st in r["stages"]] for e, r in runs.items()}
+        if len({tuple(v) for v in got.values()}) != 1:
+            fail(f"{spec.tag}_family_sweep: the engines' {what} differ: "
+                 f"{got}")
+    ft = {e: r["finetune_losses"] for e, r in runs.items()}
+    if len({tuple(v) for v in ft.values()}) != 1:
+        fail(f"{spec.tag}_family_sweep: the engines' losses after their "
+             f"finetunes differ: {ft}")
+    launches = counts()
+    line.update(runs=runs, engines_agree=len(fam.engines) > 1 or None,
+                launches={k: v for k, v in launches.items() if v})
+    if cuda:
+        line["max_allocated"] = peak
+        line["device_total"] = torch.cuda.get_device_properties(0) \
+            .total_memory
+        if line["max_allocated"] >= line["device_total"]:
+            fail(f"{spec.tag}_family_sweep: peak allocated "
+                 f"{line['max_allocated']} is not below the card's memory")
+    line["reduced"] = family_cuts(fam, model)
+    if grad is not None:
+        line["grad_check"] = grad
+    del model, params
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    return line, launches
+
+
+@contextlib.contextmanager
+def scaled_learning_rates(ex, factor: float):
+    """Within the block, the family example's learning rates (the warm
+    start's training, SNL's, the finetunes') times ``factor``."""
+    saved = ex.TRAIN_LR, ex.SNL_CFG, ex.FT_LR
+    ex.TRAIN_LR, ex.FT_LR = saved[0] * factor, saved[2] * factor
+    ex.SNL_CFG = dict(saved[1], lr=saved[1]["lr"] * factor)
+    try:
+        yield
+    finally:
+        ex.TRAIN_LR, ex.SNL_CFG, ex.FT_LR = saved
+
+
+def family_cuts(fam, model) -> list:
+    """What the family sweep cuts, against the published configuration and
+    the example's defaults."""
+    cuts = [f"schedule: {' '.join(FAMILY_FLAGS)} (the reference's CI; the "
+            "example's default --train-steps is 30)",
+            "random weights from seed 0 (no pretrained checkpoint), "
+            "synthetic Markov tokens",
+            "float32 throughout (the config's bfloat16 is not run)"]
+    if fam.layers:
+        from repro_torch.configs import get_config
+        full = get_config(fam.spec.arch).n_layers
+        cuts.append(f"{fam.layers} of {full} layers: the dense head block "
+                    f"and {fam.layers - len(model.cfg.head_blocks)} MoE "
+                    "repeats")
+    if fam.spec.w_o_scale != 1.0:
+        cuts.append(f"recurrent output projections drawn at "
+                    f"{fam.spec.w_o_scale} of the init's scale")
+    if fam.lr_scale != 1.0:
+        cuts.append(f"the example's learning rates x {fam.lr_scale}: "
+                    f"{fam.lr_why}")
+    if len(fam.engines) == 1:
+        cuts.append(f"one engine ({fam.engines[0]})")
+    cuts.append("the sweep's checkpoints keep no parameters (the BCD "
+                "runners' run states and the stages' final masks are "
+                "written; the warm start alone is written whole, once): "
+                "the example writes 12.4 GB of RWKV-6 3B parameters after "
+                "every accepted block and a stage, and the script keeps "
+                "its disk writes under 45 GiB")
+    return cuts
+
+
+def run_family_path(by_path, device="cuda", only=None):
+    """The family path: the three families' sweeps (``FAMILY_SWEEPS``),
+    their launch counts summed into ``by_path["family_sweep"]`` (``only``:
+    one family's tag, to run it alone).  Run
+    directories live under ``build/family_sweep`` of this checkout (tens
+    of GB of checkpoints at full width), removed at the end."""
+    import shutil
+    ex = load_family_example()
+    # what the earlier paths left behind goes before 12.4 GB of parameters
+    # and their AdamW state arrive
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    root = os.path.join(HERE, "build", "family_sweep")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    disk = shutil.disk_usage(root)
+    emit({"family_disk": dict(
+        root=root, free_bytes=disk.free, total_bytes=disk.total,
+        allocated_at_start=torch.cuda.memory_allocated()
+        if torch.device(device).type == "cuda" else None)})
+    total = None
+    lines = []
+    try:
+        for fam in FAMILY_SWEEPS:
+            if only is not None and fam.spec.tag != only:
+                continue
+            with scaled_learning_rates(ex, fam.lr_scale):
+                line, launches = run_family_sweep(fam, ex, root, device)
+            emit({f"{fam.spec.tag}_family_sweep": line})
+            lines.append(line)
+            total = launches if total is None else \
+                {k: total[k] + launches[k] for k in total}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    by_path["family_sweep"] = total
+    return lines
+
+
 def check_launches(by_path, paths) -> None:
     """Fail unless each path launched every kernel and route it must."""
     for path in paths:
@@ -3277,6 +4012,13 @@ def main() -> None:
                     help="build the kernels and run the serving phase "
                          "alone, without the kernel comparison (prints no "
                          "result line)")
+    ap.add_argument("--only-family", nargs="?", const="all", default=None,
+                    metavar="TAG",
+                    help="build the kernels and run the family path alone "
+                         "(the card-vs-CPU gradient check and the three "
+                         "families' sweeps), without the kernel comparison; "
+                         "with a tag (rwkv, moe, hybrid), that family's "
+                         "sweep alone (prints no result line)")
     ap.add_argument("--src", default=None,
                     help="with --only-rwkv, --only-moe or --only-hybrid: "
                          "import repro_torch from this directory (another "
@@ -3291,6 +4033,12 @@ def main() -> None:
             fail("--src is for --only-rwkv, --only-moe or --only-hybrid")
         sys.path.insert(0, os.path.abspath(args.src))
 
+    # before anything touches the card: segments that grow in place, so
+    # that the family path's AdamW over 12.4 GB of parameters (5 copies
+    # live, leaves of up to 2.9 GB coming and going) does not fragment the
+    # 79 GiB into pieces too small for the next leaf
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     if not torch.cuda.is_available():
         fail("no CUDA device: torch.cuda.is_available() is False")
 
@@ -3349,6 +4097,15 @@ def main() -> None:
         emit({"serve": run_serve_path(by_path)})
         check_launches(by_path, ("serve",))
         return
+    if args.only_family:
+        by_path = {}
+        run_family_path(by_path, only=None if args.only_family == "all"
+                        else args.only_family)
+        if args.only_family == "all":
+            check_launches(by_path, ("family_sweep",))
+        emit({"family_launches": {k: v for k, v in
+                                  by_path["family_sweep"].items() if v}})
+        return
     cases = run_kernel_cases()
     emit({"kernel_cases": cases})
     emit({"scan_copies": time_scan_copies(next(
@@ -3391,6 +4148,9 @@ def main() -> None:
     # ---- serving StableLM-2-1.6B and RWKV-6 3B, counted on its own
     serve_line = run_serve_path(by_path)
 
+    # ---- training the LM families: the sweep of each, counted on its own
+    run_family_path(by_path)
+
     check_launches(by_path, PATH_KERNELS)
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in build.launch_counts}
@@ -3421,6 +4181,9 @@ def main() -> None:
             "tolerance": {"atol": prim["atol"], "rtol": prim["rtol"]}})
         if name in PORT_ONLY:
             kernels[-1]["port_only"] = PORT_ONLY[name]
+        if name == "rwkv6_scan_bwd":
+            kernels[-1]["tolerance"]["form"] = prim["tol"]
+        if name == "masked_act_2d_bwd":
             kernels[-1]["dpoly_max_abs_err"] = max(
                 c.get("dpoly_max_abs_err", 0.0) for c in mine)
             kernels[-1]["dpoly_tolerance"] = next(

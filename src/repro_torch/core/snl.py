@@ -81,25 +81,27 @@ def run_snl(
         l1 = sum(torch.sum(ref.abs_tie(v)) for v in a.values())
         return loss + lam * l1
 
-    def step(both, ostate, batch, lam):
-        _, grads = loss_and_grads(train_loss, both, batch, lam)
-        updates, ostate = opt.update(grads, ostate, both)
-        p, a = opt_lib.apply_updates(both, updates)
-        a = {k: torch.clamp(v, 0.0, 1.0) for k, v in a.items()}
-        return (p, a), ostate
-
     with deterministic():
-        both = (to_device(params, device), to_device(dict(alphas), device))
-        ostate = opt.init(both)
+        # (θ, α) as one list of leaves, θ's first, stepped in place
+        like = (to_device(params, device), to_device(dict(alphas), device))
+        leaves = opt_lib.tree_leaves(like)
+        n_theta = len(opt_lib.tree_leaves(like[0]))
+        ostate = opt.init(leaves)
+        both = like
         lam = cfg.lam0
         snapshots, budgets, lams = [], [], []
         prev_budget = None
         it = 0
         for epoch in range(cfg.epochs):
             for _ in range(cfg.steps_per_epoch):
-                both, ostate = step(both, ostate,
-                                    to_device(batches(it), device), lam)
+                grads = _grad_leaves(train_loss, like, leaves,
+                                     to_device(batches(it), device), lam)
+                leaves, ostate = opt_lib.step_leaves(opt, grads, ostate,
+                                                     leaves)
+                for i in range(n_theta, len(leaves)):
+                    leaves[i] = torch.clamp(leaves[i], 0.0, 1.0)
                 it += 1
+            both = opt_lib.tree_unflatten(like, leaves)
             a_host = {k: v.cpu().numpy() for k, v in both[1].items()}
             hard = {k: (v > cfg.alpha_threshold).astype(np.float32)
                     for k, v in a_host.items()}
@@ -121,10 +123,19 @@ def run_snl(
         hard = M.threshold(a_host, cfg.b_target)
 
         # Finetune θ with binarized masks.
-        params = finetune(both[0], hard, loss_fn, batches,
+        theta = both[0]
+        del like, leaves, ostate, both
+        params = finetune(theta, hard, loss_fn, batches,
                           steps=cfg.finetune_steps, lr=cfg.lr,
                           start_step=it, device=device)
     return SNLResult(params, hard, a_host, snapshots, budgets, lams)
+
+
+def _grad_leaves(fn, like, leaves, *args) -> list:
+    """The gradient leaves of ``fn(tree, *args)`` at ``leaves`` laid out as
+    ``like``, with nothing of the forward kept alive afterwards."""
+    tree = opt_lib.tree_unflatten(like, leaves)
+    return opt_lib.tree_leaves(loss_and_grads(fn, tree, *args)[1])
 
 
 def finetune(params, hard_masks: M.MaskTree, loss_fn, batches,
@@ -134,7 +145,10 @@ def finetune(params, hard_masks: M.MaskTree, loss_fn, batches,
     SGD with momentum 0.9, or AdamW, on a cosine schedule over ``steps``.
     ``loss_fn(params, masks, batch, soft=False) -> (loss, ...)``; the hard
     gate's gradient goes through ``kernels.ops.MaskedActFn``.  Returns new
-    parameters; deterministic (:func:`training.train.deterministic`)."""
+    parameters; deterministic (:func:`training.train.deterministic`).
+    Steps leaf by leaf (``optimizer.step_leaves``): the peak is the
+    parameters passed in, the ones being trained, their gradients and the
+    moments — what a 3 B-parameter model in float32 needs on one card."""
     opt = (opt_lib.adamw(lr=lr, schedule=opt_lib.cosine(lr, steps))
            if use_adam else
            opt_lib.sgd(lr=lr, momentum=0.9,
@@ -145,11 +159,11 @@ def finetune(params, hard_masks: M.MaskTree, loss_fn, batches,
         return loss_fn(p, masks_dev, batch, False)[0]
 
     with deterministic():
-        params = to_device(params, device)
-        ostate = opt.init(params)
+        like = to_device(params, device)
+        leaves = opt_lib.tree_leaves(like)
+        ostate = opt.init(leaves)
         for i in range(steps):
             batch = to_device(batches(start_step + i), device)
-            _, grads = loss_and_grads(loss, params, batch)
-            updates, ostate = opt.update(grads, ostate, params)
-            params = opt_lib.apply_updates(params, updates)
-    return params
+            grads = _grad_leaves(loss, like, leaves, batch)
+            leaves, ostate = opt_lib.step_leaves(opt, grads, ostate, leaves)
+    return opt_lib.tree_unflatten(like, leaves)

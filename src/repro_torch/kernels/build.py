@@ -44,6 +44,7 @@ launch_counts = {
     "masked_act_matmul_2d": 0,
     "masked_act_matmul_2d_batched": 0,
     "rwkv6_scan": 0,
+    "rwkv6_scan_bwd": 0,
 }
 # the fused matmul's, the fused conv's and the scan's launches by route
 # (kernels.masked_act.matmul_route and conv_route,
@@ -189,6 +190,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rwkv6_scan_launch.restype = i
     lib.rwkv6_scan_launch.argtypes = [
         vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, ll, i, vp]
+    lib.rwkv6_scan_bwd_launch.restype = i
+    lib.rwkv6_scan_bwd_launch.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i,
+        i, i, i, i, ll, i, vp]
     lib.masked_act_error_string.restype = ctypes.c_char_p
     lib.masked_act_error_string.argtypes = [i]
 

@@ -12,10 +12,11 @@ to the kernel as a stride-0 view, so the ``(N, B, ...)`` broadcast is never
 written.
 
 Gradients: the un-stacked gate (:func:`masked_act`,
-:func:`masked_act_sited`) goes through :class:`MaskedActFn` whenever
-autograd is recording and an input requires a gradient, on the CPU and the
-card alike, so the CPU tests exercise the backward rule the card runs.
-Every other entry raises in that case (``masked_act.refuse_grad``): no
+:func:`masked_act_sited`) goes through :class:`MaskedActFn`, and the RWKV-6
+scan (:func:`rwkv6`) through :class:`RWKV6ScanFn`, whenever autograd is
+recording and an input requires a gradient, on the CPU and the card alike,
+so the CPU tests exercise the backward rule the card runs.  Every stacked
+or fused entry raises in that case (``masked_act.refuse_grad``): no
 training path stacks candidates or fuses the gate into a product.
 """
 from __future__ import annotations
@@ -222,6 +223,44 @@ def masked_act_matmul_batched(x, masks, w, mul=None, *, kind: str = "relu"):
     return out.view(tuple(x.shape[:-1]) + (w.shape[-1],))
 
 
+class RWKV6ScanFn(torch.autograd.Function):
+    """The RWKV-6 scan over (BH, T, K/V) with its gradient for r, k, v, w,
+    u and the initial state.
+
+    Forward: :func:`rwkv6_scan.rwkv6_scan` (route C) on a CUDA tensor, the
+    chunked plain version ``ref.rwkv6_scan_ref`` — the reference's
+    arithmetic — on a CPU one.  Backward: :func:`rwkv6_scan.rwkv6_scan_bwd`
+    (``rwkv6_scan_bwd_kernel``) on a CUDA tensor, ``ref.rwkv6_scan_bwd_ref``
+    on a CPU one: the exact recurrence walked backward from saved states,
+    which divides by no decay.  u's gradient comes in u's own shape, an
+    (H, K) table's summed over each head's rows.  float32 only."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state, chunk):
+        if r.dtype != torch.float32:
+            raise TypeError(f"RWKV6ScanFn: the scan's gradient is float32 "
+                            f"only, got {r.dtype}")
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        if r.is_cuda:
+            return RS.rwkv6_scan(r, k, v, w, u, state, chunk=chunk)
+        return ref.rwkv6_scan_ref(r, k, v, w, u, state, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy, ds_end):
+        r, k, v, w, u, state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(r.shape[:2] + v.shape[-1:], dtype=r.dtype,
+                             device=r.device)
+        if r.is_cuda:
+            grads = RS.rwkv6_scan_bwd(r, k, v, w, u, state, dy, ds_end,
+                                      need_ds0=ctx.needs_input_grad[5])
+        else:
+            grads = ref.rwkv6_scan_bwd_ref(r, k, v, w, u, state, dy, ds_end)
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad[:6])) + (None,)
+
+
 def rwkv6(r, k, v, w, u, state, *, chunk: int = 32):
     """The RWKV-6 linear-attention scan over (BH, T, K/V), float32.
 
@@ -230,8 +269,11 @@ def rwkv6(r, k, v, w, u, state, *, chunk: int = 32):
     (BH, T, V) and the new state.  T must be a multiple of ``chunk``, as
     in the reference.  A CPU tensor takes the chunked plain version, a
     CUDA tensor the hand-written kernel of the route
-    ``rwkv6_scan.scan_route`` picks (``csrc/rwkv6_scan_sm90.cu``)."""
-    K.refuse_grad("rwkv6", r, k, v, w, u, state)
+    ``rwkv6_scan.scan_route`` picks (``csrc/rwkv6_scan_sm90.cu``).  Under
+    autograd (an input requires grad) the scan runs as
+    :class:`RWKV6ScanFn`."""
+    if ref.recording(r, k, v, w, u, state):
+        return RWKV6ScanFn.apply(r, k, v, w, u, state, chunk)
     if not r.is_cuda:
         return ref.rwkv6_scan_ref(r, k, v, w, u, state, chunk=chunk)
     return RS.rwkv6_scan(r, k, v, w, u, state, chunk=chunk)

@@ -353,6 +353,58 @@ def rwkv6_serial_ref(r, k, v, w, u, state):
     return torch.stack(ys, dim=1), S
 
 
+def rwkv6_scan_bwd_ref(r, k, v, w, u, state, dy, ds_end=None):
+    """The plain version of the scan's backward (``csrc/rwkv6_scan_bwd.cu``,
+    which the reference has no counterpart of: it differentiates its jnp
+    scan).  The exact recurrence, walked backward with dS carried::
+
+      dS_{t-1} = diag(w_t) dS_t + r_tᵀ dy_t
+      dr_t = dy_t S_{t-1}ᵀ + (dy_t·v_t)(u⊙k_t)
+      dk_t = dS_t v_tᵀ + (dy_t·v_t)(u⊙r_t)
+      dv_t = k_t dS_t + (r_t·(u⊙k_t)) dy_t
+      dw_t = Σ_v dS_t ⊙ S_{t-1}
+      du  += (dy_t·v_t)(r_t⊙k_t)
+
+    with each S_{t-1} saved on the way forward, never recovered by dividing
+    by a decay.  Shapes as :func:`rwkv6_scan_ref`, plus dy (BH, T, V) and
+    ``ds_end`` (BH, K, V) or None (no gradient reaches the final state).
+    Returns ``(dr, dk, dv, dw, du, ds0)`` in the inputs' dtype: du in u's
+    own shape — an (H, K) table's rows summed over the rows bh of each head
+    h = bh % H, in increasing bh — and ds0 (BH, K, V)."""
+    bh, T, K = r.shape
+    V = v.shape[-1]
+    ur = _rwkv6_u_rows(u, bh)
+    S = state.expand(bh, K, V)
+    prev = []                      # S_{t-1} for every t
+    for t in range(T):
+        prev.append(S)
+        S = w[:, t, :, None] * S + k[:, t, :, None] * v[:, t, None, :]
+    dS = torch.zeros((bh, K, V), dtype=r.dtype, device=r.device) \
+        if ds_end is None else ds_end.expand(bh, K, V).clone()
+    dr, dk, dw = (torch.empty_like(r) for _ in range(3))
+    dv = torch.empty_like(v)
+    du_rows = torch.zeros((bh, K), dtype=r.dtype, device=r.device)
+    for t in range(T - 1, -1, -1):
+        rt, kt, vt, wt, dyt = r[:, t], k[:, t], v[:, t], w[:, t], dy[:, t]
+        sp = prev[t]
+        dyv = (dyt * vt).sum(-1, keepdim=True)
+        uk = ur * kt
+        b = (rt * uk).sum(-1, keepdim=True)
+        dr[:, t] = (sp @ dyt[..., None])[..., 0] + dyv * uk
+        dk[:, t] = (dS @ vt[..., None])[..., 0] + dyv * (ur * rt)
+        dv[:, t] = (kt[:, None, :] @ dS)[:, 0] + b * dyt
+        dw[:, t] = (dS * sp).sum(-1)
+        du_rows = du_rows + dyv * (rt * kt)
+        dS = wt[..., None] * dS + rt[..., None] * dyt[:, None, :]
+    if u.shape[0] == bh:
+        du = du_rows
+    else:
+        du = du_rows[:u.shape[0]].clone()
+        for b0 in range(u.shape[0], bh, u.shape[0]):
+            du = du + du_rows[b0:b0 + u.shape[0]]
+    return dr, dk, dv, dw, du, dS
+
+
 # route C's chunk (``csrc/rwkv6_scan_sm90.cu`` kC): two sub-blocks of 8
 SCAN_TF32X3_CHUNK = 16
 _SCAN_SUB = 8

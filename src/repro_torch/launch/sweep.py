@@ -377,7 +377,9 @@ def run_sweep(
     warm start (e.g. ``SNLResult.stage_init()``) — is required on the first
     run and ignored afterwards: the persisted ``out_dir/init`` checkpoint
     wins, so resumed sweeps never drift from the original warm start.
-    ``params_io`` and ``finetune`` follow the
+    With ``params_io``, ``init["params"]`` is handed to it and removed from
+    ``init``: the caller's dict keeps no second copy of the parameters
+    alive through the sweep.  ``params_io`` and ``finetune`` follow the
     :class:`~repro_torch.core.runner.BCDRunner` contract.  ``notes`` is
     stored verbatim in the artifact.
 
@@ -453,12 +455,18 @@ def _run_stages(sweep_cfg, make_bcd_cfg, eval_acc, init, finetune, evaluator,
         start = runner_lib.load_stage_init(
             init_path, init["masks"], params_template=params_template,
             device=device)
+    # the template's structure was all the restore needed
+    del params_template
     b_init = M.relu_cost(start["masks"])
     sweep_cfg.validate(b_init)
 
     masks = start["masks"]
     if params_io is not None and start.get("params") is not None:
-        params_io[1](start["params"])
+        # handed over, not kept: the live parameters are params_io's alone
+        # (a full-width model has no room for a second copy on the card),
+        # so the caller's ``init`` lets go of its warm start too
+        init.pop("params", None)
+        params_io[1](start.pop("params"))
 
     stages: List[dict] = []
     reporter = _StageReporter(sweep_cfg, stages, stage_finetune, stage_eval,
@@ -550,6 +558,7 @@ def _sweep_stages(sweep_cfg, make_bcd_cfg, eval_acc, finetune, evaluator,
             # stage unscored — finish the reporting tail on resume
             if is_writer and reporter.scores and "test_acc" not in stage:
                 reporter.submit(i, stage, done["masks"], done["params"])
+            done = None         # the live parameters are params_io's alone
             # no full artifact rewrite here: nothing new happened, and
             # clobbering a complete artifact with a partial one would
             # open a crash window on an otherwise-finished sweep
@@ -606,6 +615,10 @@ def _sweep_stages(sweep_cfg, make_bcd_cfg, eval_acc, finetune, evaluator,
                 stage = json.load(f)
             with reporter.lock:
                 stages.append(stage)
+        # the next stage's finetunes replace the live parameters: this
+        # stage's must not stay alive beside them (on the card a second
+        # copy of a full-width model does not fit)
+        params_now = None
         if sweep_cfg.verbose:
             print(f"[sweep] stage {i} done: b={budget} "
                   f"fingerprint={stage['mask_fingerprint'][:12]}")

@@ -313,6 +313,11 @@ class LM:
         else:
             positions = _positions(x.shape[0], x.shape[1], cache_len,
                                    x.device)
+        # a stacked block's parameter rows, unbound once a fold: the
+        # gradient of ``torch.unbind`` is one stack, where indexing row by
+        # row (``_index``) would add a zero-padded full-size gradient a
+        # repeat
+        rows = {}
         for seg in range(max(lo, 1), hi):
             if seg <= H:
                 i = seg - 1
@@ -324,7 +329,10 @@ class LM:
                 r = seg - 1 - H
                 for pos, blk in enumerate(cfg.pattern):
                     lp = params["stack"][str(pos)]
-                    lp = lp if blk.shared else _index(lp, r)
+                    if not blk.shared:
+                        if pos not in rows:
+                            rows[pos] = _unbind(lp)
+                        lp = rows[pos][r]
                     lc = None if cache is None \
                         else _index(cache["stack"][str(pos)], r)
                     x = self._layer_apply(blk, lp, x, masks, f"s{pos}", opt,
@@ -692,6 +700,16 @@ def _stack_trees(trees):
         return tuple(_stack_trees([t[i] for t in trees])
                      for i in range(len(first)))
     return torch.stack(trees)
+
+
+def _unbind(tree) -> list:
+    """Every row of a stacked parameter tree: a list of trees of views, one
+    ``torch.unbind`` a leaf."""
+    if isinstance(tree, dict):
+        per = {k: _unbind(v) for k, v in tree.items()}
+        n = len(next(iter(per.values())))
+        return [{k: v[r] for k, v in per.items()} for r in range(n)]
+    return list(torch.unbind(tree))
 
 
 def _index(tree, r: int):

@@ -20,7 +20,13 @@ Two details make the port route as the reference does, bit for bit:
 
 The combine is a gather per (token, k) and a sum over k in k order, never a
 duplicate-index scatter-add, so stacked and one-at-a-time evaluation of
-candidates sum in the same order.  The routed experts' gate is the mask
+candidates sum in the same order.  The dispatch reads each token's row
+once per (token, k) pair from a copy repeated k times
+(:func:`_pair_rows`), so its backward sums a token's k gradients in a
+fixed order: gathering the token's row k times would make the backward a
+duplicate-index scatter-add, whose float atomics on the card sum in
+another order from run to run, and the finetunes would not repeat bit for
+bit.  The routed experts' gate is the mask
 site ``moe``, of shape (E, F): the (…, E, C, F) gate input is laid out as
 (…, C, E, F), rows of E·F columns, for ``linearize.apply_masked_act``
 (kernels 1 and 2 on the card).  The shared expert is a gated FFN through
@@ -135,15 +141,25 @@ def _route(logits, c: MoECfg, C: int):
                                                          c.top_k)
 
 
+def _pair_rows(x, k: int):
+    """Rows x (…, S, d) repeated k times a token: (…, S·k, d) in (token,
+    k) order.  Its backward sums each token's k gradients (a reduction in
+    fixed order)."""
+    return x.unsqueeze(-2).expand(*x.shape[:-1], k, x.shape[-1]) \
+        .flatten(-3, -2)
+
+
 def _dispatch_row(x, logits, c: MoECfg, C: int):
     """Rows x (…, S, d) and their logits (…, S, E) -> the slot tensor
     (…, E·C, d), kept tokens' rows in their slots and zeros elsewhere, and
     the bookkeeping ``(gates, slot_tk, keep_tk)`` in (token, k) order."""
     *lead, S, d = x.shape
     gates, eidx = _top_k(logits, c)
-    order, st, keep, slot = _sorted_slots(eidx, c, C)
+    order, _, keep, slot = _sorted_slots(eidx, c, C)
     EC = c.n_experts * C
-    rows = torch.gather(x, -2, st[..., None].expand(*st.shape, d))
+    # sorted pair i reads copy order[i] (of token order[i] // k), once
+    rows = torch.gather(_pair_rows(x, c.top_k), -2,
+                        order[..., None].expand(*order.shape, d))
     rows = torch.where(keep[..., None], rows, 0)
     # duplicate indices occur only at the overflow slot, where every write
     # is zeros: the scatter's result does not depend on their order
@@ -153,6 +169,20 @@ def _dispatch_row(x, logits, c: MoECfg, C: int):
     book = (gates, _unsort(order, slot).reshape(*lead, S, k),
             _unsort(order, keep).reshape(*lead, S, k))
     return xg[..., :EC, :], book
+
+
+def _slot_pairs(slot_tk, EC: int):
+    """Each slot's (token, k) pair, from each pair's slot (…, S, k) (EC
+    where it was dropped): (…, EC), S·k for an empty slot."""
+    *lead, S, k = slot_tk.shape
+    n = S * k
+    flat = slot_tk.reshape(*lead, n)
+    pairs = torch.arange(n, device=flat.device).expand(*lead, n)
+    # a dropped pair writes past the slot table, to an entry of its own
+    spill = torch.where(flat < EC, flat, EC + pairs)
+    out = torch.full((*lead, EC + n), n, dtype=torch.int64,
+                     device=flat.device)
+    return out.scatter_(-1, spill, pairs)[..., :EC]
 
 
 def _combine_row(y_slots, book, S: int, d: int):
@@ -222,10 +252,12 @@ def moe_ffn(p, c: MoECfg, x, mask, site: linearize.MaskSite,
     logits = rows.to(torch.float32) @ p["router"]
     E = c.n_experts
     if c.dispatch == "gather":
-        gates, slot_src, slot_tk = _route(logits, c, C)
-        xpad = torch.cat([rows, rows.new_zeros((rows.shape[0], 1, d))], 1)
-        src = slot_src[:, :-1, None].expand(-1, E * C, d)
-        xe = torch.gather(xpad, 1, src)
+        gates, _, slot_tk = _route(logits, c, C)
+        # each slot reads its pair's copy of the token's row (_pair_rows)
+        pairs = _pair_rows(rows, c.top_k)
+        ppad = torch.cat([pairs, pairs.new_zeros((rows.shape[0], 1, d))], 1)
+        src = _slot_pairs(slot_tk, E * C)[..., None].expand(-1, E * C, d)
+        xe = torch.gather(ppad, 1, src)
         book = (gates, slot_tk, slot_tk < E * C)
     elif c.dispatch == "scatter":
         xe, book = _dispatch_row(rows, logits, c, C)

@@ -91,7 +91,8 @@ def random_masks(sites, seed, density=0.6):
 
 
 def test_port_imports_neither_jax_nor_reference_package():
-    """Every module of the port imports with ``jax`` and ``repro`` blocked."""
+    """Every module of the port, and every ``examples/torch_*.py``, imports
+    with ``jax`` and ``repro`` blocked."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "repro"):
@@ -113,14 +114,22 @@ def test_port_imports_neither_jax_nor_reference_package():
                 "repro_torch.core.pi_cost"} <= set(names), names
         for n in names:
             importlib.import_module(n)
+        # and the port's examples, as modules (their main() not run)
+        import glob, importlib.util, os
+        for path in sorted(glob.glob(os.path.join(EXAMPLES,
+                                                  "torch_*.py"))):
+            spec = importlib.util.spec_from_file_location(
+                os.path.basename(path)[:-3], path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "repro")
                and sys.modules[m] is not None]
         assert not bad, bad
         print("imported", len(names))
     """)
-    src = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "src")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    src = os.path.join(root, "src")
+    code = f"EXAMPLES = {os.path.join(root, 'examples')!r}\n" + code
     env = dict(os.environ, PYTHONPATH=src)
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True)

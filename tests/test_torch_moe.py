@@ -18,7 +18,12 @@ parameters come from the reference's ``moe_init`` and are converted with
   within 1e-5 of the reference;
 - stacked against one-at-a-time candidates, bit for bit, under overflow:
   the port's counterpart of the reference's
-  ``test_moe_routing_stacked_vs_sequential_bitwise_under_overflow``.
+  ``test_moe_routing_stacked_vs_sequential_bitwise_under_overflow``;
+- the backward under both dispatch modes: every gather of the graph reads
+  each source row at most once, bar a zero padding row (so no backward is
+  a duplicate-index scatter-add, whose float atomics sum in a varying
+  order on the card); the gradients within 1e-5 of the largest of
+  ``jax.grad`` of the reference's, and the two modes' the same bits.
 """
 import numpy as np
 import pytest
@@ -198,6 +203,86 @@ def test_stacked_vs_sequential_bitwise_under_overflow(dispatch):
     _, _, slot_tk = moe._route(logits, tc, moe._capacity(tc, S))
     assert bool((slot_tk == tc.n_experts * moe._capacity(tc, S)).any()), \
         "the setup no longer overflows capacity"
+
+
+def _gathers(root):
+    """Every ``GatherBackward0`` node of the autograd graph under root."""
+    seen, todo, out = set(), [root], []
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if type(node).__name__ == "GatherBackward0":
+            out.append(node)
+        todo.extend(n for n, _ in node.next_functions)
+    return out
+
+
+@pytest.mark.parametrize("dispatch", ["scatter", "gather"])
+def test_backward_reads_each_row_once(dispatch):
+    from repro_torch.core import linearize as TL
+    from repro_torch.models import moe
+    ref, rc, tc = _cfgs(dispatch, shared=True, capacity_factor=0.75)
+    rp, tp = _params(ref, rc, skew=1.0)
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, 32, 16)).astype(np.float32)
+    w = rng.normal(size=(2, 32, 16)).astype(np.float32)
+    mask = (rng.random((4, 8)) < 0.6).astype(np.float32)
+    smask = (rng.random((12,)) < 0.6).astype(np.float32)
+    j = ref.jnp.asarray
+
+    def rloss(p, xx):
+        y = ref.moe.moe_ffn(p, rc, xx, j(mask),
+                            ref.linearize.MaskSite((4, 8), "silu"),
+                            shared_mask=j(smask),
+                            shared_site=ref.linearize.MaskSite((12,),
+                                                               "silu"))
+        return ref.jnp.sum(y * j(w))
+    want = ref.jax.tree.leaves(to_numpy_tree(
+        ref.jax.grad(rloss, argnums=(0, 1))(rp, j(x))))
+
+    def grads(cfg):
+        p = {k: (v.clone().requires_grad_() if not isinstance(v, dict)
+                 else {kk: vv.clone().requires_grad_()
+                       for kk, vv in v.items()}) for k, v in tp.items()}
+        xx = torch.from_numpy(x).requires_grad_()
+        y = moe.moe_ffn(p, cfg, xx, torch.from_numpy(mask),
+                        TL.MaskSite((4, 8), "silu"),
+                        torch.from_numpy(smask), TL.MaskSite((12,), "silu"))
+        loss = torch.sum(y * torch.from_numpy(w))
+        for node in _gathers(loss.grad_fn):
+            idx = node._saved_index
+            dim = node._saved_dim       # read back as an unsigned int64
+            dim = (dim - 2 ** 64 if dim >= 2 ** 63 else dim) % idx.dim()
+            src = node._saved_self
+            n = src.shape[dim]
+            rows = idx.movedim(dim, -1)[..., 0, :] if idx.dim() > 2 \
+                else idx
+            rows = rows.reshape(-1, rows.shape[-1])
+            for r in rows:
+                real = r[r < n - 1]
+                assert real.unique().numel() == real.numel(), \
+                    "a gather reads a row twice: its backward adds atomically"
+                if (r == n - 1).sum() > 1:      # the zero padding row
+                    assert not src.select(dim, n - 1).any()
+        torch.autograd.backward(loss)
+        leaves = [p[k].grad if not isinstance(p[k], dict)
+                  else [p[k][kk].grad for kk in sorted(p[k])]
+                  for k in sorted(p)]
+        flat = []
+        for v in leaves:
+            flat.extend(v if isinstance(v, list) else [v])
+        return flat + [xx.grad]
+    got = grads(tc)
+    assert len(got) == len(want)
+    for g, wv in zip(got, want):
+        assert tuple(g.shape) == wv.shape
+        scale = float(np.abs(wv).max())
+        assert float(np.abs(g.numpy() - wv).max()) <= 1e-5 * scale
+    other = moe.MoECfg(**{**tc.__dict__, "dispatch": "gather"
+                          if dispatch == "scatter" else "scatter"})
+    assert all(torch.equal(a, b) for a, b in zip(got, grads(other)))
 
 
 def test_decode_step_routes_every_pair():

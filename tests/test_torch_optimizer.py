@@ -113,3 +113,36 @@ def test_tree_helpers_keep_structure_and_sorted_leaf_order():
     assert isinstance(out["a"], list)
     np.testing.assert_array_equal(out["a"][1].numpy(), [3., 3., 3.])
     assert tree["b"][0] == 1.0                     # nothing in place
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_leaf_by_leaf_step_equals_update_and_apply_bitwise(case):
+    """``step_leaves`` — the in-place, leaf-by-leaf step the training loops
+    take so that a model's parameters, gradients and moments fit the card —
+    gives the bits of ``opt.update`` + ``apply_updates`` over whole trees,
+    step after step, moments included; each gradient entry is dropped."""
+    from repro_torch.training import optimizer as topt
+    kind, kw = CASES[case]
+    opt = _make(topt, kind, kw)
+    rng = np.random.default_rng(11)
+    params = topt.tree_map(torch.from_numpy, _tree(rng))
+    state = opt.init(params)
+    leaves = topt.tree_leaves(params)
+    lstate = opt.init(leaves)
+    for _ in range(6):
+        grads = topt.tree_map(torch.from_numpy, _tree(rng, scale=3.0))
+        updates, state = opt.update(grads, state, params)
+        params = topt.apply_updates(params, updates)
+        glist = topt.tree_leaves(grads)
+        same_list = leaves
+        leaves, lstate = topt.step_leaves(opt, glist, lstate, leaves)
+        assert leaves is same_list and glist == [None] * len(glist)
+        assert lstate.step == state.step
+        for want, got in zip(topt.tree_leaves(params), leaves):
+            assert torch.equal(want, got)
+        for mine, theirs in ((lstate.mu, state.mu), (lstate.nu, state.nu)):
+            if theirs is None:
+                assert mine is None
+                continue
+            for want, got in zip(topt.tree_leaves(theirs), mine):
+                assert torch.equal(want, got)

@@ -10,8 +10,10 @@ counts lose no update across threads); an impure
 ``eval_test`` is refused with ``overlap``; a resume scores an unscored stage
 without truncating the artifact; bad schedules are refused; a real SIGKILL
 mid-stage resumes bit-identically.  Across packages: the same toy sweep
-gives the reference's stages and artifact keys.  End to end: the example's
-``--sweep`` mode at mini size, serial, overlapped, and killed + resumed.
+gives the reference's stages and artifact keys.  The warm start's
+parameters leave the caller's ``init`` once handed over.  End to end: the
+example's ``--sweep`` mode at mini size, serial, overlapped, and killed +
+resumed.
 """
 import json
 import os
@@ -88,6 +90,21 @@ def test_sweep_descends_warm_started_and_resumes(tmp_path):
     assert [s["mask_fingerprint"] for s in res2["stages"]] == \
         [s["mask_fingerprint"] for s in res["stages"]]
     assert res2["notes"]["auto_prefetch"] == {"prefetch": 2}
+    assert isinstance(holder["params"]["w"], torch.Tensor)
+
+
+def test_sweep_takes_the_warm_start_from_the_callers_init(tmp_path):
+    """With ``params_io``, the warm start's parameters are handed to it and
+    leave the caller's ``init``: nothing but the live parameters keeps them
+    alive through the sweep (a full-width model has no room for a second
+    copy on the card).  The masks stay, and a resume with that ``init``
+    restores the persisted warm start all the same."""
+    holder, pio, cfg, mk, init = _sweep_ctx(tmp_path)
+    res = _run(cfg, mk, init, pio, eval_test=_toy_eval_acc)
+    assert "params" not in init and set(init) == {"kind", "masks"}
+    res2 = _run(cfg, mk, init, pio, eval_test=_toy_eval_acc)
+    assert [s["mask_fingerprint"] for s in res2["stages"]] == \
+        [s["mask_fingerprint"] for s in res["stages"]]
     assert isinstance(holder["params"]["w"], torch.Tensor)
 
 

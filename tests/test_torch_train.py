@@ -332,8 +332,9 @@ def test_raw_kernel_wrappers_refuse_grad_before_anything_else():
         lambda: ops.masked_act_matmul(x, m, torch.zeros(8, 3)),
         lambda: ops.masked_act_matmul_batched(x[None], m[None],
                                               torch.zeros(8, 3)),
-        lambda: ops.rwkv6(*(torch.zeros(2, 4, 3, requires_grad=True),) * 4,
-                          torch.zeros(2, 3), torch.zeros(2, 3, 3), chunk=4),
+        lambda: RS.rwkv6_scan_bwd(
+            *(torch.zeros(2, 4, 3, requires_grad=True),) * 4,
+            torch.zeros(2, 3), torch.zeros(2, 3, 3), torch.zeros(2, 4, 3)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="requires grad"):
@@ -342,6 +343,10 @@ def test_raw_kernel_wrappers_refuse_grad_before_anything_else():
     with torch.no_grad():
         ops.masked_act_batched(x[None], m[None])
         ops.masked_act_conv3x3(img, torch.ones(4, 4, 2), w3)
+    # the scan's ops entry has a gradient (kernels.ops.RWKV6ScanFn)
+    y, _ = ops.rwkv6(*(torch.ones(2, 4, 3, requires_grad=True),) * 4,
+                     torch.zeros(2, 3), torch.zeros(2, 3, 3), chunk=4)
+    assert type(y.grad_fn).__name__ == "RWKV6ScanFnBackward"
     with pytest.raises(RuntimeError, match="requires grad"):
         K.refuse_grad("k", None, torch.zeros(1, requires_grad=True))
     K.refuse_grad("k", None, torch.zeros(1))
