@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from the sources in this checkout, holds each one
 against its plain PyTorch version on the card, and drives the port's five
-paths, BCD candidate evaluation through ``bcd.run_bcd`` with the
+model paths, BCD candidate evaluation through ``bcd.run_bcd`` with the
 sequential, batched, pipelined and suffix engines:
 
   1. masked-ReLU ResNet18 at full CIFAR width (``forward``, ``bcd``,
@@ -62,10 +62,29 @@ logits held against the uncached forward; one decode tick timed and
 profiled; and the reduced chaos drill (virtual clock, chaos plan, queue
 bound, ladder, deadlines) on the card and on the CPU, whose decision
 fingerprints, tokens and bills must be equal.
+Then training the LM families (``<tag>_family_sweep`` lines,
+``--only-family`` alone): RWKV-6 3B's train-step gradients on the card
+against the CPU's, then ``examples/torch_family_bcd_sweep.py``'s own
+functions at the published widths — RWKV-6 3B on 8 of its 32 repeats,
+DeepSeek-MoE-16B on 4 of its 28 layers, Zamba2-2.7B — train → SNL → a
+budget sweep on two engines, whose stages and losses must agree.
+Then training an LM (``lm_train`` line, ``--only-lm-train`` alone):
+StableLM-2-1.6B at its published widths in float32 through the launcher's
+own ``launch.train.run`` (8 steps of 8 x 128 tokens, remat, AdamW +
+cosine, one checkpoint of parameters and moments); from its final state,
+gradients and a step with remat on and off (equal to the bit), a step with
+``loss_chunk`` against the whole sequence, the card's
+``quantize_grads_int8`` against the CPU's and a 2-layer cut's gradients
+against the CPU's; a profiled step; the supervisor drill at reduced width
+(a failure injected at step 13 gives the bits of an uninterrupted run, a
+rerun with more steps resumes); and ``examples/torch_train_lm.py`` at its
+defaults (one restart, BCD on the batched engine: kernel 2).
 
-Each path runs with the launch counts set to 0 just before it and read just
-after; the script checks that each went through its kernels and that the
-engines select identical blocks.
+Every phase line carries its ``seconds``; a ``disk_writes`` line sums the
+bytes of the checkpoints this process wrote (the machine allows 45 GiB of
+disk writes a run).  Each path runs with the launch counts set to 0 just
+before it and read just after; the script checks that each went through
+its kernels and that the engines select identical blocks.
 
 Output: one JSON object per line (``env``, ``build``, ``kernel_cases``, the
 path lines above), then the card's name and power limit as ``nvidia-smi``
@@ -129,6 +148,14 @@ Tolerances (stated again in the output):
     strong decay (w down to 2e-9) the plain version is not finite, and
     route C must be finite with its error against float64 within 4x route
     S's.
+  * LM training (``lm_train``): remat on vs off, gradients, parameters,
+    moments and metrics equal to the bit (the recomputation runs the same
+    operations on the same inputs); ``loss_chunk`` vs the whole sequence,
+    the loss within 1e-5 and ``grad_norm`` within 1e-3 relative (the
+    reference's own test); ``quantize_grads_int8``, card vs CPU, equal to
+    the bit; card vs CPU gradients, each leaf's relative L2 error <= 1e-3,
+    as the family path's; the supervisor drill's final state equal to the
+    bit to an uninterrupted run's.
   * LM logits: 1e-3 absolute, the same comparisons — 24 to 54 layers of
     sums of up to 10944 products in other orders; logits are O(1) and a
     float32 sum of that length is off by about 1e-5 relative.  The
@@ -251,6 +278,10 @@ PATH_KERNELS = {
     "family_sweep": ("masked_act_2d", "masked_act_2d_bwd",
                      "masked_act_2d_batched", "rwkv6_scan",
                      "rwkv6_scan_bwd", "masked_act_matmul_2d_batched"),
+    # the LM train step (gate and its backward), the example's BCD pass on
+    # the batched engine (kernel 2)
+    "lm_train": ("masked_act_2d", "masked_act_2d_bwd",
+                 "masked_act_2d_batched"),
 }
 # kernels with no TPU counterpart
 PORT_ONLY = {"masked_act_2d_bwd": "the gradient of kernel 1 (the reference "
@@ -1657,9 +1688,13 @@ def grad_check(model, params, masks, bn, device="cuda"):
 
 
 def _leaf_names(tree, prefix=""):
-    """The tree with each leaf replaced by its dotted path (a str leaf)."""
+    """The tree with each leaf replaced by its dotted path (a str leaf); a
+    list's items by index, so an empty list holds no leaf, as in
+    ``optimizer.tree_leaves``."""
     if isinstance(tree, dict):
         return {k: _leaf_names(v, f"{prefix}{k}.") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_leaf_names(v, f"{prefix}{i}.") for i, v in enumerate(tree)]
     return prefix[:-1]
 
 
@@ -1801,6 +1836,7 @@ def run_train_path(by_path, device="cuda", cfg=None):
         return train.cross_entropy(logits, batch["labels"]), 0.0
 
     build.reset_launch_counts()
+    t_phase = time.perf_counter()
     grads = grad_check(model, params0, rand_masks, bn, device)
 
     # ---- the step: time with and without deterministic algorithms
@@ -1837,6 +1873,8 @@ def run_train_path(by_path, device="cuda", cfg=None):
     losses = [float(x) for x in losses]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"train: train_base's loss did not fall: {losses}")
+    seconds = {"train": time.perf_counter() - t_phase}
+    t_phase = time.perf_counter()
 
     # ---- SNL to B_ref, then the finetune twice
     alphas = {k: np.ones(v.shape, np.float32) for k, v in masks0.items()}
@@ -1875,7 +1913,9 @@ def run_train_path(by_path, device="cuda", cfg=None):
         alpha_mean=float(np.mean(np.concatenate(
             [v.ravel() for v in res.alphas.values()]))),
         finetune_repeat_bit_identical=same,
-        test_acc_at_b_ref=float(test_acc_fn(ft[0], res.masks)))
+        test_acc_at_b_ref=float(test_acc_fn(ft[0], res.masks)),
+        seconds=time.perf_counter() - t_phase)
+    t_phase = time.perf_counter()
 
     # ---- BCD from B_ref with finetuning between steps, two engines
     drc, rt, chunk = 100, 16, 8
@@ -1935,7 +1975,8 @@ def run_train_path(by_path, device="cuda", cfg=None):
         images_per_s=TRAIN_BATCH / ms * 1e3,
         profile=prof,
         train_base=dict(stages["train_base"], loss_first=losses[0],
-                        loss_last=losses[-1]))
+                        loss_last=losses[-1]),
+        seconds=seconds["train"])
     pipeline_line = dict(
         stages={"train_base": stages["train_base"], "snl": stages["snl"],
                 "finetune": stages["finetune"],
@@ -1943,7 +1984,7 @@ def run_train_path(by_path, device="cuda", cfg=None):
         bcd=dict(b_ref=b_ref, b_target=b_ref - drc * TRAIN_BCD_STEPS,
                  drc=drc, rt=rt, adt=-100.0, chunk_size=chunk,
                  finetune_steps=FT_STEPS, runs=runs),
-        engines_identical=True)
+        engines_identical=True, seconds=time.perf_counter() - t_phase)
     return train_line, snl_line, pipeline_line
 
 
@@ -3013,16 +3054,23 @@ def run_lm_path(spec, by_path, device="cuda"):
     if cuda:
         memory["after_init_max_allocated"] = torch.cuda.max_memory_allocated()
     batch, batch_info = make_lm_batch(model, params, SEED, spec, device)
+    batch_info["seconds"] = time.perf_counter() - t0
     emit({f"{spec.tag}_batch": batch_info})
     build.reset_launch_counts()
+    t0 = time.perf_counter()
     forward = run_lm_forward(model, params, batch, SEED, spec, device)
     if family and cuda:
         forward["profile"] = profile_forwards(model, params, batch, SEED)
+    forward["seconds"], t0 = time.perf_counter() - t0, time.perf_counter()
     bcd_report = run_lm_bcd(model, params, batch, LM_STEPS, spec.drc, spec,
                             device)
+    bcd_report["seconds"], t0 = time.perf_counter() - t0, time.perf_counter()
     sited = run_lm_sited(model, params, batch, LM_SITED_DRC, spec, device)
+    sited["seconds"], t0 = time.perf_counter() - t0, time.perf_counter()
     served = run_family_serve(model, params, spec, device) if family \
         else None
+    if served is not None:
+        served["seconds"] = time.perf_counter() - t0
     by_path[spec.arch] = counts()
     if cuda:
         memory["max_allocated"] = torch.cuda.max_memory_allocated()
@@ -3401,11 +3449,18 @@ class FamilySweep:
 
 
 FAMILY_SWEEPS = (
-    FamilySweep(LM_PATHS[1], ("batched", "suffix")),
+    # 8 of 32 repeats at the published width (4.1 GB; the depth of the
+    # RWKV-6 LM path's card-vs-CPU check): the script's time and the
+    # machine's 45 GiB of disk writes a run.  Full depth wrote and read
+    # back a 12.4 GB warm start (24.3 s and ~34 s) and ran two host-bound
+    # sweeps of 65-67 s; the LM training phase after it writes a 17.3 GB
+    # train state
+    FamilySweep(LM_PATHS[1], ("batched", "suffix"), layers=8),
     # AdamW's state for all 16.2 B parameters (~259 GB with the gradients
-    # and the parameters) fits no single card: the dense head block and 4
-    # MoE repeats, ~10.7 GB
-    FamilySweep(FAMILY_PATHS[0], ("batched", "suffix"), layers=5),
+    # and the parameters) fits no single card: the dense head block and 3
+    # MoE repeats, ~8.2 GB (4 repeats until the LM training phase's 17.3 GB
+    # checkpoint came: the disk writes again)
+    FamilySweep(FAMILY_PATHS[0], ("batched", "suffix"), layers=4),
     # at the example's learning rates (tuned on the reduced configs),
     # SNL's SGD at 1e-2 turned the full-width model's loss to NaN in its
     # first epoch (10.88 after training; measured on one H100)
@@ -3907,9 +3962,11 @@ def family_cuts(fam, model) -> list:
     if fam.layers:
         from repro_torch.configs import get_config
         full = get_config(fam.spec.arch).n_layers
-        cuts.append(f"{fam.layers} of {full} layers: the dense head block "
-                    f"and {fam.layers - len(model.cfg.head_blocks)} MoE "
-                    "repeats")
+        heads = len(model.cfg.head_blocks)
+        what = f"the dense head block and {fam.layers - heads} MoE " \
+            "repeats" if heads else f"{fam.layers} repeats"
+        cuts.append(f"{fam.layers} of {full} layers: {what} (the script's "
+                    "time and its disk writes)")
     if fam.spec.w_o_scale != 1.0:
         cuts.append(f"recurrent output projections drawn at "
                     f"{fam.spec.w_o_scale} of the init's scale")
@@ -3935,8 +3992,8 @@ def run_family_path(by_path, device="cuda", only=None):
     of GB of checkpoints at full width), removed at the end."""
     import shutil
     ex = load_family_example()
-    # what the earlier paths left behind goes before 12.4 GB of parameters
-    # and their AdamW state arrive
+    # what the earlier paths left behind goes before the families'
+    # parameters and their AdamW state arrive
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
@@ -3954,8 +4011,10 @@ def run_family_path(by_path, device="cuda", only=None):
         for fam in FAMILY_SWEEPS:
             if only is not None and fam.spec.tag != only:
                 continue
+            t0 = time.perf_counter()
             with scaled_learning_rates(ex, fam.lr_scale):
                 line, launches = run_family_sweep(fam, ex, root, device)
+            line["seconds"] = time.perf_counter() - t0
             emit({f"{fam.spec.tag}_family_sweep": line})
             lines.append(line)
             total = launches if total is None else \
@@ -3964,6 +4023,440 @@ def run_family_path(by_path, device="cuda", only=None):
         shutil.rmtree(root, ignore_errors=True)
     by_path["family_sweep"] = total
     return lines
+
+
+# ------------------------------------------------------- training an LM
+
+
+# the launcher at StableLM-2-1.6B's published widths, float32: 8 steps of
+# 8 x 128 tokens, one checkpoint (the final one: 17.3 GB of parameters and
+# AdamW's two moments)
+LM_TRAIN_FLAGS = ("--arch", "stablelm_1p6b", "--steps", "8",
+                  "--global-batch", "8", "--seq", "128", "--mesh", "1,1",
+                  "--ckpt-every", "8")
+LM_TRAIN_CHUNK = 32             # loss_chunk against the whole sequence
+LM_TRAIN_LOSS_REL = 1e-5        # ... its loss (the reference's own test)
+LM_TRAIN_NORM_REL = 1e-3        # ... and its grad_norm
+LM_TRAIN_GRAD_LAYERS = 2        # card vs CPU: 2 of 24 layers, batch 2
+LM_TRAIN_GRAD_BATCH = 2
+# the supervisor drill at --reduced width: 20 steps, again with a failure
+# at step 13 (restart from the step-10 checkpoint), then a rerun to 25
+DRILL_FLAGS = ("--arch", "stablelm_1p6b", "--reduced", "--global-batch",
+               "8", "--seq", "64", "--ckpt-every", "5", "--mesh", "1,1")
+DRILL_STEPS, DRILL_FAIL_AT, DRILL_RESUME_STEPS = 20, 13, 25
+TRAIN_LM_EXAMPLE = os.path.join(HERE, "examples", "torch_train_lm.py")
+
+
+def _clone_state(state):
+    from repro_torch.training import optimizer as opt_lib
+    o = state["opt"]
+    return {"params": opt_lib.tree_map(torch.clone, state["params"]),
+            "opt": opt_lib.OptState(o.step.clone(),
+                                    opt_lib.tree_map(torch.clone, o.mu),
+                                    opt_lib.tree_map(torch.clone, o.nu)),
+            "step": state["step"].clone()}
+
+
+def _state_leaves(state):
+    """``(key, leaf)`` of a train state, in the checkpoint's order."""
+    from repro_torch.training import checkpoint
+    return checkpoint._flatten(state)
+
+
+def _peak(device, before):
+    """Peak allocated bytes since the last reset, and the peak less what
+    was allocated before (None on the CPU)."""
+    if torch.device(device).type != "cuda":
+        return None
+    peak = torch.cuda.max_memory_allocated()
+    return dict(peak_bytes=peak, over_resident_bytes=peak - before)
+
+
+def _reset_peak(device) -> int:
+    if torch.device(device).type != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def lm_train_grad_check(model, params, batch, device="cuda"):
+    """The train step's loss gradients of the model cut to its first
+    ``LM_TRAIN_GRAD_LAYERS`` layers, on the card (the gates through
+    ``gate_bwd_kernel``) and on the CPU (the plain versions), from the same
+    parameters, random hard masks and batch, remat on: each leaf's
+    relative L2 error within ``FAMILY_GRAD_TOL``."""
+    from repro_torch.convert import to_device
+    from repro_torch.core import masks as M
+    from repro_torch.training import optimizer as opt_lib, train
+    rng = np.random.default_rng(SEED)
+    tree = {k: (rng.random(s.shape) < 0.6).astype(np.float32)
+            for k, s in model.mask_sites().items()}
+    cut, sub, sub_tree = first_repeats(model, params, tree,
+                                       LM_TRAIN_GRAD_LAYERS)
+    loss_fn = train.make_loss_fn(cut, train.TrainStepCfg(remat=True))
+    with train.deterministic():
+        loss_c, g_card = train.loss_and_grads(
+            loss_fn, sub, M.as_device(sub_tree, device), batch)
+    loss_h, g_cpu = train.loss_and_grads(
+        loss_fn, to_device(sub, "cpu"), M.as_device(sub_tree, "cpu"),
+        to_device(batch, "cpu"))
+    names = opt_lib.tree_leaves(_leaf_names(sub))
+    per_leaf = {}
+    for name, gc_, gh in zip(names, opt_lib.tree_leaves(g_card),
+                             opt_lib.tree_leaves(g_cpu)):
+        gc_ = gc_.cpu()
+        if not bool(torch.isfinite(gc_).all()):
+            fail(f"lm_train: the card's gradient of {name} is not finite")
+        den = float(torch.linalg.vector_norm(gh.double()))
+        per_leaf[name] = float(torch.linalg.vector_norm(
+            (gc_ - gh).double())) / max(den, 1e-30)
+    worst = max(per_leaf, key=per_leaf.get)
+    if per_leaf[worst] > FAMILY_GRAD_TOL:
+        fail(f"lm_train: card vs CPU gradient of {worst}: relative L2 "
+             f"{per_leaf[worst]:.3e} > {FAMILY_GRAD_TOL}")
+    return dict(layers=cut.cfg.n_layers, of=model.cfg.n_layers,
+                batch=list(batch["tokens"].shape), leaves=len(per_leaf),
+                worst_leaf=worst, worst_rel_l2=per_leaf[worst],
+                tol=FAMILY_GRAD_TOL, loss_card=float(loss_c),
+                loss_cpu=float(loss_h))
+
+
+def lm_train_from_one_state(model, state, batch, masks, opt, device):
+    """From one train state: gradients with remat on and off (equal to the
+    bit), ``quantize_grads_int8`` of them on the card and on the CPU
+    (equal to the bit), a step each with remat on and off from copies of
+    the state (equal parameters and moments), and a step with
+    ``loss_chunk`` (loss and grad_norm within the reference's bounds)."""
+    from repro_torch.training import optimizer as opt_lib, train
+    out, peaks = {}, {}
+    cfgs = {"remat": train.TrainStepCfg(remat=True),
+            "no_remat": train.TrainStepCfg(remat=False),
+            "chunk": train.TrainStepCfg(remat=True,
+                                        loss_chunk=LM_TRAIN_CHUNK)}
+    grads = {}
+    for tag in ("remat", "no_remat"):
+        before = _reset_peak(device)
+        with train.deterministic():
+            loss, g = train.loss_and_grads(
+                train.make_loss_fn(model, cfgs[tag]), state["params"],
+                masks, batch)
+        sync(device)
+        grads[tag] = opt_lib.tree_leaves(g)
+        peaks[f"grads_{tag}"] = _peak(device, before)
+        out[f"loss_{tag}"] = float(loss)
+        del g
+    out["grads_equal_bits"] = all(torch.equal(a, b) for a, b in zip(
+        grads["remat"], grads["no_remat"])) and \
+        out["loss_remat"] == out["loss_no_remat"]
+    if not out["grads_equal_bits"]:
+        fail("lm_train: the gradients with remat differ from those "
+             "without")
+    del grads["no_remat"]
+    # compress_grads: the card's quantization against the CPU's, leaf by
+    # leaf on the same gradients
+    t0 = time.perf_counter()
+    differ = 0
+    for g in grads.pop("remat"):
+        q_card = train.quantize_grads_int8([g])[0].cpu()
+        q_cpu = train.quantize_grads_int8([g.cpu()])[0]
+        differ += int(not torch.equal(q_card, q_cpu))
+    out["quantize_int8"] = dict(leaves_differing=differ,
+                                seconds=time.perf_counter() - t0)
+    if differ:
+        fail(f"lm_train: quantize_grads_int8 on the card differs from the "
+             f"CPU's in {differ} leaves")
+    gc.collect()
+    # a step each from copies of the state
+    new, metrics = {}, {}
+    for tag in ("remat", "no_remat", "chunk"):
+        s = _clone_state(state)
+        before = _reset_peak(device)
+        new[tag], m = train.make_train_step(model, opt, cfgs[tag])(
+            s, batch, masks)
+        sync(device)
+        peaks[f"step_{tag}"] = _peak(device, before)
+        metrics[tag] = {k: float(v) for k, v in m.items()}
+        if tag == "no_remat":
+            same = all(
+                ka == kb and torch.equal(a, b) for (ka, a), (kb, b) in zip(
+                    _state_leaves(new["remat"]), _state_leaves(new[tag])))
+            out["step_equal_bits"] = same and metrics["remat"] == metrics[tag]
+            if not out["step_equal_bits"]:
+                fail("lm_train: a step with remat gave other parameters, "
+                     "moments or metrics than one without")
+        if tag != "remat":
+            del new[tag]
+    del new
+    whole, chunk = metrics["remat"], metrics["chunk"]
+    rel = {k: abs(chunk[k] - whole[k]) / abs(whole[k])
+           for k in ("loss", "grad_norm")}
+    out["loss_chunk"] = dict(chunk=LM_TRAIN_CHUNK, whole=whole, chunked=chunk,
+                             rel=rel, tol={"loss": LM_TRAIN_LOSS_REL,
+                                           "grad_norm": LM_TRAIN_NORM_REL})
+    if rel["loss"] > LM_TRAIN_LOSS_REL or \
+            rel["grad_norm"] > LM_TRAIN_NORM_REL:
+        fail(f"lm_train: loss_chunk={LM_TRAIN_CHUNK} against the whole "
+             f"sequence: {rel}")
+    out["peaks"] = peaks
+    gc.collect()
+    return out
+
+
+def profile_lm_train_step(step, state, batch_fn, masks, device):
+    """One step under the profiler after one that warms up
+    (:func:`profile_window`: device busy share, launches a step), then one
+    outside it, timed on the host until ``train_step`` returns (the host
+    issuing it) and until the card is done.  Consumes ``state``."""
+    holder = {"s": state}
+
+    def one(i):
+        holder["s"], _ = step(holder["s"], batch_fn(i), masks)
+    prof = profile_window(one, 1)
+    b = batch_fn(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    holder["s"], m = step(holder["s"], b, masks)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del holder["s"]
+    return dict(profile=prof, issue_ms=(t1 - t0) * 1e3,
+                step_ms=(t2 - t0) * 1e3, host_share=(t1 - t0) / (t2 - t0),
+                loss=float(m["loss"]))
+
+
+def run_supervisor_drill(root, device="cuda"):
+    """The launcher at ``--reduced`` width: 20 steps, the same 20 with a
+    failure injected at step 13, equal losses from step 10 on and equal
+    final parameters, moments and counters; then a rerun with 25 steps in
+    the first run's directory resumes at step 20."""
+    import contextlib
+    import io
+    from repro_torch.launch import train as launch
+    from repro_torch.training import ft
+
+    def args(steps, name):
+        return launch.parse_args(list(DRILL_FLAGS) + [
+            "--steps", str(steps), "--ckpt-dir", os.path.join(root, name),
+            "--device", device])
+    a = args(DRILL_STEPS, "whole")
+    cfg = launch.make_config(a)
+    with contextlib.redirect_stdout(io.StringIO()):
+        whole = launch.run(a, cfg, device)
+        cut = launch.run(args(DRILL_STEPS, "cut"), cfg, device,
+                         injector=ft.FailureInjector((DRILL_FAIL_AT,)))
+        resumed = launch.run(args(DRILL_RESUME_STEPS, "whole"), cfg, device)
+    restart_at = DRILL_FAIL_AT // 5 * 5
+    tail = DRILL_STEPS - restart_at
+    same_losses = cut["losses"][-tail:] == whole["losses"][-tail:]
+    same_state = all(
+        ka == kb and torch.equal(x, y) for (ka, x), (kb, y) in zip(
+            _state_leaves(whole["result"]["state"]),
+            _state_leaves(cut["result"]["state"])))
+    line = dict(
+        config=cfg.name, d_model=cfg.d_model, layers=cfg.n_layers,
+        flags=list(DRILL_FLAGS), steps=DRILL_STEPS, fail_at=DRILL_FAIL_AT,
+        restarts=cut["result"]["restarts"],
+        losses_equal_from_step=restart_at, losses_equal=same_losses,
+        final_state_equal_bits=same_state,
+        loss_first_last=[whole["losses"][0], whole["losses"][-1]],
+        resumed_steps=len(resumed["losses"]),
+        resumed_counter=int(resumed["result"]["state"]["step"]))
+    if cut["result"]["restarts"] != 1 or not same_losses or not same_state:
+        fail(f"lm_train: the supervisor drill: {line}")
+    if len(resumed["losses"]) != DRILL_RESUME_STEPS - DRILL_STEPS or \
+            line["resumed_counter"] != DRILL_RESUME_STEPS:
+        fail(f"lm_train: the rerun with {DRILL_RESUME_STEPS} steps did not "
+             f"resume at step {DRILL_STEPS}: {line}")
+    return line
+
+
+def run_train_lm_example(root, device="cuda"):
+    """``examples/torch_train_lm.py`` at its defaults (60 steps, a failure
+    at step 25, the watchdog, then BCD through the batched engine)."""
+    import contextlib
+    import importlib.util
+    import io
+    spec = importlib.util.spec_from_file_location("torch_train_lm",
+                                                  TRAIN_LM_EXAMPLE)
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        out = ex.main(["--ckpt-dir", os.path.join(root, "example")],
+                      device=device)
+    line = dict(
+        seconds=time.perf_counter() - t0, params=out["params"],
+        restarts=out["restarts"], flagged_straggler_steps=out["flagged_steps"],
+        loss_first=out["losses"][0],
+        loss_last5_mean=float(np.mean(out["losses"][-5:])),
+        kept=out["kept"], total=out["total"], token_acc=out["token_acc"],
+        bcd_steps=len(out["result"].history),
+        last_lines=printed.getvalue().splitlines()[-3:])
+    if out["restarts"] != 1 or out["kept"] != out["total"] // 2 or \
+            not np.isfinite(out["losses"]).all():
+        fail(f"lm_train: the example: {line}")
+    return line
+
+
+def run_lm_train_path(by_path, device="cuda", cfg=None):
+    """The LM training phase: StableLM-2-1.6B at its published widths in
+    float32 through ``launch.train.run`` (``LM_TRAIN_FLAGS``: 8 steps, one
+    checkpoint), the card-vs-CPU gradients of a 2-layer cut, the checks
+    from one state (:func:`lm_train_from_one_state`), a profiled step,
+    the supervisor drill at ``--reduced`` width and
+    ``examples/torch_train_lm.py`` at its defaults; launch counts set to 0
+    just before the launcher's run and read after the example.  ``cfg``:
+    another config for the full-width run (a CPU rehearsal)."""
+    import contextlib
+    import io
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.convert import to_device
+    from repro_torch.core import linearize, masks as M
+    from repro_torch.data import MarkovTokens
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as launch
+    from repro_torch.models.lm import LM
+    from repro_torch.training import optimizer as opt_lib, train
+    cuda = torch.device(device).type == "cuda"
+    root = os.path.join(HERE, "build", "lm_train")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    laps = {}
+    t_all = time.perf_counter()
+    args = launch.parse_args(list(LM_TRAIN_FLAGS) + [
+        "--ckpt-dir", os.path.join(root, "full"), "--device", device])
+    # the config's own dtype is bfloat16, which the launcher refuses
+    # (ROADMAP A10(d)): float32, as every LM path here; no width is cut
+    full = dataclasses.replace(cfg or get_config(args.arch),
+                               dtype="float32",
+                               remat_group=args.remat_group)
+    try:
+        build.reset_launch_counts()
+        before = _reset_peak(device)
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with checkpoint_costs(device) as ck, \
+                contextlib.redirect_stdout(printed):
+            got = launch.run(args, full, device)
+        laps["launcher_run"] = time.perf_counter() - t0
+        run_counts = counts()
+        run_peak = _peak(device, before)
+        losses, step_ms = got["losses"], got["step_ms"]
+        if len(losses) != int(args.steps) or \
+                not np.isfinite(losses).all():
+            fail(f"lm_train: the launcher's losses: {losses}")
+        saves = [c for c in ck.calls if c["op"] == "save"]
+        if len(saves) != 1:
+            fail(f"lm_train: {len(saves)} checkpoints written, not one")
+        state = got["result"]["state"]
+        n_params = sum(t.numel() for t in
+                       opt_lib.tree_leaves(state["params"]))
+        state_bytes = sum(t.numel() * t.element_size()
+                          for _, t in _state_leaves(state))
+        model = LM(full)
+        mt = MarkovTokens(full.vocab, seed=0)
+        masks = M.as_device(linearize.init_masks(model.mask_sites()),
+                            device)
+
+        def batch(i, n=int(args.global_batch)):
+            return to_device(mt.batch(n, int(args.seq), i), device)
+
+        t0 = time.perf_counter()
+        grad = lm_train_grad_check(model, state["params"],
+                                   batch(0, LM_TRAIN_GRAD_BATCH), device)
+        laps["card_vs_cpu"] = time.perf_counter() - t0
+        # the comparisons' schedule runs on past the launcher's 8 steps
+        # (its cosine is 0 at step 8: no update to compare)
+        opt = opt_lib.adamw(lr=args.lr, grad_clip=1.0,
+                            schedule=opt_lib.cosine(args.lr,
+                                                    2 * int(args.steps)))
+        t0 = time.perf_counter()
+        one = lm_train_from_one_state(model, state, batch(args.steps),
+                                      masks, opt, device)
+        laps["from_one_state"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step = train.make_train_step(model, opt,
+                                     train.TrainStepCfg(remat=True))
+        prof = profile_lm_train_step(
+            step, state, lambda i: batch(args.steps + 1 + i), masks,
+            device) if cuda else None
+        del state, got
+        gc.collect()
+        laps["profile"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        drill = run_supervisor_drill(root, device)
+        laps["supervisor_drill"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        example = run_train_lm_example(root, device)
+        laps["example"] = time.perf_counter() - t0
+        by_path["lm_train"] = counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(
+        seconds=time.perf_counter() - t_all, seconds_by_part=laps,
+        model=full.name, d_model=full.d_model, layers=full.n_layers,
+        vocab=full.vocab, params=n_params, state_bytes=state_bytes,
+        dtype="float32", flags=list(LM_TRAIN_FLAGS),
+        cuts=["dtype float32 (the config's bfloat16 waits for ROADMAP "
+              "A10(d))", "random weights from seed 0, Markov tokens",
+              "8 steps"],
+        losses=losses, step_ms=step_ms,
+        step_ms_median_2_8=float(np.median(step_ms[1:])),
+        run_launches={k: v for k, v in run_counts.items() if v},
+        launches_per_step={k: v / len(losses) for k, v in
+                           run_counts.items() if v},
+        run_peak=run_peak, checkpoint=dict(
+            bytes=saves[0]["bytes"], seconds=saves[0]["ms"] / 1e3),
+        card_vs_cpu=grad, from_one_state=one, step_profile=prof,
+        supervisor_drill=drill, example=example,
+        last_lines=printed.getvalue().splitlines()[-2:])
+
+
+class DiskWrites:
+    """The bytes of every checkpoint this process writes
+    (``checkpoint.save``: each step directory's files once written), by
+    phase; and, where the system has them, the kernel's I/O counters of
+    this process and the children it has reaped (``/proc/self/io``: the
+    sweep's child processes write checkpoints this process does not
+    see).  The card's machine allows 45 GiB of disk writes a run, counted
+    even when deleted."""
+
+    def __init__(self):
+        self.phase, self.by_phase, self.saves = "setup", {}, 0
+
+    def install(self) -> None:
+        from repro_torch.training import checkpoint as ck
+        save = ck.save
+
+        def counted(*a, **kw):
+            out = save(*a, **kw)
+            n = sum(os.path.getsize(os.path.join(out, f))
+                    for f in os.listdir(out))
+            self.by_phase[self.phase] = self.by_phase.get(self.phase, 0) + n
+            self.saves += 1
+            return out
+        ck.save = counted
+
+    def summary(self) -> dict:
+        try:
+            with open("/proc/self/io") as f:
+                io = {k: int(v) for k, v in
+                      (line.split(":") for line in f if ":" in line)}
+        except OSError:
+            io = None
+        return dict(checkpoint_bytes=sum(self.by_phase.values()),
+                    checkpoint_bytes_by_phase=self.by_phase,
+                    saves=self.saves, proc_self_io=io)
+
+
+DISK = DiskWrites()
 
 
 def check_launches(by_path, paths) -> None:
@@ -4019,6 +4512,12 @@ def main() -> None:
                          "families' sweeps), without the kernel comparison; "
                          "with a tag (rwkv, moe, hybrid), that family's "
                          "sweep alone (prints no result line)")
+    ap.add_argument("--only-lm-train", action="store_true",
+                    help="build the kernels and run the LM training phase "
+                         "alone (StableLM-2-1.6B through launch.train at "
+                         "full width, the supervisor drill, the train_lm "
+                         "example), without the kernel comparison (prints "
+                         "no result line)")
     ap.add_argument("--src", default=None,
                     help="with --only-rwkv, --only-moe or --only-hybrid: "
                          "import repro_torch from this directory (another "
@@ -4049,6 +4548,7 @@ def main() -> None:
     import repro_torch
     from repro_torch.kernels import build
     repro_torch.use_full_float32()
+    DISK.install()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4089,6 +4589,7 @@ def main() -> None:
             return
     if args.only_sweep:
         by_path = {}
+        DISK.phase = "resnet18_sweep"
         emit({"sweep": run_sweep_path(by_path)})
         check_launches(by_path, ("resnet18_sweep",))
         return
@@ -4097,8 +4598,16 @@ def main() -> None:
         emit({"serve": run_serve_path(by_path)})
         check_launches(by_path, ("serve",))
         return
+    if args.only_lm_train:
+        by_path = {}
+        DISK.phase = "lm_train"
+        emit({"lm_train": run_lm_train_path(by_path)})
+        check_launches(by_path, ("lm_train",))
+        emit({"disk_writes": DISK.summary()})
+        return
     if args.only_family:
         by_path = {}
+        DISK.phase = "family_sweep"
         run_family_path(by_path, only=None if args.only_family == "all"
                         else args.only_family)
         if args.only_family == "all":
@@ -4106,8 +4615,9 @@ def main() -> None:
         emit({"family_launches": {k: v for k, v in
                                   by_path["family_sweep"].items() if v}})
         return
+    t0 = time.perf_counter()
     cases = run_kernel_cases()
-    emit({"kernel_cases": cases})
+    emit({"kernel_cases": cases, "seconds": time.perf_counter() - t0})
     emit({"scan_copies": time_scan_copies(next(
         c["ms"] for c in cases if c["name"] == "rwkv6_scan" and
         c["primary"]))})
@@ -4122,9 +4632,13 @@ def main() -> None:
     # ---- path 1, ResNet18: counts set to 0 just before, read just after
     model, params, batch = make_model_and_batch(SEED)
     build.reset_launch_counts()
+    t0 = time.perf_counter()
     forward = run_forward(model, params, batch, SEED)
+    forward["seconds"], t0 = time.perf_counter() - t0, time.perf_counter()
     bcd_report = run_bcd_phase(model, params, batch, BCD_STEPS)
+    bcd_report["seconds"], t0 = time.perf_counter() - t0, time.perf_counter()
     sited = run_sited_phase(model, params, batch)
+    sited["seconds"] = time.perf_counter() - t0
     by_path = {"resnet18": counts()}
     emit({"forward": forward})
     emit({"bcd": bcd_report})
@@ -4137,7 +4651,10 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- path 1's resumable sweep, counted on its own
+    t0 = time.perf_counter()
+    DISK.phase = "resnet18_sweep"
     sweep_line = run_sweep_path(by_path)
+    sweep_line["seconds"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
     # ---- paths 2 to 5, StableLM-2-1.6B, RWKV-6 3B, DeepSeek-MoE-16B and
@@ -4146,10 +4663,18 @@ def main() -> None:
         run_lm_path(spec, by_path)
 
     # ---- serving StableLM-2-1.6B and RWKV-6 3B, counted on its own
+    t0 = time.perf_counter()
     serve_line = run_serve_path(by_path)
+    serve_line["seconds"] = time.perf_counter() - t0
 
     # ---- training the LM families: the sweep of each, counted on its own
+    DISK.phase = "family_sweep"
     run_family_path(by_path)
+
+    # ---- training an LM through the launcher, counted on its own
+    DISK.phase = "lm_train"
+    emit({"lm_train": run_lm_train_path(by_path)})
+    DISK.phase = "after"
 
     check_launches(by_path, PATH_KERNELS)
     launches = {k: sum(p[k] for p in by_path.values())
@@ -4159,6 +4684,7 @@ def main() -> None:
         emit({name: line})
     emit({"sweep": sweep_line})
     emit({"serve": serve_line})
+    emit({"disk_writes": DISK.summary()})
     kernels = []
     for name in build.launch_counts:
         mine = [c for c in cases if c["name"] == name]

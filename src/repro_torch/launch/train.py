@@ -1,0 +1,129 @@
+"""Training launcher: supervised, checkpointed LM training on one device.
+
+Counterpart of ``repro/launch/train.py``::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm_1p6b \
+        --reduced --steps 20 --mesh 1,1 --ckpt-dir /tmp/ck --device cpu
+
+AdamW on a cosine schedule with a gradient clip of 1.0, remat, Markov
+tokens, under ``training.ft.run_supervised`` (restart from the newest
+valid checkpoint) with the straggler watchdog.  A rerun with more
+``--steps`` and the same ``--ckpt-dir`` resumes from the newest
+checkpoint.
+
+``--mesh`` takes ``1,1`` only (a mesh waits for ``ROADMAP.md`` Queue A11);
+``--device`` defaults to the card.  The configs' own dtype is bfloat16, and
+the gate's gradient is float32 only: a bfloat16 config is refused
+(``ROADMAP.md`` Queue A10(d)); ``--reduced`` configs are float32.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core import linearize, masks as M
+from repro_torch.data import MarkovTokens, host_slice
+from repro_torch.models.lm import LM
+from repro_torch.training import ft
+from repro_torch.training import optimizer as opt_lib, train as train_lib
+
+
+def parse_args(argv=None):
+    """The reference's flags and defaults, and ``--device``."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="stablelm_1p6b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--mesh", default="1,1",
+                    help="data,model axis sizes; only 1,1 until a mesh is "
+                         "ported")
+    ap.add_argument("--ckpt-dir", default="/tmp/repro_launch_ckpt")
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--remat-group", type=int, default=1)
+    ap.add_argument("--device", default="cuda")
+    return ap.parse_args(argv)
+
+
+def make_config(args):
+    """The run's config: ``--arch`` (``--reduced``) with ``--remat-group``.
+    Exits for a mesh other than ``1,1`` and for a bfloat16 config."""
+    if tuple(int(x) for x in args.mesh.split(",")) != (1, 1):
+        raise SystemExit(f"error: --mesh {args.mesh}: only 1,1 (one "
+                         "device) is ported; sharded training is ROADMAP.md "
+                         "Queue A11")
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if cfg.dtype != "float32":
+        raise SystemExit(f"error: {cfg.name} is {cfg.dtype}; the port trains "
+                         "in float32 only (the gate's gradient is float32; "
+                         "bfloat16 training is ROADMAP.md Queue A10(d)) — "
+                         "pass --reduced or a float32 config")
+    return dataclasses.replace(cfg, remat_group=args.remat_group)
+
+
+def run(args, cfg, device="cuda", injector=None) -> dict:
+    """Train ``cfg`` for ``args.steps`` steps under the supervisor.
+    Returns ``losses`` (one float a step run, a replayed step again),
+    ``step_ms`` (each step's wall-clock, the loss read back) and
+    ``result``, ``run_supervised``'s dict.  ``injector``: an optional
+    ``ft.FailureInjector``."""
+    model = LM(cfg)
+    opt = opt_lib.adamw(lr=args.lr, grad_clip=1.0,
+                        schedule=opt_lib.cosine(args.lr, args.steps))
+    tcfg = train_lib.TrainStepCfg(remat=True, dp_axes=("data",),
+                                  compress_grads=args.compress_grads)
+    step = train_lib.make_train_step(model, opt, tcfg)
+    mt = MarkovTokens(cfg.vocab, seed=0)
+    masks = M.as_device(linearize.init_masks(model.mask_sites()), device)
+    sl = host_slice(args.global_batch)
+
+    def init_state():
+        gen = torch.Generator(device=device).manual_seed(0)
+        return train_lib.make_state(model, opt, gen, device)
+
+    losses, step_ms = [], []
+
+    def step_fn(state, i):
+        t0 = time.perf_counter()
+        b = mt.batch(args.global_batch, args.seq, i)
+        b = {k: torch.from_numpy(v[sl]).to(device) for k, v in b.items()}
+        state, metrics = step(state, b, masks)
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"step {i} loss {losses[-1]:.4f}")
+        return state
+
+    out = ft.run_supervised(init_state, step_fn, n_steps=args.steps,
+                            ckpt_dir=args.ckpt_dir,
+                            ckpt_every=args.ckpt_every, injector=injector,
+                            watchdog=ft.StragglerWatchdog(), device=device)
+    return {"losses": losses, "step_ms": step_ms, "result": out}
+
+
+def main(argv=None):
+    """CLI entry: supervised, checkpointed training on one device."""
+    args = parse_args(argv)
+    cfg = make_config(args)
+    got = run(args, cfg, args.device)
+    losses, out = got["losses"], got["result"]
+    if losses:
+        print(f"finished {out['completed_steps']} steps; "
+              f"loss {losses[0]:.3f} -> {losses[-1]:.3f}; "
+              f"restarts={out['restarts']}")
+    else:
+        print(f"finished {out['completed_steps']} steps (all restored); "
+              f"restarts={out['restarts']}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

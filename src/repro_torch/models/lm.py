@@ -303,9 +303,11 @@ class LM:
         return 1 + len(cfg.head_blocks) + cfg.n_repeats + len(cfg.tail)
 
     def _fold(self, params, masks, x, lo: int, hi: int, opt, cache=None,
-              cache_len=0):
+              cache_len=0, remat=False):
         """Run segments ``[lo, hi)`` (lo >= 1) on the hidden state x;
-        ``cache`` (serving) is updated in place."""
+        ``cache`` (serving) is updated in place.  ``remat`` (no cache):
+        the stack repeats run under ``torch.utils.checkpoint``, as the
+        reference's ``_run_stack(remat=True)`` scans them."""
         cfg = self.cfg
         H, R = len(cfg.head_blocks), cfg.n_repeats
         if cache is None:
@@ -318,36 +320,44 @@ class LM:
         # row (``_index``) would add a zero-padded full-size gradient a
         # repeat
         rows = {}
-        for seg in range(max(lo, 1), hi):
-            if seg <= H:
-                i = seg - 1
-                x = self._layer_apply(
-                    cfg.head_blocks[i], params["head"][i], x, masks, f"h{i}",
-                    opt, positions, cache=None if cache is None
-                    else cache["head"][i], cache_len=cache_len)
-            elif seg <= H + R:
-                r = seg - 1 - H
-                for pos, blk in enumerate(cfg.pattern):
-                    lp = params["stack"][str(pos)]
-                    if not blk.shared:
-                        if pos not in rows:
-                            rows[pos] = _unbind(lp)
-                        lp = rows[pos][r]
-                    lc = None if cache is None \
-                        else _index(cache["stack"][str(pos)], r)
-                    x = self._layer_apply(blk, lp, x, masks, f"s{pos}", opt,
-                                          positions, repeat=r, cache=lc,
-                                          cache_len=cache_len)
-            else:
-                i = seg - 1 - H - R
-                x = self._layer_apply(
-                    cfg.tail[i], params["tail"][i], x, masks, f"t{i}", opt,
-                    positions, cache=None if cache is None
-                    else cache["tail"][i], cache_len=cache_len)
+
+        def repeat(x, r):
+            for pos, blk in enumerate(cfg.pattern):
+                lp = params["stack"][str(pos)]
+                if not blk.shared:
+                    lp = rows[pos][r]
+                lc = None if cache is None \
+                    else _index(cache["stack"][str(pos)], r)
+                x = self._layer_apply(blk, lp, x, masks, f"s{pos}", opt,
+                                      positions, repeat=r, cache=lc,
+                                      cache_len=cache_len)
+            return x
+
+        for seg in range(max(lo, 1), min(hi, H + 1)):
+            i = seg - 1
+            x = self._layer_apply(
+                cfg.head_blocks[i], params["head"][i], x, masks, f"h{i}",
+                opt, positions, cache=None if cache is None
+                else cache["head"][i], cache_len=cache_len)
+        reps = range(max(lo - 1 - H, 0), min(hi - 1 - H, R))
+        if len(reps):
+            for pos, blk in enumerate(cfg.pattern):
+                if not blk.shared:
+                    rows[pos] = _unbind(params["stack"][str(pos)])
+            x = _run_repeats(repeat, x, reps,
+                             remat and cache is None, cfg.remat_group)
+        for seg in range(max(lo, H + R + 1), hi):
+            i = seg - 1 - H - R
+            x = self._layer_apply(
+                cfg.tail[i], params["tail"][i], x, masks, f"t{i}", opt,
+                positions, cache=None if cache is None
+                else cache["tail"][i], cache_len=cache_len)
         return x
 
-    def _logits(self, params, x):
+    def _logits(self, params, x, return_hidden=False):
         x = layers.rmsnorm(params["final_norm"], x)
+        if return_hidden:
+            return x
         return x @ params["embed"].T.to(x.dtype)
 
     def _embed(self, params, tokens):
@@ -357,7 +367,7 @@ class LM:
 
     def forward(self, params, masks, tokens, *, prefix_embeds=None,
                 poly=None, soft=False, cache=None, cache_len=0, pre=None,
-                fused=False, ties=True):
+                fused=False, ties=True, remat=False, return_hidden=False):
         """Logits ``(B, S, V)``, or ``(N, B, S, V)`` for stacked masks.
 
         ``pre``: a cached :meth:`forward_pre` result (the mask-independent
@@ -381,7 +391,17 @@ class LM:
         inputs).  The tokens sit at positions ``cache_len …`` — an int, or
         a (B,) array or tensor of per-row positions (ragged decode).  The
         cache is updated **in place**; returns ``(logits, cache)``, the
-        same tree.  Without a cache returns the logits alone."""
+        same tree.  Without a cache returns the logits alone.
+
+        ``remat`` (training, no cache): each stack repeat runs under
+        ``torch.utils.checkpoint`` and is recomputed in the backward; with
+        ``cfg.remat_group = G > 1`` dividing the repeats, groups of G
+        repeats are checkpointed and each repeat within a group again (the
+        reference's hierarchical remat).  Head and tail blocks are not.
+        The forward and the gradients are the bits of ``remat=False``.
+        ``return_hidden``: the final-norm hidden state ``(B, S, D)`` in
+        place of the logits (the caller owns the head's product, e.g. a
+        chunked loss)."""
         opt = (poly or {}, soft, fused, ties)
         if cache is not None:
             sites = self.mask_sites()
@@ -395,12 +415,13 @@ class LM:
             if prefix_embeds is not None:
                 x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         if cache is None:
-            x = self._fold(params, masks, x, 1, self._n_segments(), opt)
-            return self._logits(params, x)
+            x = self._fold(params, masks, x, 1, self._n_segments(), opt,
+                           remat=remat)
+            return self._logits(params, x, return_hidden)
         cache_len = _cache_len(cache_len, x.shape[0], x.device)
         x = self._fold(params, masks, x, 1, self._n_segments(), opt,
                        cache=cache, cache_len=cache_len)
-        return self._logits(params, x), cache
+        return self._logits(params, x, return_hidden), cache
 
     def forward_pre(self, params, tokens):
         """The mask-independent head of the network, the token embedding:
@@ -672,6 +693,34 @@ def _cache_len(cache_len, B: int, device):
         raise ValueError(f"cache_len must be an int or ({B},), got "
                          f"{tuple(t.shape)}")
     return t.to(device=device, dtype=torch.int64)
+
+
+def _checkpoint(fn, *args):
+    # nothing in the forward draws random numbers: no RNG state to keep
+    from torch.utils.checkpoint import checkpoint
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _run_repeats(repeat, x, reps: range, remat: bool, group: int):
+    """``repeat(x, r)`` for r in ``reps``, in order.  ``remat``: each under
+    a checkpoint, or, with ``group = G > 1`` dividing ``len(reps)``, each
+    run of G repeats under one and each repeat within it under another."""
+    if not remat:
+        for r in reps:
+            x = repeat(x, r)
+        return x
+    if group > 1 and len(reps) % group == 0:
+        def run_group(x, r0):
+            for r in range(r0, r0 + group):
+                x = _checkpoint(repeat, x, r)
+            return x
+        for r0 in reps[::group]:
+            x = _checkpoint(run_group, x, r0)
+        return x
+    for r in reps:
+        x = _checkpoint(repeat, x, r)
+    return x
 
 
 def _alloc_stacked(tree, n: int):

@@ -8,9 +8,10 @@ the other:
         manifest.json      {step, meta, leaves, treedef}
         leaf_00000.npy     one file per leaf
 
-A tree is a nested dict / list / tuple of arrays (tensors on any device,
-numpy arrays, scalars); None holds no leaf.  A leaf's key is its path
-joined by ``/`` (dict keys and sequence indices as strings), and files are
+A tree is a nested dict / list / tuple / namedtuple of arrays (tensors on
+any device, numpy arrays, scalars); None holds no leaf.  A leaf's key is its
+path joined by ``/`` (dict keys, sequence indices and namedtuple field names
+as strings, as the reference's ``_key_part`` takes them), and files are
 numbered in the order of the **sorted key strings** (``params/w/10`` before
 ``params/w/2``), not in the order of the tree walk.  The manifest records
 each leaf's file, shape, dtype and sha256, the caller's ``meta``, and the
@@ -48,7 +49,7 @@ class CheckpointError(RuntimeError):
     manifest's sha256 — the restore path refuses partial state rather than
     resuming a run from silently corrupted arrays.  Also raised for a tree
     this format cannot hold (a bfloat16 leaf, a node type other than dict,
-    list, tuple or None)."""
+    list, tuple, namedtuple or None)."""
 
 
 def _file_sha256(path: str) -> str:
@@ -60,28 +61,36 @@ def _file_sha256(path: str) -> str:
 
 
 def _node_kind(t) -> Optional[str]:
-    """'dict' / 'list' / 'tuple' / 'none' for a container node, None for a
-    leaf.  Subclasses (OrderedDict, namedtuples) flatten differently in
-    ``jax.tree_util`` and are refused."""
+    """'dict' / 'list' / 'tuple' / 'namedtuple' / 'none' for a container
+    node, None for a leaf.  A namedtuple flattens by its fields, in their
+    order, as ``jax.tree_util`` flattens it; other subclasses
+    (OrderedDict, a tuple subclass without ``_fields``) flatten differently
+    there and are refused."""
     if t is None:
         return "none"
+    if isinstance(t, tuple) and hasattr(type(t), "_fields"):
+        return "namedtuple"
     for kind, typ in (("dict", dict), ("list", list), ("tuple", tuple)):
         if type(t) is typ:
             return kind
         if isinstance(t, typ):
             raise CheckpointError(
                 f"unsupported tree node {type(t).__name__}: checkpoints "
-                "hold nested dict / list / tuple / None only")
+                "hold nested dict / list / tuple / namedtuple / None only")
     return None
 
 
 def _flatten(tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
     """``(key, leaf)`` in ``jax.tree_util``'s order: dict keys sorted,
-    sequences by index, None skipped."""
+    sequences by index, namedtuples by field (keyed by the field's name),
+    None skipped."""
     kind = _node_kind(tree)
     if kind == "dict":
         return [kv for k in sorted(tree)
                 for kv in _flatten(tree[k], prefix + (str(k),))]
+    if kind == "namedtuple":
+        return [kv for f, v in zip(tree._fields, tree)
+                for kv in _flatten(v, prefix + (f,))]
     if kind in ("list", "tuple"):
         return [kv for i, v in enumerate(tree)
                 for kv in _flatten(v, prefix + (str(i),))]
@@ -91,12 +100,15 @@ def _flatten(tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
 
 
 def _rebuild(template, out: dict, prefix: Tuple[str, ...] = ()):
-    """``template``'s structure with the leaf at each key taken from
-    ``out``."""
+    """``template``'s structure, its own node types included, with the leaf
+    at each key taken from ``out``."""
     kind = _node_kind(template)
     if kind == "dict":
         return {k: _rebuild(v, out, prefix + (str(k),))
                 for k, v in template.items()}
+    if kind == "namedtuple":
+        return type(template)(*(_rebuild(v, out, prefix + (f,))
+                                for f, v in zip(template._fields, template)))
     if kind in ("list", "tuple"):
         return type(template)(_rebuild(v, out, prefix + (str(i),))
                               for i, v in enumerate(template))
@@ -108,7 +120,8 @@ def _rebuild(template, out: dict, prefix: Tuple[str, ...] = ()):
 def treedef_str(tree) -> str:
     """The tree's structure as ``str(jax.tree_util.tree_structure(tree))``
     prints it: ``PyTreeDef({'a': *, 'b': [*, (*, None)]})`` — dict keys
-    sorted and ``repr``'d, ``*`` for a leaf, ``(*,)`` for a 1-tuple."""
+    sorted and ``repr``'d, ``*`` for a leaf, ``(*,)`` for a 1-tuple, and a
+    namedtuple as ``CustomNode(namedtuple[Name], [field, …])``."""
     def fmt(t) -> str:
         kind = _node_kind(t)
         if kind == "dict":
@@ -116,6 +129,9 @@ def treedef_str(tree) -> str:
                                    for k in sorted(t)) + "}"
         if kind == "list":
             return "[" + ", ".join(fmt(v) for v in t) + "]"
+        if kind == "namedtuple":
+            return (f"CustomNode(namedtuple[{type(t).__name__}], ["
+                    + ", ".join(fmt(v) for v in t) + "])")
         if kind == "tuple":
             body = ", ".join(fmt(v) for v in t)
             return "(" + body + ("," if len(t) == 1 else "") + ")"
@@ -136,7 +152,9 @@ def _host_array(leaf, key: str) -> np.ndarray:
                 f"leaf {key!r} is bfloat16, which numpy cannot hold; "
                 "checkpoints of the port take float32 and other numpy "
                 "dtypes")
-        return np.ascontiguousarray(leaf.detach().cpu().numpy())
+        # ``np.ascontiguousarray`` would make a 0-d leaf (a train state's
+        # counter) 1-d
+        return leaf.detach().cpu().contiguous().numpy()
     arr = np.asarray(leaf)
     if arr.dtype.name == "bfloat16":
         raise CheckpointError(

@@ -113,7 +113,9 @@ def constant(lr: float):
 
 class OptState(NamedTuple):
     """Shared optimizer state (AdamW uses both moments, SGD only mu).
-    ``step``: the number of updates taken, a Python int."""
+    ``step``: the number of updates taken, a Python int (a train state of
+    ``training.train.make_state`` holds it as a 0-d int32 tensor, as the
+    reference does, and converts it around each step)."""
 
     step: int
     mu: object        # momentum / first moment (tree of tensors)

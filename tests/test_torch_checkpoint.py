@@ -13,8 +13,10 @@ The state is the mini CNN's parameters (the reference's ``CNN.init``,
 converted) beside numpy masks, plus a list of 13 leaves: sorted key strings
 put ``w/10`` before ``w/2``, which is not the tree walk's order.
 """
+import collections
 import json
 import os
+from typing import NamedTuple
 
 import numpy as np
 import pytest
@@ -23,6 +25,15 @@ import torch
 from test_torch_helpers import random_masks, reference, to_numpy_tree
 
 STAGES = ((8, 2, 1), (16, 2, 2))       # the r18-mini plan
+
+
+class Pair(NamedTuple):
+    first: object
+    second: object
+
+
+Point = collections.namedtuple("Point", "x y z")
+Empty = collections.namedtuple("Empty", "")
 
 
 @pytest.fixture(scope="module")
@@ -125,6 +136,9 @@ def test_same_state_gives_identical_files_and_fingerprint(states, tmp_path):
     np.ones(3),
     None,
     {"k'q": 1, 'u"v': 2},
+    {"opt": Pair(1, {"b": 2, "a": [3]}), "step": 4},
+    Point(None, (1,), {"q": Pair(2, None)}),
+    [Empty(), Point(1, 2, 3)],
 ])
 def test_treedef_string_is_jax_tree_util_s(tree):
     from repro_torch.training import checkpoint
@@ -255,12 +269,136 @@ def test_bfloat16_leaves_are_refused(tmp_path):
 
 
 def test_unsupported_nodes_are_refused(tmp_path):
-    import collections
+    """An OrderedDict, and a tuple subclass that is not a namedtuple,
+    flatten otherwise in ``jax.tree_util``: refused."""
     from repro_torch.training import checkpoint
+
+    class Triple(tuple):
+        pass
     for tree in (collections.OrderedDict(a=np.ones(2)),
-                 collections.namedtuple("P", "a")(np.ones(2))):
+                 {"t": Triple((np.ones(2),))}):
         with pytest.raises(checkpoint.CheckpointError, match="unsupported"):
             checkpoint.save(tree, str(tmp_path / "ck"), 0)
+
+
+def test_namedtuple_nodes_round_trip(tmp_path):
+    """Any namedtuple flattens by its fields, keyed by their names, prints
+    as ``jax.tree_util`` prints it, and is rebuilt as its own type."""
+    from repro_torch.training import checkpoint
+    ref = reference()
+    tree = {"p": Point(torch.arange(3.0), None, [np.int32(5)]),
+            "q": Pair(Empty(), torch.ones(2, 2))}
+    d = str(tmp_path / "ck")
+    checkpoint.save(tree, d, 3)
+    manifest = checkpoint.read_manifest(d, 3)
+    assert sorted(manifest["leaves"]) == ["p/x", "p/z/0", "q/second"]
+    assert manifest["treedef"] == str(
+        ref.jax.tree_util.tree_structure(tree))
+    got, step = checkpoint.restore(tree, d, device="cpu")
+    assert step == 3
+    assert type(got["p"]) is Point and type(got["q"]) is Pair
+    assert type(got["q"].first) is Empty and got["p"].y is None
+    assert torch.equal(got["p"].x, tree["p"].x)
+    assert int(got["p"].z[0]) == 5
+    # the reference restores the port's file into the same structure
+    back, _ = ref.checkpoint.restore(tree, d, 3)
+    np.testing.assert_array_equal(np.asarray(back["q"].second),
+                                  np.ones((2, 2)))
+
+
+# ------------------------------------------------ a train state, OptState
+
+
+@pytest.fixture(scope="module")
+def train_states():
+    """One reduced StableLM train state after a step of the reference's
+    jitted ``make_train_step``, as the reference holds it and converted to
+    the port's (counters 0-d int32 tensors, moments converted), and both
+    packages' fresh templates."""
+    ref = reference()
+    import repro.training.optimizer as ropt
+    import repro.training.train as rtrain
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    from repro_torch.training import optimizer as opt_lib, train
+    from repro_torch.data import MarkovTokens
+    rcfg = ref.configs.get_config("stablelm_1p6b").reduced()
+    rmodel, ropt_ = ref.lm.LM(rcfg), ropt.adamw(lr=1e-3)
+    rstate = rtrain.make_state(rmodel, ropt_, ref.jax.random.PRNGKey(0))
+    b = MarkovTokens(rcfg.vocab).batch(2, 16, 0)
+    rstate, _ = ref.jax.jit(rtrain.make_train_step(
+        rmodel, ropt_, rtrain.TrainStepCfg(dp_axes=())))(
+        rstate, {k: ref.jnp.asarray(v) for k, v in b.items()},
+        ref.masks.as_device(ref.linearize.init_masks(rmodel.mask_sites())))
+
+    def conv(t):
+        return convert.params_from_reference(
+            ref.jax.tree.map(np.asarray, t), "cpu")
+    o = rstate["opt"]
+    tstate = {"params": conv(rstate["params"]),
+              "opt": opt_lib.OptState(torch.tensor(int(o.step),
+                                                   dtype=torch.int32),
+                                      conv(o.mu), conv(o.nu)),
+              "step": torch.tensor(int(rstate["step"]), dtype=torch.int32)}
+    tmodel = LM(get_config("stablelm_1p6b").reduced())
+    ttemplate = train.make_state(tmodel, opt_lib.adamw(lr=1e-3),
+                                 torch.Generator().manual_seed(1), "cpu")
+    rtemplate = rtrain.make_state(rmodel, ropt_, ref.jax.random.PRNGKey(1))
+    return ref, rstate, tstate, rtemplate, ttemplate
+
+
+def _train_state_leaves(state):
+    from repro_torch.training import checkpoint
+    return {k: np.asarray(v.numpy() if isinstance(v, torch.Tensor) else v)
+            for k, v in checkpoint._flatten(state)}
+
+
+def test_train_state_crosses_packages_with_equal_bits(train_states,
+                                                      tmp_path):
+    """The reference's train state, ``OptState`` included, restores into
+    the port's template with equal bits, and the port's into the
+    reference's."""
+    from repro_torch.training import checkpoint
+    from repro_torch.training import optimizer as opt_lib
+    ref, rstate, tstate, rtemplate, ttemplate = train_states
+    dr, dt = str(tmp_path / "r"), str(tmp_path / "t")
+    ref.checkpoint.save(rstate, dr, 1)
+    got, _ = checkpoint.restore(ttemplate, dr, 1, device="cpu")
+    assert type(got["opt"]) is opt_lib.OptState
+    assert got["step"].dtype == torch.int32 and got["step"].dim() == 0
+    want = _train_state_leaves(tstate)
+    mine = _train_state_leaves(got)
+    assert mine.keys() == want.keys()
+    assert "opt/mu/embed" in mine and "opt/step" in mine
+    for k in want:
+        assert mine[k].dtype == want[k].dtype, k
+        assert mine[k].tobytes() == want[k].tobytes(), k
+    checkpoint.save(tstate, dt, 1)
+    back, _ = ref.checkpoint.restore(rtemplate, dt, 1)
+    assert type(back["opt"]).__name__ == "OptState"
+    flat_r = dict(ref.checkpoint._flatten(rstate))
+    for k, v in ref.checkpoint._flatten(back).items():
+        a, b0 = np.asarray(v), np.asarray(flat_r[k])
+        assert a.dtype == b0.dtype and a.tobytes() == b0.tobytes(), k
+
+
+def test_train_state_files_are_byte_identical(train_states, tmp_path):
+    from repro_torch.training import checkpoint
+    ref, rstate, tstate, _, _ = train_states
+    dr, dt = str(tmp_path / "r"), str(tmp_path / "t")
+    ref.checkpoint.save(rstate, dr, 2)
+    checkpoint.save(tstate, dt, 2)
+    sr, st = (os.path.join(d, "step_00000002") for d in (dr, dt))
+    assert sorted(os.listdir(sr)) == sorted(os.listdir(st))
+    for name in os.listdir(sr):
+        with open(os.path.join(sr, name), "rb") as a, \
+                open(os.path.join(st, name), "rb") as b:
+            assert a.read() == b.read(), name
+    assert checkpoint.manifest_fingerprint(dt, 2) == \
+        ref.checkpoint.manifest_fingerprint(dr, 2)
+    assert "CustomNode(namedtuple[OptState]" in \
+        checkpoint.read_manifest(dt, 2)["treedef"]
 
 
 def test_manifest_fingerprint_tracks_content(tmp_path):

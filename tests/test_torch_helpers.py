@@ -62,10 +62,12 @@ def reference():
 
 
 def to_numpy_tree(tree):
-    """A pytree of jax arrays -> the same nested dicts and lists of numpy
-    arrays."""
+    """A pytree of jax arrays -> the same nested dicts, lists, tuples and
+    namedtuples of numpy arrays."""
     if isinstance(tree, dict):
         return {k: to_numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(type(tree), "_fields"):
+        return type(tree)(*(to_numpy_tree(v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_numpy_tree(v) for v in tree)
     return np.asarray(tree)
