@@ -12,7 +12,10 @@ sequential, batched, pipelined and suffix engines:
      ``sited`` lines);
   2. StableLM-2-1.6B at its published widths, float32, random weights, on
      eval tokens that the full-mask model continues greedily from a Markov
-     prompt (``lm_batch``, ``lm_forward``, ``lm_bcd``, ``lm_sited`` lines);
+     prompt (``lm_batch``, ``lm_forward``, ``lm_bcd``, ``lm_sited`` lines),
+     and BCD at its own bfloat16 (``lm_bf16_bcd``: the batched engine,
+     unfused, and the suffix engine, fused on route A, must select the
+     same blocks; route A's stacked kernel must be launched);
   3. RWKV-6 3B the same way (``rwkv_batch``, ``rwkv_forward``, ``rwkv_bcd``,
      ``rwkv_sited`` lines), its time-mix scan on the ``rwkv6_scan`` kernel
      (route C, on the tensor cores), its channel-mix gate on the gate
@@ -69,16 +72,18 @@ functions at the published widths — RWKV-6 3B on 8 of its 32 repeats,
 DeepSeek-MoE-16B on 4 of its 28 layers, Zamba2-2.7B — train → SNL → a
 budget sweep on two engines, whose stages and losses must agree.
 Then training an LM (``lm_train`` line, ``--only-lm-train`` alone):
-StableLM-2-1.6B at its published widths in float32 through the launcher's
-own ``launch.train.run`` (8 steps of 8 x 128 tokens, remat, AdamW +
-cosine, one checkpoint of parameters and moments); from its final state,
+StableLM-2-1.6B at its published widths in its own bfloat16 through the
+launcher's own ``launch.train.run`` (8 steps of 8 x 128 tokens, remat,
+AdamW + cosine, one checkpoint of parameters and moments, read back and
+compared with the final state to the bit); from its final state,
 gradients and a step with remat on and off (equal to the bit), a step with
 ``loss_chunk`` against the whole sequence, the card's
 ``quantize_grads_int8`` against the CPU's and a 2-layer cut's gradients
-against the CPU's; a profiled step; the supervisor drill at reduced width
-(a failure injected at step 13 gives the bits of an uninterrupted run, a
-rerun with more steps resumes); and ``examples/torch_train_lm.py`` at its
-defaults (one restart, BCD on the batched engine: kernel 2).
+against the CPU's, in float32 and in bfloat16; a profiled step; the
+supervisor drill at reduced width in bfloat16 (a failure injected at step
+13 gives the bits of an uninterrupted run, a rerun with more steps
+resumes); and ``examples/torch_train_lm.py`` at its defaults (one
+restart, BCD on the batched engine: kernel 2).
 
 Every phase line carries its ``seconds``; a ``disk_writes`` line sums the
 bytes of the checkpoints this process wrote (the machine allows 45 GiB of
@@ -99,7 +104,13 @@ Tolerances (stated again in the output):
   * gate backward, float32: dx |err| <= 1e-6 + 1e-6*|ref|, as the gate;
     dpoly, a sum over r rows in another order than the plain version's,
     |err| <= 1e-7 + 2*(r - 1)*2^-24*sum|terms|, the bound of two float32
-    sums of r terms; and a second launch gives the same bits.
+    sums of r terms; and a second launch gives the same bits.  bfloat16
+    (x, g and dx; float32 arithmetic, dx rounded once, as the plain
+    version): dx equal to the plain version's bits for relu and sqrelu,
+    within one bfloat16 ulp of it for gelu and silu (tanhf / expf may
+    differ from PyTorch's by a float32 ulp, which can cross a bfloat16
+    rounding boundary); dpoly |err| <= 1e-5*sum|terms| (plus one bfloat16
+    ulp where poly, and so dpoly, is bfloat16).
   * train step, through gate_bwd_kernel vs through the plain backward,
     both on the card: each leaf's gradient within 1e-6 of its largest
     entry (the kernel's dx is the plain version's to the bit in every
@@ -148,14 +159,22 @@ Tolerances (stated again in the output):
     strong decay (w down to 2e-9) the plain version is not finite, and
     route C must be finite with its error against float64 within 4x route
     S's.
-  * LM training (``lm_train``): remat on vs off, gradients, parameters,
-    moments and metrics equal to the bit (the recomputation runs the same
-    operations on the same inputs); ``loss_chunk`` vs the whole sequence,
-    the loss within 1e-5 and ``grad_norm`` within 1e-3 relative (the
-    reference's own test); ``quantize_grads_int8``, card vs CPU, equal to
-    the bit; card vs CPU gradients, each leaf's relative L2 error <= 1e-3,
-    as the family path's; the supervisor drill's final state equal to the
-    bit to an uninterrupted run's.
+  * LM training (``lm_train``, bfloat16): every step's loss finite; the
+    checkpoint read back equal to the state to the bit; remat on vs off,
+    gradients, parameters, moments and metrics equal to the bit (the
+    recomputation runs the same operations on the same inputs);
+    ``loss_chunk`` vs the whole sequence, the loss within 2^-8 and
+    ``grad_norm`` within 2^-6 relative (in float32 the reference's own
+    test's 1e-5 and 1e-3; in bfloat16 the logits are bfloat16 products
+    that cuBLAS may sum in another order at another row count);
+    ``quantize_grads_int8``, card vs CPU, equal to the bit; card vs CPU
+    gradients of a 2-layer cut, in float32 (the bfloat16 parameters
+    upcast) each leaf's relative L2 error <= 1e-3, as the family path's,
+    and in bfloat16 each leaf's relative L2 error against the CPU's
+    float32 gradient within twice the CPU's bfloat16 gradient's plus 2^-5
+    (the pattern of the CPU tests, tests/test_torch_train_bf16.py); the
+    supervisor drill's final state equal to the bit to an uninterrupted
+    run's.
   * LM logits: 1e-3 absolute, the same comparisons — 24 to 54 layers of
     sums of up to 10944 products in other orders; logits are O(1) and a
     float32 sum of that length is off by about 1e-5 relative.  The
@@ -292,13 +311,14 @@ PORT_ONLY = {"masked_act_2d_bwd": "the gradient of kernel 1 (the reference "
              "linattn_chunked)"}
 # ... and the routes (build.route_counts): ResNet18's float32 convs on
 # route T (tensor cores); StableLM's float32 path on route B, its bfloat16
-# forward on route A; RWKV-6's scans on route C (tensor cores), every one;
+# forward and bfloat16 BCD on route A; RWKV-6's scans on route C (tensor cores), every one;
 # DeepSeek-MoE's float32 dense head block and shared experts on route B
 PATH_ROUTES = {
     "resnet18": ("masked_act_conv3x3:tf32x3",
                  "masked_act_conv3x3_batched:tf32x3"),
     "stablelm_1p6b": ("masked_act_matmul_2d:fma", "masked_act_matmul_2d:wgmma",
-                      "masked_act_matmul_2d_batched:fma"),
+                      "masked_act_matmul_2d_batched:fma",
+                      "masked_act_matmul_2d_batched:wgmma"),
     "rwkv6_3b": ("rwkv6_scan:tf32x3",),
     "deepseek_moe_16b": ("masked_act_matmul_2d:fma",
                          "masked_act_matmul_2d_batched:fma"),
@@ -324,6 +344,9 @@ TOL = {
     ("gate", torch.float32): (1e-6, 1e-6),
     ("gate", torch.bfloat16): (1e-2, 1e-2),
     ("gate_bwd", torch.float32): (1e-6, 1e-6),
+    # bfloat16: equal bits (relu, sqrelu) or one bfloat16 ulp (gelu, silu),
+    # checked in gate_bwd_case; one ulp is at most 2^-7 of the value
+    ("gate_bwd", torch.bfloat16): (0.0, 2.0 ** -7),
     ("conv", torch.float32): (2e-4, 2e-4),
     ("conv", torch.bfloat16): (1e-2, 1e-2),
     ("matmul", torch.float32): (2e-4, 2e-4),
@@ -544,41 +567,82 @@ def gate_case(name, dtype, kind, n, rows, cols, poly, shared_x, primary,
                             shared_x=shared_x), timed)
 
 
-def gate_bwd_case(kind, rows, cols, poly, primary, seed, timed=False):
+def bf16_ulp(t):
+    """One bfloat16 ulp at each entry of ``t``: 2^(e - 8) for |t| in
+    [2^(e-1), 2^e), and the smallest subnormal's at 0."""
+    t = t.float()
+    _, e = torch.frexp(t)
+    ulp = torch.ldexp(torch.ones_like(t), (e - 8).clamp_min(-133))
+    return torch.where(t == 0, torch.full_like(t, 2.0 ** -133), ulp)
+
+
+def gate_bwd_case(kind, rows, cols, poly, primary, seed, timed=False,
+                  dtype=torch.float32, need_dpoly=None,
+                  poly_dtype=torch.float32):
     """The gate's backward kernel against ``ref.masked_act_bwd_ref``: x with
     exact zeros (relu′(0) = 1/2), a binary mask, and with ``poly`` the
-    poly2 replacement and its gradient, whose row sum must also come out
-    the same, bit for bit, from a second launch."""
+    poly2 replacement (of ``poly_dtype``) and, with ``need_dpoly`` (poly by
+    default), its gradient, whose row sum must also come out the same, bit
+    for bit, from a second launch.  ``dtype``: x, g and dx; in bfloat16,
+    dx must equal the plain version's to the bit for relu and sqrelu and
+    lie within one bfloat16 ulp of it for gelu and silu, and dpoly within
+    1e-5 of the sum of its terms' magnitudes (plus a bfloat16 ulp of it
+    when poly is bfloat16)."""
     from repro_torch.kernels import masked_act as K, ref
     name = "masked_act_2d_bwd"
+    need_dpoly = poly if need_dpoly is None else need_dpoly
     g = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn((rows, cols), generator=g, device="cuda")
+    x = torch.randn((rows, cols), generator=g, device="cuda").to(dtype)
     x.view(-1)[::7] = 0.0
     mask = (torch.rand((cols,), generator=g, device="cuda") < 0.6).float()
-    grad = torch.randn((rows, cols), generator=g, device="cuda")
-    p = torch.randn((3, cols), generator=g, device="cuda") * 0.3 \
-        if poly else None
+    grad = torch.randn((rows, cols), generator=g, device="cuda").to(dtype)
+    p = (torch.randn((3, cols), generator=g, device="cuda") * 0.3).to(
+        poly_dtype) if poly else None
 
     def kernel():
         return K.masked_act_2d_bwd(x, mask, grad, p, kind=kind,
-                                   need_dpoly=poly)
+                                   need_dpoly=need_dpoly)
 
     def plain():
-        return ref.masked_act_bwd_ref(x, mask, grad, kind, p, poly)
+        return ref.masked_act_bwd_ref(x, mask, grad, kind, p, need_dpoly)
 
     (dx, dpoly), (want_dx, want_dp) = kernel(), plain()
     torch.cuda.synchronize()
-    extra = dict(kind=kind, shape=[rows, cols], poly=poly, shared_x=False,
+    extra = dict(kind=kind, shape=[rows, cols], poly=poly,
+                 need_dpoly=need_dpoly, shared_x=False,
                  zeros_in_x=int((x == 0).sum()))
-    if poly:
-        g1m = grad * (1.0 - mask)
-        terms = torch.stack([(g1m * x * x).abs().sum(0),
-                             (g1m * x).abs().sum(0), g1m.abs().sum(0)])
-        bound = 1e-7 + 2 * (rows - 1) * 2.0 ** -24 * terms
-        err = (dpoly - want_dp).abs()
+    if dtype == torch.bfloat16:
+        diff = (dx.float() - want_dx.float()).abs()
+        ulps = diff / bf16_ulp(want_dx)
+        extra["dx_max_ulps"] = float(ulps.max())
+        extra["dx_tol"] = ("equal bits" if kind in ("relu", "sqrelu")
+                           else "1 bfloat16 ulp")
+        if kind in ("relu", "sqrelu") and not torch.equal(dx, want_dx):
+            fail(f"{name} {extra}: dx differs from the plain version's "
+                 f"bits at {int((diff > 0).sum())} entries")
+        if bool((ulps > 1).any()):
+            fail(f"{name} {extra}: dx is more than one bfloat16 ulp from "
+                 "the plain version's")
+        del diff, ulps
+    if need_dpoly:
+        xf, gf = x.float(), grad.float()
+        g1m = gf * (1.0 - mask)
+        terms = torch.stack([(g1m * xf * xf).abs().sum(0),
+                             (g1m * xf).abs().sum(0), g1m.abs().sum(0)])
+        if dtype == torch.float32:
+            bound = 1e-7 + 2 * (rows - 1) * 2.0 ** -24 * terms
+            extra["dpoly_tol"] = "1e-7 + 2*(rows-1)*2^-24*sum|terms|"
+        else:
+            bound = 1e-5 * terms
+            extra["dpoly_tol"] = "1e-5*sum|terms|"
+            if poly_dtype == torch.bfloat16:
+                bound = bound + bf16_ulp(want_dp)
+                extra["dpoly_tol"] += " + 1 bfloat16 ulp"
+        err = (dpoly.float() - want_dp.float()).abs()
         extra["dpoly_max_abs_err"] = float(err.max())
-        extra["dpoly_tol"] = "1e-7 + 2*(rows-1)*2^-24*sum|terms|"
-        if not torch.isfinite(dpoly).all() or bool((err > bound).any()):
+        extra["dpoly_dtype"] = str(dpoly.dtype).replace("torch.", "")
+        if dpoly.dtype != p.dtype or not torch.isfinite(dpoly).all() or \
+                bool((err > bound).any()):
             fail(f"{name} {extra}: dpoly misses its tolerance")
         again = kernel()[1]
         torch.cuda.synchronize()
@@ -586,9 +650,11 @@ def gate_bwd_case(kind, rows, cols, poly, primary, seed, timed=False):
             fail(f"{name} {extra}: two launches gave different dpoly bits")
         del again, err, terms, bound
     n_el = rows * cols
-    byts = nbytes(x, mask, grad, p) + 4 * n_el + (12 * cols if poly else 0)
+    esize = x.element_size()
+    byts = nbytes(x, mask, grad, p) + esize * n_el + \
+        (3 * cols * p.element_size() if need_dpoly else 0)
     flops = n_el * (6 + (9 if poly else 0))
-    return finish_case(name, "gate_bwd", torch.float32, dx, want_dx, kernel,
+    return finish_case(name, "gate_bwd", dtype, dx, want_dx, kernel,
                        plain, False, byts, flops, primary, extra, timed)
 
 
@@ -1191,6 +1257,26 @@ def run_kernel_cases():
                                        seed=170 + 2 * i + poly))
             cases.append(gate_bwd_case(kind, 9, 96, poly, primary=False,
                                        seed=180 + 2 * i + poly))
+    # bfloat16 (the LMs' own dtype): the LM train step's FFN site of
+    # StableLM-2-1.6B, silu on (8 x 128, 5632), timed; every kind with and
+    # without poly, with and without dpoly, at ragged shapes (203 columns
+    # take the scalar loads, 96 the 8-byte ones); one case with a bfloat16
+    # poly (its dpoly in bfloat16)
+    cases.append(gate_bwd_case("silu", 8 * 128, 5632, False, primary=False,
+                               seed=240, timed=True, dtype=bf16))
+    cases.append(gate_bwd_case("silu", 8 * 128, 5632, True, primary=False,
+                               seed=241, timed=True, dtype=bf16))
+    for i, kind in enumerate(kinds):
+        for j, (poly, dpoly) in enumerate(((False, False), (True, False),
+                                           (True, True))):
+            cases.append(gate_bwd_case(kind, 37, 203, poly, primary=False,
+                                       seed=250 + 3 * i + j, dtype=bf16,
+                                       need_dpoly=dpoly))
+            cases.append(gate_bwd_case(kind, 9, 96, poly, primary=False,
+                                       seed=270 + 3 * i + j, dtype=bf16,
+                                       need_dpoly=dpoly))
+    cases.append(gate_bwd_case("gelu", 37, 96, True, primary=False, seed=290,
+                               dtype=bf16, poly_dtype=bf16))
 
     # ---- masked_act_2d_batched: a chunk of 8 candidates
     g2b = "masked_act_2d_batched"
@@ -1742,7 +1828,8 @@ def device_families(prof, n: int):
         elif any(t in low for t in ("conv", "cudnn", "wgrad", "dgrad",
                                      "implicit", "winograd", "fft")):
             fam = "conv"
-        elif any(t in low for t in ("gemm", "sgemm", "cutlass", "cublas")):
+        elif any(t in low for t in ("gemm", "sgemm", "cutlass", "cublas",
+                                     "nvjet", "xmma")):
             fam = "gemm"
         elif "reduce" in low:
             fam = "reduce"
@@ -2387,11 +2474,14 @@ class LMPath:
     w_o_scale: float = 1.0   # factor on the init's block output projection
     bf16: bool = True   # one forward at the config's bfloat16 as well
     drc: int = LM_DRC   # nonlinearities removed per BCD step
+    bf16_bcd: bool = False   # BCD at the config's bfloat16 as well
 
 
 LM_PATHS = (
+    # StableLM also runs BCD at its own bfloat16 (``lm_bf16_bcd``): the
+    # suffix engine's fused forwards on route A (kernels 3/4, wgmma)
     LMPath("stablelm_1p6b", "lm", 128, 1, True, ("s0.ffn@8", "s0.ffn@20"),
-           0),
+           0, bf16_bcd=True),
     # the RWKV time-mix scan needs S % min(32, S) == 0, as the reference
     # does: 128 inputs, and greedy forwards padded to multiples of 32; the
     # card-vs-CPU check runs the first 8 of 32 repeats (3.6 GB on the host).
@@ -2749,28 +2839,39 @@ def run_lm_bf16(cfg, tree, x, spec, f32_logits, device="cuda"):
                 max_abs_logit_diff=diff)
 
 
+ENGINES = ("sequential", "batched", "pipelined", "suffix")
+
+
 def run_lm_bcd(model, params, batch, steps: int, drc: int, spec,
-               device="cuda"):
-    """``bcd.run_bcd`` on the LM through the four engines: identical
-    selections, and at least one step whose trials did not all tie."""
+               device="cuda", backends=ENGINES, tag=None, cost_model=None):
+    """``bcd.run_bcd`` on the LM through ``backends`` (the four engines):
+    identical selections, and at least one step whose trials did not all
+    tie.  Where the engines part, every trial's accuracy of each engine but
+    the sequential one goes into the ``<tag>_failed`` line.  ``cost_model``
+    replaces the suffix engine's (``SuffixCostModel``), which decides
+    which chunks take the suffix path."""
     from repro_torch.core import bcd, linearize, masks as M
     from repro_torch.launch.sweep import make_bcd_evaluator
+    tag = tag or f"{spec.tag}_bcd"
     masks0 = linearize.init_masks(model.mask_sites())
     total = model.relu_count()
     rt = 16
-    prints, runs, step_accs = {}, [], []
-    for backend in ("sequential", "batched", "pipelined", "suffix"):
+    prints, runs, trial_accs = {}, [], {}
+    for backend in backends:
         holder = {"params": params}
         evaluator, eval_acc, _ = make_bcd_evaluator(
             backend, model, batch, holder, chunk_size=LM_CHUNK, rt=rt,
             prefetch=2, fused_kernels=spec.fused, device=device)
-        if backend == "batched":
+        if backend == "suffix" and cost_model is not None:
+            evaluator.cost_model = cost_model
+        if backend != "sequential":
             # record every trial accuracy (rt per step, in order)
             inner = evaluator.evaluate_staged
+            trial_accs[backend] = []
 
-            def recording(staged, inner=inner):
+            def recording(staged, inner=inner, out=trial_accs[backend]):
                 accs = inner(staged)
-                step_accs.extend(float(a) for a in accs)
+                out.extend(float(a) for a in accs)
                 return accs
             evaluator.evaluate_staged = recording
         cfg = bcd.BCDConfig(b_target=total - drc * steps, drc=drc, rt=rt,
@@ -2784,11 +2885,10 @@ def run_lm_bcd(model, params, batch, steps: int, drc: int, spec,
         wall = time.perf_counter() - t0
         launches = {k: v - before[k] for k, v in counts().items()}
         if M.relu_cost(res.masks) != total - drc * steps:
-            fail(f"{spec.tag}_bcd {backend}: budget "
-                 f"{M.relu_cost(res.masks)}")
+            fail(f"{tag} {backend}: budget {M.relu_cost(res.masks)}")
         accs = [h.acc_before for h in res.history]
         if not all(np.isfinite(a) and 0.0 <= a <= 100.0 for a in accs):
-            fail(f"{spec.tag}_bcd {backend}: accuracies {accs}")
+            fail(f"{tag} {backend}: accuracies {accs}")
         trials = sum(h.trials for h in res.history)
         prints[backend] = M.fingerprint(res.masks)
         run = dict(backend=backend, steps=len(res.history), trials=trials,
@@ -2804,17 +2904,58 @@ def run_lm_bcd(model, params, batch, steps: int, drc: int, spec,
                                misses=trie.misses)
         runs.append(run)
     if len(set(prints.values())) != 1:
-        emit({f"{spec.tag}_bcd_failed": runs})
-        fail(f"{spec.tag}_bcd: engines selected different blocks: {prints}")
+        emit({f"{tag}_failed": dict(runs=runs, trial_accs=trial_accs)})
+        fail(f"{tag}: engines selected different blocks: {prints}")
+    step_accs = trial_accs["batched"]
     distinct = [len(set(step_accs[i:i + rt]))
                 for i in range(0, len(step_accs), rt)]
     if not distinct or max(distinct) < 2:
-        fail(f"{spec.tag}_bcd: every step's trials tied ({distinct} "
-             "distinct accuracies per step): the parity would be vacuous")
-    return dict(model=model.cfg.name, dtype="float32", batch=LM_BATCH,
+        fail(f"{tag}: every step's trials tied ({distinct} distinct "
+             "accuracies per step): the parity would be vacuous")
+    return dict(model=model.cfg.name,
+                dtype=str(model.dtype).replace("torch.", ""), batch=LM_BATCH,
                 tokens=spec.seq - 1, drc=drc, rt=rt, chunk_size=LM_CHUNK,
                 adt=-100.0, moves=["remove"], steps=steps,
                 distinct_trial_accs_per_step=distinct, runs=runs)
+
+
+def run_lm_bf16_bcd(spec, steps: int, device="cuda"):
+    """BCD at the config's own bfloat16: the model drawn from the path's
+    seed in bfloat16, an eval batch of its own greedy continuations
+    (:func:`make_lm_batch`), and ``run_bcd`` through the batched engine
+    (unfused: kernel 2 and cuBLAS's bfloat16 product) and the suffix engine
+    (fused: kernel 4 on route A, ``wgmma``): identical selections, and
+    route A's stacked kernel launched.  A block of ``spec.drc`` = 256
+    random coordinates of 24 x 5632 touches the first repeat's FFN all but
+    always ((23/24)^256 = 2e-5 misses it), and the default cost model sends
+    a chunk cut there (prefix fraction 0) down the unfused full forward; so
+    the suffix engine runs with a cost model that takes every chunk of two
+    or more candidates on the suffix path: the embedding is the prefix,
+    and every FFN of every candidate runs on route A."""
+    t0 = time.perf_counter()
+    model, params = make_lm(SEED, spec, device, dtype="bfloat16")
+    batch, info = make_lm_batch(model, params, SEED, spec, device)
+    info["seconds"] = time.perf_counter() - t0
+    before = counts()
+    t0 = time.perf_counter()
+    from repro_torch.analysis.roofline import SuffixCostModel
+    out = run_lm_bcd(model, params, batch, steps, spec.drc, spec, device,
+                     backends=("batched", "suffix"),
+                     tag=f"{spec.tag}_bf16_bcd",
+                     cost_model=SuffixCostModel(min_prefix_fraction=0.0))
+    out["suffix_cost_model"] = "SuffixCostModel(min_prefix_fraction=0.0)"
+    out["seconds"] = time.perf_counter() - t0
+    out["batch_info"] = info
+    out["launches"] = {k: v - before[k] for k, v in counts().items()
+                       if v - before[k]}
+    del model, params
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        if out["launches"].get("masked_act_matmul_2d_batched:wgmma", 0) == 0:
+            fail(f"{spec.tag}_bf16_bcd: route A's stacked kernel "
+                 "(masked_act_matmul_2d_batched, wgmma) was not launched")
+    return out
 
 
 def run_lm_sited(model, params, batch, drc: int, spec, device="cuda"):
@@ -3067,6 +3208,9 @@ def run_lm_path(spec, by_path, device="cuda"):
     bcd_report["seconds"], t0 = time.perf_counter() - t0, time.perf_counter()
     sited = run_lm_sited(model, params, batch, LM_SITED_DRC, spec, device)
     sited["seconds"], t0 = time.perf_counter() - t0, time.perf_counter()
+    bf16_bcd = run_lm_bf16_bcd(spec, LM_STEPS, device) if spec.bf16_bcd \
+        else None
+    t0 = time.perf_counter()
     served = run_family_serve(model, params, spec, device) if family \
         else None
     if served is not None:
@@ -3081,6 +3225,8 @@ def run_lm_path(spec, by_path, device="cuda"):
     emit({f"{spec.tag}_forward": forward})
     emit({f"{spec.tag}_bcd": bcd_report})
     emit({f"{spec.tag}_sited": sited})
+    if bf16_bcd is not None:
+        emit({f"{spec.tag}_bf16_bcd": bf16_bcd})
     if served is not None:
         emit({f"{spec.tag}_serve": served})
     del model, params
@@ -4039,6 +4185,15 @@ LM_TRAIN_LOSS_REL = 1e-5        # ... its loss (the reference's own test)
 LM_TRAIN_NORM_REL = 1e-3        # ... and its grad_norm
 LM_TRAIN_GRAD_LAYERS = 2        # card vs CPU: 2 of 24 layers, batch 2
 LM_TRAIN_GRAD_BATCH = 2
+# ... in bfloat16 (the config's own dtype): each leaf's relative L2 error
+# against the CPU's float32 gradient (of the same bfloat16 parameters,
+# upcast) within twice the CPU's bfloat16 gradient's, plus 2^-5 — the
+# pattern of tests/test_torch_train_bf16.py
+LM_TRAIN_BF16_GRAD_RATIO, LM_TRAIN_BF16_GRAD_ABS = 2.0, 2.0 ** -5
+# loss_chunk against the whole sequence in bfloat16: the logits are
+# bfloat16 products that cuBLAS may sum in another order at another row
+# count, each rounding to bfloat16 (2^-8)
+LM_TRAIN_BF16_LOSS_REL, LM_TRAIN_BF16_NORM_REL = 2.0 ** -8, 2.0 ** -6
 # the supervisor drill at --reduced width: 20 steps, again with a failure
 # at step 13 (restart from the step-10 checkpoint), then a rerun to 25
 DRILL_FLAGS = ("--arch", "stablelm_1p6b", "--reduced", "--global-batch",
@@ -4063,6 +4218,14 @@ def _state_leaves(state):
     return checkpoint._flatten(state)
 
 
+def _same_bits(a, b) -> bool:
+    """Equal dtype, shape and bytes (a bfloat16 -0 is not +0)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.detach().cpu().reshape(-1).view(torch.uint8),
+                       b.detach().cpu().reshape(-1).view(torch.uint8))
+
+
 def _peak(device, before):
     """Peak allocated bytes since the last reset, and the peak less what
     was allocated before (None on the CPU)."""
@@ -4080,46 +4243,88 @@ def _reset_peak(device) -> int:
     return torch.cuda.memory_allocated()
 
 
+def _rel_l2_leaves(names, got, want) -> dict:
+    """Each leaf's relative L2 error of ``got`` against ``want`` (lists of
+    host tensors), in float64."""
+    out = {}
+    for name, g, w in zip(names, got, want):
+        den = float(torch.linalg.vector_norm(w.double()))
+        out[name] = float(torch.linalg.vector_norm(
+            g.double() - w.double())) / max(den, 1e-30)
+    return out
+
+
 def lm_train_grad_check(model, params, batch, device="cuda"):
     """The train step's loss gradients of the model cut to its first
     ``LM_TRAIN_GRAD_LAYERS`` layers, on the card (the gates through
     ``gate_bwd_kernel``) and on the CPU (the plain versions), from the same
-    parameters, random hard masks and batch, remat on: each leaf's
-    relative L2 error within ``FAMILY_GRAD_TOL``."""
+    parameters, random hard masks and batch, remat on.  In float32 (the
+    parameters upcast): each leaf's relative L2 error within
+    ``FAMILY_GRAD_TOL``.  In the model's bfloat16: each leaf's relative L2
+    error against the CPU's float32 gradient within
+    ``LM_TRAIN_BF16_GRAD_RATIO`` times the CPU's bfloat16 gradient's, plus
+    ``LM_TRAIN_BF16_GRAD_ABS``."""
     from repro_torch.convert import to_device
     from repro_torch.core import masks as M
+    from repro_torch.models.lm import LM
     from repro_torch.training import optimizer as opt_lib, train
     rng = np.random.default_rng(SEED)
     tree = {k: (rng.random(s.shape) < 0.6).astype(np.float32)
             for k, s in model.mask_sites().items()}
     cut, sub, sub_tree = first_repeats(model, params, tree,
                                        LM_TRAIN_GRAD_LAYERS)
-    loss_fn = train.make_loss_fn(cut, train.TrainStepCfg(remat=True))
-    with train.deterministic():
-        loss_c, g_card = train.loss_and_grads(
-            loss_fn, sub, M.as_device(sub_tree, device), batch)
-    loss_h, g_cpu = train.loss_and_grads(
-        loss_fn, to_device(sub, "cpu"), M.as_device(sub_tree, "cpu"),
-        to_device(batch, "cpu"))
     names = opt_lib.tree_leaves(_leaf_names(sub))
-    per_leaf = {}
-    for name, gc_, gh in zip(names, opt_lib.tree_leaves(g_card),
-                             opt_lib.tree_leaves(g_cpu)):
-        gc_ = gc_.cpu()
-        if not bool(torch.isfinite(gc_).all()):
-            fail(f"lm_train: the card's gradient of {name} is not finite")
-        den = float(torch.linalg.vector_norm(gh.double()))
-        per_leaf[name] = float(torch.linalg.vector_norm(
-            (gc_ - gh).double())) / max(den, 1e-30)
+
+    def grads(m, p, dev):
+        loss_fn = train.make_loss_fn(m, train.TrainStepCfg(remat=True))
+        with train.deterministic():
+            loss, g = train.loss_and_grads(
+                loss_fn, to_device(p, dev), M.as_device(sub_tree, dev),
+                to_device(batch, dev))
+        g = [t.cpu() for t in opt_lib.tree_leaves(g)]
+        for name, t in zip(names, g):
+            if not bool(torch.isfinite(t).all()):
+                fail(f"lm_train: the {dev} gradient of {name} is not "
+                     "finite")
+        return float(loss), g
+    cut32 = LM(dataclasses.replace(cut.cfg, dtype="float32"))
+    sub32 = opt_lib.tree_map(lambda t: t.float(), sub)
+    loss_c, g_card = grads(cut32, sub32, device)
+    loss_h, g_cpu = grads(cut32, sub32, "cpu")
+    per_leaf = _rel_l2_leaves(names, g_card, g_cpu)
     worst = max(per_leaf, key=per_leaf.get)
     if per_leaf[worst] > FAMILY_GRAD_TOL:
-        fail(f"lm_train: card vs CPU gradient of {worst}: relative L2 "
-             f"{per_leaf[worst]:.3e} > {FAMILY_GRAD_TOL}")
-    return dict(layers=cut.cfg.n_layers, of=model.cfg.n_layers,
-                batch=list(batch["tokens"].shape), leaves=len(per_leaf),
-                worst_leaf=worst, worst_rel_l2=per_leaf[worst],
-                tol=FAMILY_GRAD_TOL, loss_card=float(loss_c),
-                loss_cpu=float(loss_h))
+        fail(f"lm_train: card vs CPU float32 gradient of {worst}: relative "
+             f"L2 {per_leaf[worst]:.3e} > {FAMILY_GRAD_TOL}")
+    out = dict(layers=cut.cfg.n_layers, of=model.cfg.n_layers,
+               batch=list(batch["tokens"].shape), leaves=len(per_leaf),
+               float32=dict(worst_leaf=worst, worst_rel_l2=per_leaf[worst],
+                            tol=FAMILY_GRAD_TOL, loss_card=loss_c,
+                            loss_cpu=loss_h))
+    del g_card, sub32
+    if cut.dtype != torch.bfloat16:
+        return out
+    loss_bc, g_bcard = grads(cut, sub, device)
+    loss_bh, g_bcpu = grads(cut, sub, "cpu")
+    card = _rel_l2_leaves(names, g_bcard, g_cpu)
+    cpu = _rel_l2_leaves(names, g_bcpu, g_cpu)
+    direct = _rel_l2_leaves(names, g_bcard, g_bcpu)
+    excess = {n: card[n] - (LM_TRAIN_BF16_GRAD_RATIO * cpu[n] +
+                            LM_TRAIN_BF16_GRAD_ABS) for n in names}
+    worst = max(excess, key=excess.get)
+    out["bfloat16"] = dict(
+        worst_leaf=worst, card_rel_l2_vs_cpu_f32=card[worst],
+        cpu_rel_l2_vs_cpu_f32=cpu[worst],
+        max_card_rel_l2_vs_cpu_f32=max(card.values()),
+        max_cpu_rel_l2_vs_cpu_f32=max(cpu.values()),
+        max_card_vs_cpu_bf16_rel_l2=max(direct.values()),
+        tol=f"card <= {LM_TRAIN_BF16_GRAD_RATIO} * cpu + 2^-5 (relative "
+            "L2 against the CPU's float32 gradient)",
+        loss_card=loss_bc, loss_cpu=loss_bh)
+    if excess[worst] > 0:
+        fail(f"lm_train: card vs CPU bfloat16 gradient of {worst}: "
+             f"{out['bfloat16']}")
+    return out
 
 
 def lm_train_from_one_state(model, state, batch, masks, opt, device):
@@ -4146,7 +4351,7 @@ def lm_train_from_one_state(model, state, batch, masks, opt, device):
         peaks[f"grads_{tag}"] = _peak(device, before)
         out[f"loss_{tag}"] = float(loss)
         del g
-    out["grads_equal_bits"] = all(torch.equal(a, b) for a, b in zip(
+    out["grads_equal_bits"] = all(_same_bits(a, b) for a, b in zip(
         grads["remat"], grads["no_remat"])) and \
         out["loss_remat"] == out["loss_no_remat"]
     if not out["grads_equal_bits"]:
@@ -4160,7 +4365,7 @@ def lm_train_from_one_state(model, state, batch, masks, opt, device):
     for g in grads.pop("remat"):
         q_card = train.quantize_grads_int8([g])[0].cpu()
         q_cpu = train.quantize_grads_int8([g.cpu()])[0]
-        differ += int(not torch.equal(q_card, q_cpu))
+        differ += int(not _same_bits(q_card, q_cpu))
     out["quantize_int8"] = dict(leaves_differing=differ,
                                 seconds=time.perf_counter() - t0)
     if differ:
@@ -4179,7 +4384,7 @@ def lm_train_from_one_state(model, state, batch, masks, opt, device):
         metrics[tag] = {k: float(v) for k, v in m.items()}
         if tag == "no_remat":
             same = all(
-                ka == kb and torch.equal(a, b) for (ka, a), (kb, b) in zip(
+                ka == kb and _same_bits(a, b) for (ka, a), (kb, b) in zip(
                     _state_leaves(new["remat"]), _state_leaves(new[tag])))
             out["step_equal_bits"] = same and metrics["remat"] == metrics[tag]
             if not out["step_equal_bits"]:
@@ -4191,11 +4396,13 @@ def lm_train_from_one_state(model, state, batch, masks, opt, device):
     whole, chunk = metrics["remat"], metrics["chunk"]
     rel = {k: abs(chunk[k] - whole[k]) / abs(whole[k])
            for k in ("loss", "grad_norm")}
+    tol_loss, tol_norm = (LM_TRAIN_BF16_LOSS_REL, LM_TRAIN_BF16_NORM_REL) \
+        if model.dtype == torch.bfloat16 else (LM_TRAIN_LOSS_REL,
+                                               LM_TRAIN_NORM_REL)
     out["loss_chunk"] = dict(chunk=LM_TRAIN_CHUNK, whole=whole, chunked=chunk,
-                             rel=rel, tol={"loss": LM_TRAIN_LOSS_REL,
-                                           "grad_norm": LM_TRAIN_NORM_REL})
-    if rel["loss"] > LM_TRAIN_LOSS_REL or \
-            rel["grad_norm"] > LM_TRAIN_NORM_REL:
+                             rel=rel, tol={"loss": tol_loss,
+                                           "grad_norm": tol_norm})
+    if rel["loss"] > tol_loss or rel["grad_norm"] > tol_norm:
         fail(f"lm_train: loss_chunk={LM_TRAIN_CHUNK} against the whole "
              f"sequence: {rel}")
     out["peaks"] = peaks
@@ -4226,11 +4433,13 @@ def profile_lm_train_step(step, state, batch_fn, masks, device):
                 loss=float(m["loss"]))
 
 
-def run_supervisor_drill(root, device="cuda"):
-    """The launcher at ``--reduced`` width: 20 steps, the same 20 with a
-    failure injected at step 13, equal losses from step 10 on and equal
-    final parameters, moments and counters; then a rerun with 25 steps in
-    the first run's directory resumes at step 20."""
+def run_supervisor_drill(root, device="cuda", dtype="bfloat16"):
+    """The launcher at ``--reduced`` width in ``dtype`` (the config's own
+    is bfloat16; ``--reduced`` sets float32): 20 steps, the same 20 with a
+    failure injected at step 13 (a restart from the checkpoint of step
+    10), equal losses from step 10 on and equal final parameters, moments
+    and counters; then a rerun with 25 steps in the first run's directory
+    resumes at step 20."""
     import contextlib
     import io
     from repro_torch.launch import train as launch
@@ -4241,7 +4450,7 @@ def run_supervisor_drill(root, device="cuda"):
             "--steps", str(steps), "--ckpt-dir", os.path.join(root, name),
             "--device", device])
     a = args(DRILL_STEPS, "whole")
-    cfg = launch.make_config(a)
+    cfg = dataclasses.replace(launch.make_config(a), dtype=dtype)
     with contextlib.redirect_stdout(io.StringIO()):
         whole = launch.run(a, cfg, device)
         cut = launch.run(args(DRILL_STEPS, "cut"), cfg, device,
@@ -4251,11 +4460,12 @@ def run_supervisor_drill(root, device="cuda"):
     tail = DRILL_STEPS - restart_at
     same_losses = cut["losses"][-tail:] == whole["losses"][-tail:]
     same_state = all(
-        ka == kb and torch.equal(x, y) for (ka, x), (kb, y) in zip(
+        ka == kb and _same_bits(x, y) for (ka, x), (kb, y) in zip(
             _state_leaves(whole["result"]["state"]),
             _state_leaves(cut["result"]["state"])))
     line = dict(
         config=cfg.name, d_model=cfg.d_model, layers=cfg.n_layers,
+        dtype=cfg.dtype,
         flags=list(DRILL_FLAGS), steps=DRILL_STEPS, fail_at=DRILL_FAIL_AT,
         restarts=cut["result"]["restarts"],
         losses_equal_from_step=restart_at, losses_equal=same_losses,
@@ -4303,24 +4513,25 @@ def run_train_lm_example(root, device="cuda"):
 
 def run_lm_train_path(by_path, device="cuda", cfg=None):
     """The LM training phase: StableLM-2-1.6B at its published widths in
-    float32 through ``launch.train.run`` (``LM_TRAIN_FLAGS``: 8 steps, one
-    checkpoint), the card-vs-CPU gradients of a 2-layer cut, the checks
-    from one state (:func:`lm_train_from_one_state`), a profiled step,
-    the supervisor drill at ``--reduced`` width and
-    ``examples/torch_train_lm.py`` at its defaults; launch counts set to 0
-    just before the launcher's run and read after the example.  ``cfg``:
-    another config for the full-width run (a CPU rehearsal)."""
+    its own bfloat16 through ``launch.train.run`` (``LM_TRAIN_FLAGS``: 8
+    steps, one checkpoint, restored and compared with the final state to
+    the bit), the card-vs-CPU gradients of a 2-layer cut in float32 and in
+    bfloat16, the checks from one state (:func:`lm_train_from_one_state`),
+    a profiled step, the supervisor drill at ``--reduced`` width in the
+    run's dtype and ``examples/torch_train_lm.py`` at its defaults; launch
+    counts set to 0 just before the launcher's run and read after the
+    example.  ``cfg``: another config for the full-width run, in its own
+    dtype (a CPU rehearsal)."""
     import contextlib
     import io
     import shutil
-    from repro_torch.configs import get_config
     from repro_torch.convert import to_device
     from repro_torch.core import linearize, masks as M
     from repro_torch.data import MarkovTokens
     from repro_torch.kernels import build
     from repro_torch.launch import train as launch
     from repro_torch.models.lm import LM
-    from repro_torch.training import optimizer as opt_lib, train
+    from repro_torch.training import checkpoint, optimizer as opt_lib, train
     cuda = torch.device(device).type == "cuda"
     root = os.path.join(HERE, "build", "lm_train")
     shutil.rmtree(root, ignore_errors=True)
@@ -4332,11 +4543,9 @@ def run_lm_train_path(by_path, device="cuda", cfg=None):
     t_all = time.perf_counter()
     args = launch.parse_args(list(LM_TRAIN_FLAGS) + [
         "--ckpt-dir", os.path.join(root, "full"), "--device", device])
-    # the config's own dtype is bfloat16, which the launcher refuses
-    # (ROADMAP A10(d)): float32, as every LM path here; no width is cut
-    full = dataclasses.replace(cfg or get_config(args.arch),
-                               dtype="float32",
-                               remat_group=args.remat_group)
+    # the config as published, in its own dtype (bfloat16); no width is cut
+    full = launch.make_config(args) if cfg is None else \
+        dataclasses.replace(cfg, remat_group=args.remat_group)
     try:
         build.reset_launch_counts()
         before = _reset_peak(device)
@@ -4360,6 +4569,21 @@ def run_lm_train_path(by_path, device="cuda", cfg=None):
                        opt_lib.tree_leaves(state["params"]))
         state_bytes = sum(t.numel() * t.element_size()
                           for _, t in _state_leaves(state))
+        dtypes = sorted({str(t.dtype).replace("torch.", "")
+                         for _, t in _state_leaves(state)})
+        # the checkpoint of the last step, read back: the state's bits
+        t0 = time.perf_counter()
+        back, _ = checkpoint.restore(state, args.ckpt_dir, int(args.steps),
+                                     device="cpu")
+        round_trip = dict(
+            seconds=time.perf_counter() - t0, equal_bits=all(
+                ka == kb and _same_bits(a, b) for (ka, a), (kb, b) in zip(
+                    _state_leaves(state), _state_leaves(back))))
+        del back
+        laps["checkpoint_round_trip"] = round_trip["seconds"]
+        if not round_trip["equal_bits"]:
+            fail("lm_train: the checkpoint read back differs from the "
+                 "state it was written from")
         model = LM(full)
         mt = MarkovTokens(full.vocab, seed=0)
         masks = M.as_device(linearize.init_masks(model.mask_sites()),
@@ -4391,7 +4615,7 @@ def run_lm_train_path(by_path, device="cuda", cfg=None):
         gc.collect()
         laps["profile"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        drill = run_supervisor_drill(root, device)
+        drill = run_supervisor_drill(root, device, full.dtype)
         laps["supervisor_drill"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         example = run_train_lm_example(root, device)
@@ -4403,17 +4627,16 @@ def run_lm_train_path(by_path, device="cuda", cfg=None):
         seconds=time.perf_counter() - t_all, seconds_by_part=laps,
         model=full.name, d_model=full.d_model, layers=full.n_layers,
         vocab=full.vocab, params=n_params, state_bytes=state_bytes,
-        dtype="float32", flags=list(LM_TRAIN_FLAGS),
-        cuts=["dtype float32 (the config's bfloat16 waits for ROADMAP "
-              "A10(d))", "random weights from seed 0, Markov tokens",
-              "8 steps"],
+        dtype=full.dtype, state_dtypes=dtypes, flags=list(LM_TRAIN_FLAGS),
+        cuts=["random weights from seed 0, Markov tokens", "8 steps"],
         losses=losses, step_ms=step_ms,
         step_ms_median_2_8=float(np.median(step_ms[1:])),
         run_launches={k: v for k, v in run_counts.items() if v},
         launches_per_step={k: v / len(losses) for k, v in
                            run_counts.items() if v},
         run_peak=run_peak, checkpoint=dict(
-            bytes=saves[0]["bytes"], seconds=saves[0]["ms"] / 1e3),
+            bytes=saves[0]["bytes"], seconds=saves[0]["ms"] / 1e3,
+            round_trip=round_trip),
         card_vs_cpu=grad, from_one_state=one, step_profile=prof,
         supervisor_drill=drill, example=example,
         last_lines=printed.getvalue().splitlines()[-2:])
@@ -4489,6 +4712,11 @@ def main() -> None:
                     help="build the kernels and run the resumable-sweep "
                          "phase alone, without the kernel comparison "
                          "(prints no result line)")
+    ap.add_argument("--only-lm", action="store_true",
+                    help="build the kernels and run the StableLM-2-1.6B "
+                         "path alone (float32, and BCD in bfloat16), "
+                         "without the kernel comparison (prints no result "
+                         "line)")
     ap.add_argument("--only-rwkv", action="store_true",
                     help="build the kernels and run the RWKV-6 3B path "
                          "alone, without the kernel comparison (prints no "
@@ -4519,17 +4747,19 @@ def main() -> None:
                          "example), without the kernel comparison (prints "
                          "no result line)")
     ap.add_argument("--src", default=None,
-                    help="with --only-rwkv, --only-moe or --only-hybrid: "
+                    help="with --only-lm, --only-rwkv, --only-moe or "
+                         "--only-hybrid: "
                          "import repro_torch from this directory (another "
                          "checkout's src/), to compare two trees with the "
                          "same script")
     args = ap.parse_args()
-    alone = {"rwkv6_3b": args.only_rwkv,
+    alone = {"stablelm_1p6b": args.only_lm, "rwkv6_3b": args.only_rwkv,
              "deepseek_moe_16b": args.only_moe,
              "zamba2_2p7b": args.only_hybrid}
     if args.src:
         if not any(alone.values()):
-            fail("--src is for --only-rwkv, --only-moe or --only-hybrid")
+            fail("--src is for --only-lm, --only-rwkv, --only-moe or "
+                 "--only-hybrid")
         sys.path.insert(0, os.path.abspath(args.src))
 
     # before anything touches the card: segments that grow in place, so
@@ -4578,7 +4808,7 @@ def main() -> None:
                     "ptxas": ptxas_summary(build.build_log()),
                     "rcp_rn_fast_mismatches_of_1056964609": 0}})
 
-    for spec in LM_PATHS[1:] + FAMILY_PATHS:
+    for spec in LM_PATHS + FAMILY_PATHS:
         if alone[spec.arch]:
             import repro_torch.kernels as K
             by_path = {}

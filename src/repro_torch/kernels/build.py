@@ -177,7 +177,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp, ll, ll, ll, ll, i, i, vp]
     lib.masked_act_gate_bwd_launch.restype = i
     lib.masked_act_gate_bwd_launch.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, ll, ll, ll, i, vp]
+        vp, vp, vp, vp, vp, vp, vp, ll, ll, ll, i, i, i, vp]
     lib.masked_act_conv3x3_launch.restype = i
     lib.masked_act_conv3x3_launch.argtypes = [
         vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, i, i, ll, ll, i, i, i,

@@ -58,12 +58,15 @@
 //    Derivatives at ties as JAX takes them (relu'(0) = 1/2; kernels/ref.py
 //    states the conventions).  Bound by bytes like the forward gate: one
 //    read of x and g, one write of dx, 16-byte accesses, the mask row in
-//    registers.  float32 only.  The poly reduction is deterministic: a
+//    registers.  The poly reduction is deterministic: a
 //    thread sums its column's rows of one fixed stripe in order, the
 //    stripes' partial sums go to scratch, and poly_reduce_kernel adds the
 //    stripes in order; the stripe size is an argument, chosen from the row
 //    count alone (kernels/masked_act.py bwd_stripes), so the order of every
 //    sum is a function of the shape and nothing else — no atomics.
+//    float32 or bfloat16 x, g and dx (8-byte accesses of four values in
+//    bfloat16): float32 arithmetic, dx rounded once; the partial sums and
+//    their reduction stay float32 and dpoly is rounded to poly's type once.
 //
 // Arithmetic is float32 whatever the storage type (float32 or bfloat16);
 // results are rounded once, on the store.
@@ -227,13 +230,15 @@ __device__ __forceinline__ float act_grad(float x) {
 
 // grid.x * block.x covers the column vectors, grid.y is the row stripe:
 // rows [y * stripe, min((y + 1) * stripe, rows)), walked in order.  With
-// DPOLY the thread's three running sums go to partial[y][0..2][cols].
-template <int KIND, bool POLY, bool DPOLY, int VEC>
-__global__ void gate_bwd_kernel(const float* __restrict__ x,
+// DPOLY the thread's three running sums go to partial[y][0..2][cols], in
+// float32 whatever T is.  x and g are read as T and widened, every
+// operation is float32, and dx is rounded to T once, on the store.
+template <class T, int KIND, bool POLY, bool DPOLY, int VEC>
+__global__ void gate_bwd_kernel(const T* __restrict__ x,
                                 const float* __restrict__ mask,
                                 const float* __restrict__ poly,
-                                const float* __restrict__ g,
-                                float* __restrict__ dx,
+                                const T* __restrict__ g,
+                                T* __restrict__ dx,
                                 float* __restrict__ partial, long long rows,
                                 long long cols, long long stripe) {
   const long long col =
@@ -256,19 +261,18 @@ __global__ void gate_bwd_kernel(const float* __restrict__ x,
   const long long r1 = r0 + stripe < rows ? r0 + stripe : rows;
   for (long long r = r0; r < r1; ++r) {
     const long long off = r * cols + col;
-    const Pack<float, VEC> xv =
-        *reinterpret_cast<const Pack<float, VEC>*>(x + off);
-    const Pack<float, VEC> gv =
-        *reinterpret_cast<const Pack<float, VEC>*>(g + off);
-    Pack<float, VEC> res;
+    const Pack<T, VEC> xv = *reinterpret_cast<const Pack<T, VEC>*>(x + off);
+    const Pack<T, VEC> gv = *reinterpret_cast<const Pack<T, VEC>*>(g + off);
+    Pack<T, VEC> res;
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
-      const float v = xv.v[j];
-      const float gm = __fmul_rn(gv.v[j], m[j]);
-      const float g1m = __fmul_rn(gv.v[j], __fsub_rn(1.0f, m[j]));
+      const float v = to_f(xv.v[j]);
+      const float gj = to_f(gv.v[j]);
+      const float gm = __fmul_rn(gj, m[j]);
+      const float g1m = __fmul_rn(gj, __fsub_rn(1.0f, m[j]));
       const float dlin =
           POLY ? __fmul_rn(g1m, __fadd_rn(__fmul_rn(pa2[j], v), pb[j])) : g1m;
-      res.v[j] = __fadd_rn(__fmul_rn(gm, act_grad<KIND>(v)), dlin);
+      res.v[j] = from_f<T>(__fadd_rn(__fmul_rn(gm, act_grad<KIND>(v)), dlin));
       if (DPOLY) {
         const float gx = __fmul_rn(g1m, v);
         sa[j] = __fadd_rn(sa[j], __fmul_rn(gx, v));
@@ -276,7 +280,7 @@ __global__ void gate_bwd_kernel(const float* __restrict__ x,
         sc[j] = __fadd_rn(sc[j], g1m);
       }
     }
-    *reinterpret_cast<Pack<float, VEC>*>(dx + off) = res;
+    *reinterpret_cast<Pack<T, VEC>*>(dx + off) = res;
   }
   if (DPOLY) {
     float* p = partial + (long long)blockIdx.y * 3 * cols + col;
@@ -289,19 +293,21 @@ __global__ void gate_bwd_kernel(const float* __restrict__ x,
   }
 }
 
-// dpoly[i] = sum over stripes s = 0, 1, ... of partial[s][i], in that order
+// dpoly[i] = sum over stripes s = 0, 1, ... of partial[s][i], in that order,
+// in float32, rounded to P (poly's own type) once
+template <class P>
 __global__ void poly_reduce_kernel(const float* __restrict__ partial,
-                                   float* __restrict__ dpoly, long long n,
+                                   P* __restrict__ dpoly, long long n,
                                    long long stripes) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float s = 0.0f;
   for (long long k = 0; k < stripes; ++k)
     s = __fadd_rn(s, partial[k * n + i]);
-  dpoly[i] = s;
+  dpoly[i] = from_f<P>(s);
 }
 
-template <int KIND, bool POLY, bool DPOLY, int VEC>
+template <class T, int KIND, bool POLY, bool DPOLY, int VEC>
 void launch_gate_bwd(const void* x, const void* mask, const void* poly,
                      const void* g, void* dx, void* partial, long long rows,
                      long long cols, long long stripe, cudaStream_t stream) {
@@ -311,42 +317,72 @@ void launch_gate_bwd(const void* x, const void* mask, const void* poly,
   const long long gx = (cvecs + bx - 1) / bx;
   const long long gy = (rows + stripe - 1) / stripe;
   dim3 grid((unsigned)gx, (unsigned)gy, 1);
-  gate_bwd_kernel<KIND, POLY, DPOLY, VEC><<<grid, bx, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(mask),
-      static_cast<const float*>(poly), static_cast<const float*>(g),
-      static_cast<float*>(dx), static_cast<float*>(partial), rows, cols,
-      stripe);
+  gate_bwd_kernel<T, KIND, POLY, DPOLY, VEC><<<grid, bx, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(mask),
+      static_cast<const float*>(poly), static_cast<const T*>(g),
+      static_cast<T*>(dx), static_cast<float*>(partial), rows, cols, stripe);
 }
 
-template <int KIND, bool POLY, bool DPOLY>
+// four values a thread: 16-byte accesses in float32, 8-byte ones in
+// bfloat16, where the row length and the pointers allow
+template <class T, int KIND, bool POLY, bool DPOLY>
 void dispatch_gate_bwd_vec(const void* x, const void* mask, const void* poly,
                            const void* g, void* dx, void* partial,
                            long long rows, long long cols, long long stripe,
                            cudaStream_t stream) {
-  const bool vec = cols % 4 == 0 && aligned16(x) && aligned16(g) &&
-                   aligned16(dx);
+  constexpr uintptr_t bytes = 4 * sizeof(T);
+  const bool vec = cols % 4 == 0 && aligned_to(x, bytes) &&
+                   aligned_to(g, bytes) && aligned_to(dx, bytes);
   if (vec)
-    launch_gate_bwd<KIND, POLY, DPOLY, 4>(x, mask, poly, g, dx, partial,
-                                          rows, cols, stripe, stream);
+    launch_gate_bwd<T, KIND, POLY, DPOLY, 4>(x, mask, poly, g, dx, partial,
+                                             rows, cols, stripe, stream);
   else
-    launch_gate_bwd<KIND, POLY, DPOLY, 1>(x, mask, poly, g, dx, partial,
-                                          rows, cols, stripe, stream);
+    launch_gate_bwd<T, KIND, POLY, DPOLY, 1>(x, mask, poly, g, dx, partial,
+                                             rows, cols, stripe, stream);
 }
 
-template <int KIND>
+template <class T, int KIND>
 void dispatch_gate_bwd_poly(const void* x, const void* mask, const void* poly,
                             const void* g, void* dx, void* partial,
                             long long rows, long long cols, long long stripe,
                             cudaStream_t stream) {
   if (poly == nullptr)
-    dispatch_gate_bwd_vec<KIND, false, false>(x, mask, poly, g, dx, partial,
-                                              rows, cols, stripe, stream);
+    dispatch_gate_bwd_vec<T, KIND, false, false>(x, mask, poly, g, dx,
+                                                 partial, rows, cols, stripe,
+                                                 stream);
   else if (partial == nullptr)
-    dispatch_gate_bwd_vec<KIND, true, false>(x, mask, poly, g, dx, partial,
-                                             rows, cols, stripe, stream);
+    dispatch_gate_bwd_vec<T, KIND, true, false>(x, mask, poly, g, dx,
+                                                partial, rows, cols, stripe,
+                                                stream);
   else
-    dispatch_gate_bwd_vec<KIND, true, true>(x, mask, poly, g, dx, partial,
-                                            rows, cols, stripe, stream);
+    dispatch_gate_bwd_vec<T, KIND, true, true>(x, mask, poly, g, dx, partial,
+                                               rows, cols, stripe, stream);
+}
+
+template <class T>
+bool dispatch_gate_bwd_kind(int kind, const void* x, const void* mask,
+                            const void* poly, const void* g, void* dx,
+                            void* partial, long long rows, long long cols,
+                            long long stripe, cudaStream_t stream) {
+  switch (kind) {
+    case kRelu:
+      dispatch_gate_bwd_poly<T, kRelu>(x, mask, poly, g, dx, partial, rows,
+                                       cols, stripe, stream);
+      return true;
+    case kGelu:
+      dispatch_gate_bwd_poly<T, kGelu>(x, mask, poly, g, dx, partial, rows,
+                                       cols, stripe, stream);
+      return true;
+    case kSilu:
+      dispatch_gate_bwd_poly<T, kSilu>(x, mask, poly, g, dx, partial, rows,
+                                       cols, stripe, stream);
+      return true;
+    case kSqrelu:
+      dispatch_gate_bwd_poly<T, kSqrelu>(x, mask, poly, g, dx, partial, rows,
+                                         cols, stripe, stream);
+      return true;
+  }
+  return false;
 }
 
 // ------------------------------------------------------- fused gate -> conv
@@ -619,49 +655,47 @@ extern "C" int masked_act_gate_launch(const void* x, const void* mask,
   return (int)cudaGetLastError();
 }
 
-// The gate's gradient, float32 only.  poly may be null (identity
-// replacement).  partial and dpoly are both null (no dpoly) or both set:
-// partial holds ceil(rows / stripe) * 3 * cols floats of scratch, dpoly
-// 3 * cols.  Every stripe-size choice gives a deterministic result; the
-// caller keeps it a function of the shape.
+// The gate's gradient.  dtype (of x, g and dx): 0 = float32, 1 =
+// bfloat16; dpoly_dtype (poly's own type, of dpoly): the same codes.
+// mask and poly are float32.  poly may be null (identity replacement).
+// partial and dpoly are both null (no dpoly) or both set: partial holds
+// ceil(rows / stripe) * 3 * cols floats of scratch, dpoly 3 * cols values.
+// Every stripe-size choice gives a deterministic result; the caller keeps
+// it a function of the shape.
 extern "C" int masked_act_gate_bwd_launch(const void* x, const void* mask,
                                           const void* poly, const void* g,
                                           void* dx, void* partial,
                                           void* dpoly, long long rows,
                                           long long cols, long long stripe,
-                                          int kind, void* stream) {
+                                          int kind, int dtype,
+                                          int dpoly_dtype, void* stream) {
   if (rows <= 0 || cols <= 0) return 0;
   if (stripe <= 0 || (rows + stripe - 1) / stripe > 65535 ||
       (partial == nullptr) != (dpoly == nullptr) ||
-      (partial != nullptr && poly == nullptr))
+      (partial != nullptr && poly == nullptr) ||
+      (dpoly_dtype != 0 && dpoly_dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (kind) {
-    case kRelu:
-      dispatch_gate_bwd_poly<kRelu>(x, mask, poly, g, dx, partial, rows, cols,
-                                    stripe, s);
-      break;
-    case kGelu:
-      dispatch_gate_bwd_poly<kGelu>(x, mask, poly, g, dx, partial, rows, cols,
-                                    stripe, s);
-      break;
-    case kSilu:
-      dispatch_gate_bwd_poly<kSilu>(x, mask, poly, g, dx, partial, rows, cols,
-                                    stripe, s);
-      break;
-    case kSqrelu:
-      dispatch_gate_bwd_poly<kSqrelu>(x, mask, poly, g, dx, partial, rows,
-                                      cols, stripe, s);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  bool ok = false;
+  if (dtype == 0)
+    ok = dispatch_gate_bwd_kind<float>(kind, x, mask, poly, g, dx, partial,
+                                       rows, cols, stripe, s);
+  else if (dtype == 1)
+    ok = dispatch_gate_bwd_kind<__nv_bfloat16>(kind, x, mask, poly, g, dx,
+                                               partial, rows, cols, stripe,
+                                               s);
+  if (!ok) return (int)cudaErrorInvalidValue;
   if (dpoly != nullptr) {
     const long long n = 3 * cols;
     const long long stripes = (rows + stripe - 1) / stripe;
-    poly_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
-        static_cast<const float*>(partial), static_cast<float*>(dpoly), n,
-        stripes);
+    const unsigned blocks = (unsigned)((n + 255) / 256);
+    const float* part = static_cast<const float*>(partial);
+    if (dpoly_dtype == 0)
+      poly_reduce_kernel<float><<<blocks, 256, 0, s>>>(
+          part, static_cast<float*>(dpoly), n, stripes);
+    else
+      poly_reduce_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
+          part, static_cast<__nv_bfloat16*>(dpoly), n, stripes);
   }
   return (int)cudaGetLastError();
 }

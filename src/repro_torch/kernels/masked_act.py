@@ -59,7 +59,7 @@ def refuse_grad(name: str, *tensors) -> None:
     if recording(*tensors):
         raise RuntimeError(
             f"{name}: an input requires grad, and this kernel has no "
-            "backward (only the un-stacked float32 gate does, through "
+            "backward (only the un-stacked gate does, through "
             "kernels.ops.MaskedActFn); run it under torch.no_grad(), or "
             "call the model with fused=False and one mask tree")
 
@@ -150,19 +150,20 @@ def masked_act_2d_bwd(x: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
                       kind: str = "relu", need_dpoly: bool = False):
     """The gradient of :func:`masked_act_2d` (``gate_bwd_kernel``).
 
-    x, g: contiguous float32 (rows, C) CUDA tensors (g the gradient of the
-    gate's output); mask (C,); poly None or (3, C).  Returns ``(dx,
-    dpoly)``: dx (rows, C), and dpoly (3, C) — the poly coefficients'
-    gradient, summed over the rows in a fixed order — when ``need_dpoly``
-    (which needs poly), else None.  Derivatives at ties as JAX takes them
-    (``kernels/ref.py``); the plain version is
-    ``ref.masked_act_bwd_ref``.
+    x, g: contiguous (rows, C) CUDA tensors of one dtype, float32 or
+    bfloat16 (g the gradient of the gate's output); mask (C,); poly None or
+    (3, C).  Returns ``(dx, dpoly)``: dx (rows, C) in x's dtype, and dpoly
+    (3, C) in poly's dtype — the poly coefficients' gradient, summed over
+    the rows in a fixed order — when ``need_dpoly`` (which needs poly),
+    else None.  The arithmetic is float32 whatever the dtype, and each
+    result is rounded once.  Derivatives at ties as JAX takes them
+    (``kernels/ref.py``); the plain version is ``ref.masked_act_bwd_ref``.
     """
     name = "masked_act_2d_bwd"
     refuse_grad(name, x, mask, g, poly)
     _check_common(name, x, kind)
-    if x.dtype != torch.float32 or g.dtype != torch.float32:
-        raise TypeError(f"{name}: x and g must be float32, got {x.dtype} "
+    if g.dtype != x.dtype:
+        raise TypeError(f"{name}: x and g must have one dtype, got {x.dtype} "
                         f"and {g.dtype}")
     if x.dim() != 2 or not x.is_contiguous() or g.shape != x.shape or \
             not g.is_contiguous() or g.device != x.device:
@@ -178,6 +179,9 @@ def masked_act_2d_bwd(x: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
                          f"got {tuple(poly.shape)}")
     if need_dpoly and poly is None:
         raise ValueError(f"{name}: need_dpoly without poly")
+    if need_dpoly and poly.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: poly must be float32 or bfloat16 for "
+                        f"need_dpoly, got {poly.dtype}")
     m = _f32_on(mask, x, "mask")
     p = None if poly is None else _f32_on(poly, x, "poly")
     dx = torch.empty_like(x)
@@ -186,7 +190,7 @@ def masked_act_2d_bwd(x: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
     if need_dpoly:
         partial = torch.empty((stripes, 3, cols), dtype=torch.float32,
                               device=x.device)
-        dpoly = torch.empty((3, cols), dtype=torch.float32, device=x.device)
+        dpoly = torch.empty((3, cols), dtype=poly.dtype, device=x.device)
     if x.numel() == 0:
         return dx, None if dpoly is None else dpoly.zero_()
     lib = build.load()
@@ -196,7 +200,8 @@ def masked_act_2d_bwd(x: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
             g.data_ptr(), dx.data_ptr(),
             None if partial is None else partial.data_ptr(),
             None if dpoly is None else dpoly.data_ptr(), rows, cols, per,
-            KIND_CODES[kind], _stream(x))
+            KIND_CODES[kind], _DTYPE_CODES[x.dtype],
+            _DTYPE_CODES[poly.dtype] if need_dpoly else 0, _stream(x))
     build.check(lib, code, name)
     build.count_launch(name)
     return dx, dpoly

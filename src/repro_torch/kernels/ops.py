@@ -39,13 +39,17 @@ class MaskedActFn(torch.autograd.Function):
     tensor, ``ref.masked_act_ref`` on a CPU one.  Backward:
     :func:`masked_act.masked_act_2d_bwd` (``gate_bwd_kernel``) on a CUDA
     tensor, ``ref.masked_act_bwd_ref`` on a CPU one — the same rule, with
-    JAX's derivatives at ties.  float32 only."""
+    JAX's derivatives at ties.  float32 or bfloat16 (the backward's
+    arithmetic is float32 in both, each result rounded once); any other
+    dtype raises."""
+
+    DTYPES = (torch.float32, torch.bfloat16)
 
     @staticmethod
     def forward(ctx, x, mask, poly, kind):
-        if x.dtype != torch.float32:
-            raise TypeError(f"MaskedActFn: the gate's gradient is float32 "
-                            f"only, got {x.dtype}")
+        if x.dtype not in MaskedActFn.DTYPES:
+            raise TypeError(f"MaskedActFn: the gate's gradient takes float32 "
+                            f"or bfloat16, got {x.dtype}")
         if mask.requires_grad:
             raise RuntimeError("MaskedActFn: a hard mask gets no gradient; "
                                "train masks through the soft path")

@@ -133,26 +133,32 @@ def masked_act_bwd_ref(x, mask, g, kind: str = "relu", poly=None,
                        need_dpoly: bool = False):
     """The hard gate's gradient, the plain version of the CUDA backward.
 
-    x, g: (rows, C) float32; mask: (C,); poly: None or (3, C).  Returns
-    ``(dx, dpoly)``:
+    x, g: (rows, C) of one dtype, float32 or bfloat16; mask: (C,); poly:
+    None or (3, C).  Returns ``(dx, dpoly)``:
 
       dx    = (g·m)·act'(x) + (g·(1−m))·lin'(x),  lin' = 1 or 2a·x + b
       dpoly = Σ_rows (g·(1−m))·(x², x, 1)         (None unless need_dpoly)
 
-    with the derivative conventions of this module's docstring.
+    with the derivative conventions of this module's docstring.  As the
+    kernel computes it: every operation in float32, dx rounded to x's dtype
+    once and dpoly to poly's once.
     """
-    m = mask.to(x.dtype)
-    gm = g * m
-    g1m = g * (1.0 - m)
+    f32 = torch.float32
+    xf, gf = x.to(f32), g.to(f32)
+    m = mask.to(f32)
+    gm = gf * m
+    g1m = gf * (1.0 - m)
     if poly is None:
         dlin = g1m
     else:
-        dlin = g1m * (2.0 * poly[0] * x + poly[1])
-    dx = gm * act_grad_ref(x, kind) + dlin
+        pf = poly.to(f32)
+        dlin = g1m * (2.0 * pf[0] * xf + pf[1])
+    dx = (gm * act_grad_ref(xf, kind) + dlin).to(x.dtype)
     dpoly = None
     if need_dpoly:
-        gx = g1m * x
-        dpoly = torch.stack([(gx * x).sum(0), gx.sum(0), g1m.sum(0)])
+        gx = g1m * xf
+        dpoly = torch.stack([(gx * xf).sum(0), gx.sum(0),
+                             g1m.sum(0)]).to(poly.dtype)
     return dx, dpoly
 
 

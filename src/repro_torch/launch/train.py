@@ -12,9 +12,10 @@ valid checkpoint) with the straggler watchdog.  A rerun with more
 checkpoint.
 
 ``--mesh`` takes ``1,1`` only (a mesh waits for ``ROADMAP.md`` Queue A11);
-``--device`` defaults to the card.  The configs' own dtype is bfloat16, and
-the gate's gradient is float32 only: a bfloat16 config is refused
-(``ROADMAP.md`` Queue A10(d)); ``--reduced`` configs are float32.
+``--device`` defaults to the card.  A config trains in its own dtype: the
+published configs in bfloat16 (bfloat16 parameters and AdamW moments, the
+float32 leaves of the inits kept float32, the loss and the clip's norm in
+float32, as the reference trains them), ``--reduced`` ones in float32.
 """
 from __future__ import annotations
 
@@ -53,8 +54,8 @@ def parse_args(argv=None):
 
 
 def make_config(args):
-    """The run's config: ``--arch`` (``--reduced``) with ``--remat-group``.
-    Exits for a mesh other than ``1,1`` and for a bfloat16 config."""
+    """The run's config: ``--arch`` (``--reduced``) with ``--remat-group``,
+    in the config's own dtype.  Exits for a mesh other than ``1,1``."""
     if tuple(int(x) for x in args.mesh.split(",")) != (1, 1):
         raise SystemExit(f"error: --mesh {args.mesh}: only 1,1 (one "
                          "device) is ported; sharded training is ROADMAP.md "
@@ -62,11 +63,6 @@ def make_config(args):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if cfg.dtype != "float32":
-        raise SystemExit(f"error: {cfg.name} is {cfg.dtype}; the port trains "
-                         "in float32 only (the gate's gradient is float32; "
-                         "bfloat16 training is ROADMAP.md Queue A10(d)) — "
-                         "pass --reduced or a float32 config")
     return dataclasses.replace(cfg, remat_group=args.remat_group)
 
 

@@ -18,8 +18,15 @@ each leaf's file, shape, dtype and sha256, the caller's ``meta``, and the
 tree's structure as ``jax.tree_util`` prints it (:func:`treedef_str`), so the
 same state gives the same :func:`manifest_fingerprint` in both packages.
 
-bfloat16 leaves are refused (:class:`CheckpointError`): numpy has no
-bfloat16 of its own.
+A bfloat16 leaf (a tensor, or a numpy array of ``ml_dtypes``' bfloat16,
+which the reference's trees hold) is written as the reference writes one:
+``np.save`` of an ``ml_dtypes`` array gives an ``.npy`` whose header says
+``'descr': '<V2'``, followed by the raw 16-bit payload, and the manifest
+records ``"dtype": "bfloat16"``.  The port writes that header itself
+(numpy alone would say ``'|V2'``, and the card's machine has no
+``ml_dtypes``), so the files are byte-identical, and reads such a leaf's
+payload as ``int16`` and views it as ``torch.bfloat16`` — never through
+float32.
 
 Multi-host policy: a checkpoint directory has exactly ONE writer (rank 0 of
 the job's :mod:`repro_torch.launch.coordinator`).  :func:`save` enforces
@@ -48,8 +55,8 @@ class CheckpointError(RuntimeError):
     unreadable/mismatched manifest, or a leaf whose bytes fail the
     manifest's sha256 — the restore path refuses partial state rather than
     resuming a run from silently corrupted arrays.  Also raised for a tree
-    this format cannot hold (a bfloat16 leaf, a node type other than dict,
-    list, tuple, namedtuple or None)."""
+    this format cannot hold (a node type other than dict, list, tuple,
+    namedtuple or None)."""
 
 
 def _file_sha256(path: str) -> str:
@@ -141,26 +148,57 @@ def treedef_str(tree) -> str:
     return f"PyTreeDef({fmt(tree)})"
 
 
-def _host_array(leaf, key: str) -> np.ndarray:
-    """A leaf as the numpy array the reference would write: a tensor is
-    copied to the host (which waits for the device), C-contiguous, as
-    ``jax.device_get`` gives it; anything else goes through
-    ``np.asarray``."""
+_BF16 = "bfloat16"
+_BF16_DESCR = "<V2"          # what np.save writes for ml_dtypes' bfloat16
+
+
+def _c_order(arr: np.ndarray) -> np.ndarray:
+    # ``np.ascontiguousarray`` would make a 0-d leaf 1-d
+    return arr if arr.flags.c_contiguous else arr.copy(order="C")
+
+
+def _host_array(leaf) -> Tuple[np.ndarray, str]:
+    """A leaf as the numpy array the reference would write, and the dtype
+    its manifest records: a tensor is copied to the host (which waits for
+    the device), C-contiguous, as ``jax.device_get`` gives it; anything
+    else goes through ``np.asarray``.  A bfloat16 leaf comes back as its
+    16-bit payload viewed as ``int16``, with the dtype ``"bfloat16"``."""
     if isinstance(leaf, torch.Tensor):
-        if leaf.dtype == torch.bfloat16:
-            raise CheckpointError(
-                f"leaf {key!r} is bfloat16, which numpy cannot hold; "
-                "checkpoints of the port take float32 and other numpy "
-                "dtypes")
-        # ``np.ascontiguousarray`` would make a 0-d leaf (a train state's
-        # counter) 1-d
-        return leaf.detach().cpu().contiguous().numpy()
+        t = leaf.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy(), _BF16
+        arr = t.numpy()
+        return arr, str(arr.dtype)
     arr = np.asarray(leaf)
-    if arr.dtype.name == "bfloat16":
-        raise CheckpointError(
-            f"leaf {key!r} is bfloat16; checkpoints of the port take "
-            "float32 and other numpy dtypes")
-    return arr
+    if arr.dtype.name == _BF16:
+        return _c_order(arr).view(np.int16), _BF16
+    return arr, str(arr.dtype)
+
+
+def _write_leaf(fpath: str, arr: np.ndarray, dtype: str) -> None:
+    """``np.save``'s file; a bfloat16 payload under the header the
+    reference's ``np.save`` of an ``ml_dtypes`` array writes."""
+    if dtype != _BF16:
+        np.save(fpath, arr)
+        return
+    with open(fpath, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": _BF16_DESCR, "fortran_order": False,
+                "shape": arr.shape})
+        arr.tofile(f)
+
+
+def _leaf_tensor(arr: np.ndarray, dtype: Optional[str]) -> torch.Tensor:
+    """A loaded leaf as a tensor on the host: a bfloat16 leaf's 2-byte
+    payload (``'<V2'`` on disk) viewed as ``int16`` and then as
+    ``torch.bfloat16``, bit for bit."""
+    if dtype != _BF16:
+        return torch.from_numpy(arr)
+    if arr.dtype.itemsize != 2:
+        raise ValueError(f"a bfloat16 leaf holds 2-byte items, the file "
+                         f"holds {arr.dtype}")
+    return torch.from_numpy(_c_order(arr).view(np.int16)) \
+        .view(torch.bfloat16)
 
 
 def save(state, ckpt_dir: str, step: int, *, meta: Optional[dict] = None,
@@ -185,7 +223,7 @@ def save(state, ckpt_dir: str, step: int, *, meta: Optional[dict] = None,
             f"checkpoints to {ckpt_dir}; readers wait_for_step()")
     flat = _flatten(state)
     treedef = treedef_str(state)
-    arrays = {key: _host_array(leaf, key) for key, leaf in flat}
+    arrays = {key: _host_array(leaf) for key, leaf in flat}
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -195,12 +233,12 @@ def save(state, ckpt_dir: str, step: int, *, meta: Optional[dict] = None,
     manifest = {"step": step, "meta": meta or {}, "leaves": {},
                 "treedef": treedef}
     for i, key in enumerate(sorted(arrays)):
-        arr = arrays[key]
+        arr, dtype = arrays[key]
         fname = f"leaf_{i:05d}.npy"
         fpath = os.path.join(tmp, fname)
-        np.save(fpath, arr)
+        _write_leaf(fpath, arr, dtype)
         manifest["leaves"][key] = {
-            "file": fname, "shape": list(arr.shape), "dtype": str(arr.dtype),
+            "file": fname, "shape": list(arr.shape), "dtype": dtype,
             "sha256": _file_sha256(fpath)}
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
@@ -284,7 +322,8 @@ def read_manifest(ckpt_dir: str, step: int) -> dict:
 def restore(state_template, ckpt_dir: str, step: Optional[int] = None, *,
             device="cuda", verify: bool = True):
     """Restore into the structure of ``state_template``: returns ``(tree,
-    step)``, every leaf a tensor on ``device`` with the dtype on disk.
+    step)``, every leaf a tensor on ``device`` with the dtype on disk (the
+    manifest's ``"bfloat16"`` a ``torch.bfloat16`` leaf).
 
     Only the leaves the template names are read (a checkpoint may hold
     more).  ``verify`` checks each leaf file against the manifest's sha256
@@ -304,10 +343,6 @@ def restore(state_template, ckpt_dir: str, step: Optional[int] = None, *,
                 f"checkpoint {d} is missing leaf {key!r} required by the "
                 "restore template")
         info = manifest["leaves"][key]
-        if info.get("dtype") == "bfloat16":
-            raise CheckpointError(
-                f"checkpoint {d}: leaf {key!r} is bfloat16, which the port's "
-                "checkpoints do not read")
         fpath = os.path.join(d, info["file"])
         if not os.path.exists(fpath):
             raise CheckpointError(f"checkpoint {d}: leaf file {info['file']} "
@@ -318,11 +353,11 @@ def restore(state_template, ckpt_dir: str, step: Optional[int] = None, *,
                 f"checkpoint {d}: leaf {key!r} ({info['file']}) fails its "
                 "manifest sha256 — corrupted on disk")
         try:
-            arr = np.load(fpath)
+            t = _leaf_tensor(np.load(fpath), info.get("dtype"))
         except (ValueError, OSError, EOFError) as e:
             raise CheckpointError(
                 f"checkpoint {d}: leaf {key!r} unreadable: {e}") from e
-        out[key] = torch.from_numpy(arr).to(device)
+        out[key] = t.to(device)
     return _rebuild(state_template, out), step
 
 

@@ -2,13 +2,22 @@
 cosine schedule.
 
 Counterpart of ``repro/training/optimizer.py``, with its update rules and
-its float32 arithmetic, not ``torch.optim``'s:
+its arithmetic, not ``torch.optim``'s:
 
   * SGD: ``mu = β·mu + g``, update ``−lr_t·mu`` (``− lr_t·wd·p`` with weight
     decay), ``lr_t = sched(step)`` taken before the step is counted;
   * AdamW: moments ``b1·mu + (1−b1)·g``, ``b2·nu + (1−b2)·g²``, bias
     corrections ``1 − b**step`` with the step already counted;
-  * schedules evaluated in float32, as ``jnp`` evaluates them.
+  * schedules evaluated in float32, as ``jnp`` evaluates them;
+  * the moments in the parameter's dtype, and the types as ``jnp`` takes
+    them: a Python constant (β, b1, 1−b1, …) is rounded to the moment's
+    dtype first (a weak type), every moment operation rounds in that dtype,
+    and the update — divided by the float32 bias corrections, scaled by
+    the float32 learning rate — is float32 until it is cast to the
+    parameter's dtype.  In float32 that is float32 throughout; a bfloat16
+    leaf (the configs' own dtype) keeps bfloat16 moments and is updated in
+    bfloat16, with float32 only inside the update, as the reference's
+    jitted step does, bit for bit.
 
 API (optax-like, functional — nothing is hidden in the optimizer, nothing
 is updated in place)::
@@ -184,6 +193,20 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
+def _weak(x: float, t: torch.Tensor) -> float:
+    """A Python constant as ``jnp`` takes it beside an array of ``t``'s
+    dtype: rounded to that dtype (a weak type), so that the product rounds
+    once, from the rounded constant."""
+    return float(torch.tensor(x, dtype=t.dtype))
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` at least float32: where the reference's update meets its
+    float32 learning rate and bias corrections (the same tensor when it is
+    float32 already)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def sgd(lr: float = 1e-3, momentum: float = 0.9,
         schedule: Optional[Callable] = None,
         weight_decay: float = 0.0, grad_clip: Optional[float] = None):
@@ -200,11 +223,12 @@ def sgd(lr: float = 1e-3, momentum: float = 0.9,
 
     def leaf(ctx, g, m, n, p, owned=False):
         scale, lr_t, decay = ctx
-        m = m.mul_(momentum) if owned else m * momentum
+        beta = _weak(momentum, m)
+        m = m.mul_(beta) if owned else m * beta
         m += _clip(g, scale)
-        u = m * -lr_t
+        u = _wide(m) * -lr_t
         if weight_decay:
-            u -= decay * p
+            u -= decay * _wide(p)
         return u.to(p.dtype), m, None
 
     return Optimizer(init, _tree_update(prepare, leaf), prepare, leaf)
@@ -230,31 +254,36 @@ def adamw(lr: float = 3.5e-5, b1: float = 0.9, b2: float = 0.999,
                 np.float32(1.0) - np.float32(b2) ** np.float32(step))
 
     def leaf(ctx, g, m, n, p, owned=False):
-        # m·b1 + g·(1 − b1), n·b2 + g²·(1 − b2), then (m / c1)·(−lr) /
-        # (√(n / c2) + eps): each operation as one product or sum, in this
-        # order, so the in-place forms round as the plain ones do
+        # m·b1 + g·(1 − b1), n·b2 + g²·(1 − b2) in the moments' dtype, then
+        # (m / c1)·(−lr) / (√(n / c2) + eps) at least in float32: each
+        # operation as one product or sum, in this order, so the in-place
+        # forms round as the plain ones do
         scale, lr_t, decay, bc1, bc2 = ctx
         g = _clip(g, scale)
-        m = m.mul_(b1) if owned else m * b1
-        m += g.to(m.dtype) * (1 - b1)
+        a1, a2 = _weak(b1, m), _weak(b2, n)
+        m = m.mul_(a1) if owned else m * a1
+        m += g.to(m.dtype) * _weak(1 - b1, m)
         t = torch.square(g.to(n.dtype))
-        t *= 1 - b2
-        n = n.mul_(b2) if owned else n * b2
+        t *= _weak(1 - b2, n)
+        n = n.mul_(a2) if owned else n * a2
         n += t
         del g, t
         # divide by tensors: a CUDA division by a Python number is a
         # product with its reciprocal, which rounds twice
-        c1 = torch.full((), float(bc1), dtype=m.dtype, device=m.device)
-        c2 = torch.full((), float(bc2), dtype=n.dtype, device=n.device)
-        u = m / c1
+        mw, nw = _wide(m), _wide(n)
+        c1 = torch.full((), float(bc1), dtype=mw.dtype, device=m.device)
+        c2 = torch.full((), float(bc2), dtype=nw.dtype, device=n.device)
+        u = mw / c1
+        del mw
         u *= -lr_t
-        den = n / c2
+        den = nw / c2
+        del nw
         den.sqrt_()
         den += eps
         u /= den
         del den
         if weight_decay:
-            u -= decay * p
+            u -= decay * _wide(p)
         return u.to(p.dtype), m, n
 
     return Optimizer(init, _tree_update(prepare, leaf), prepare, leaf)

@@ -17,9 +17,10 @@ parameters, gradients and two moments fill the card trains on it.
 BatchNorm uses batch statistics in training as in evaluation
 (``models/resnet.py``).  The hard-mask gate is differentiable through
 ``kernels.ops.MaskedActFn`` (its backward is ``gate_bwd_kernel`` on the
-card); the forward runs unfused (``fused=False``), as the fused kernels
-have no backward, and in float32 only (the gate's gradient is float32
-only).
+card, in float32 or bfloat16); the forward runs unfused (``fused=False``),
+as the fused kernels have no backward.  A bfloat16 model trains as the
+reference's does: bfloat16 gradients and moments (``training.optimizer``),
+the loss and the gradient norm in float32.
 
 Training entry points run under :func:`deterministic` — cuDNN's
 deterministic algorithms, no autotuning — so that a finetune repeated from

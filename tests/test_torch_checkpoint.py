@@ -252,20 +252,39 @@ def test_non_writer_rank_writes_nothing(tmp_path):
     assert not os.path.exists(str(tmp_path / "ck"))
 
 
-def test_bfloat16_leaves_are_refused(tmp_path):
+def test_bfloat16_leaves_round_trip_in_the_reference_format(tmp_path):
+    """A bfloat16 leaf is written as ``np.save`` writes an ``ml_dtypes``
+    array — an ``.npy`` header saying ``'<V2'``, the raw 16-bit payload —
+    with ``"bfloat16"`` in the manifest, and restores to the bit as a
+    ``torch.bfloat16`` tensor, 0-d leaves included; a file whose items are
+    not 2 bytes wide is refused for a leaf the manifest calls bfloat16."""
     from repro_torch.training import checkpoint
     d = str(tmp_path / "ck")
-    with pytest.raises(checkpoint.CheckpointError, match="bfloat16"):
-        checkpoint.save({"w": torch.ones(3, dtype=torch.bfloat16)}, d, 0)
-    assert not os.path.exists(d)
-    # a manifest that names one (as a bfloat16 writer would) is refused too
-    checkpoint.save({"w": np.ones(3, np.float32)}, d, 0)
-    mf = os.path.join(d, "step_00000000", "manifest.json")
-    manifest = json.load(open(mf))
-    manifest["leaves"]["w"]["dtype"] = "bfloat16"
+    pattern = torch.tensor([0x3F80, 0x7F80, -0x0080, 0x7FC1, 0x0001, -1,
+                            0x4049, 0], dtype=torch.int16)  # 1, ±inf, NaN …
+    tree = {"w": pattern.view(torch.bfloat16).reshape(2, 4),
+            "z": torch.tensor(2.5, dtype=torch.bfloat16),
+            "s": torch.ones(3)}
+    checkpoint.save(tree, d, 0)
+    step_dir = os.path.join(d, "step_00000000")
+    manifest = checkpoint.read_manifest(d, 0)
+    assert manifest["leaves"]["w"]["dtype"] == "bfloat16"
+    assert manifest["leaves"]["z"]["shape"] == []
+    raw = open(os.path.join(step_dir, manifest["leaves"]["w"]["file"]),
+               "rb").read()
+    assert raw.startswith(b"\x93NUMPY\x01\x00") and b"'descr': '<V2'" in raw
+    assert raw.endswith(pattern.numpy().tobytes())
+    got, _ = checkpoint.restore({"w": 0, "z": 0, "s": 0}, d, 0, device="cpu")
+    assert got["w"].dtype == got["z"].dtype == torch.bfloat16
+    assert got["z"].shape == ()
+    assert torch.equal(got["w"].view(torch.int16), tree["w"].view(torch.int16))
+    assert float(got["z"]) == 2.5 and got["s"].dtype == torch.float32
+    # a manifest that calls a 4-byte leaf bfloat16 is refused
+    mf = os.path.join(step_dir, "manifest.json")
+    manifest["leaves"]["s"]["dtype"] = "bfloat16"
     json.dump(manifest, open(mf, "w"))
-    with pytest.raises(checkpoint.CheckpointError, match="bfloat16"):
-        checkpoint.restore({"w": np.ones(3)}, d, 0, device="cpu")
+    with pytest.raises(checkpoint.CheckpointError, match="2-byte"):
+        checkpoint.restore({"s": 0}, d, 0, device="cpu")
 
 
 def test_unsupported_nodes_are_refused(tmp_path):

@@ -1,7 +1,7 @@
 """The port's training launcher (``python -m repro_torch.launch.train``) and
 ``examples/torch_train_lm.py`` on the CPU: a run and its resume, the
-refusals (a mesh, a bfloat16 config), the entry points' default device,
-and the example at a mini size.
+mesh's refusal, a bfloat16 config built and trained in bfloat16, the
+entry points' default device, and the example at a mini size.
 """
 import importlib.util
 import inspect
@@ -67,12 +67,35 @@ def test_a_mesh_is_refused_naming_the_queue(tmp_path):
     assert not os.path.exists(tmp_path / "ck")
 
 
-def test_a_bfloat16_config_is_refused_naming_the_queue(tmp_path):
+def test_a_bfloat16_config_builds_and_trains_in_bfloat16(tmp_path):
+    """The published config is bfloat16 and builds as it is; a reduced
+    config at bfloat16 trains through ``run`` and resumes from its
+    bfloat16 checkpoint: bfloat16 parameters and moments, the inits'
+    float32 leaves (the norm scales) float32, the counters int32."""
+    import dataclasses
     from repro_torch.launch import train as launch
+    from repro_torch.training import checkpoint, optimizer as opt_lib
     args = launch.parse_args(["--steps", "1", "--ckpt-dir", str(tmp_path),
                               "--device", "cpu"])
-    with pytest.raises(SystemExit, match=r"A10\(d\)"):
-        launch.make_config(args)          # stablelm_1p6b is bfloat16
+    cfg = launch.make_config(args)          # stablelm_1p6b, as published
+    assert cfg.dtype == "bfloat16" and cfg.d_model == 2048
+    ck = tmp_path / "ck"
+    args = launch.parse_args(_args(ck, 2, "--ckpt-every", "2"))
+    cfg = dataclasses.replace(launch.make_config(args), dtype="bfloat16")
+    got = launch.run(args, cfg, "cpu")
+    assert len(got["losses"]) == 2 and all(np.isfinite(got["losses"]))
+    state = got["result"]["state"]
+    for tree in (state["params"], state["opt"].mu, state["opt"].nu):
+        dts = {t.dtype for t in opt_lib.tree_leaves(tree)}
+        assert dts == {torch.bfloat16, torch.float32}, dts
+    assert state["params"]["embed"].dtype == torch.bfloat16
+    assert state["params"]["final_norm"]["scale"].dtype == torch.float32
+    manifest = checkpoint.read_manifest(str(ck), 2)
+    assert manifest["leaves"]["params/embed"]["dtype"] == "bfloat16"
+    args = launch.parse_args(_args(ck, 3, "--ckpt-every", "2"))
+    more = launch.run(args, cfg, "cpu")
+    assert len(more["losses"]) == 1 and np.isfinite(more["losses"][0])
+    assert int(more["result"]["state"]["step"]) == 3
 
 
 def test_entry_points_default_to_the_card():

@@ -355,15 +355,43 @@ def test_raw_kernel_wrappers_refuse_grad_before_anything_else():
 
 def test_masked_act_fn_refuses_what_it_has_no_gradient_for():
     from repro_torch.kernels import ops
-    xb = torch.zeros(4, 8, dtype=torch.bfloat16, requires_grad=True)
-    with pytest.raises(TypeError, match="float32"):
-        ops.masked_act(xb, torch.ones(8))
+    xh = torch.zeros(4, 8, dtype=torch.float16, requires_grad=True)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.masked_act(xh, torch.ones(8))
     mg = torch.ones(8, requires_grad=True)
     with pytest.raises(RuntimeError, match="no gradient"):
         ops.masked_act(torch.zeros(4, 8), mg)
     # with nothing requiring grad the gate is the plain forward, no graph
     y = ops.masked_act(torch.zeros(4, 8), torch.ones(8))
     assert y.grad_fn is None
+
+
+def test_masked_act_fn_takes_bfloat16():
+    """A bfloat16 gate is differentiable: dx in bfloat16, the plain
+    backward's float32 arithmetic rounded once; poly's gradient in poly's
+    dtype."""
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(9, 16)).astype(np.float32)) \
+        .to(torch.bfloat16).requires_grad_(True)
+    m = torch.from_numpy((rng.random(16) < 0.5).astype(np.float32))
+    p = torch.from_numpy(rng.normal(size=(3, 16)).astype(np.float32) * 0.3) \
+        .to(torch.bfloat16).requires_grad_(True)
+    g = torch.from_numpy(rng.normal(size=(9, 16)).astype(np.float32)) \
+        .to(torch.bfloat16)
+    y = ops.masked_act(x, m, kind="gelu", poly=p)
+    assert y.dtype == torch.bfloat16
+    assert type(y.grad_fn.next_functions[0][0]).__name__ == \
+        "MaskedActFnBackward"
+    dx, dp = torch.autograd.grad(y, (x, p), g)
+    want_dx, want_dp = ref.masked_act_bwd_ref(x.detach(), m, g, "gelu",
+                                              p.detach(), True)
+    assert dx.dtype == dp.dtype == torch.bfloat16
+    assert torch.equal(dx, want_dx) and torch.equal(dp, want_dp)
+    f32 = ref.masked_act_bwd_ref(x.detach().float(), m, g.float(), "gelu",
+                                 p.detach().float(), True)
+    assert torch.equal(dx, f32[0].to(torch.bfloat16))
+    assert torch.equal(dp, f32[1].to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("rows", [1, 3, 32, 4096, 10 ** 6, 10 ** 7])
