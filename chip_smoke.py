@@ -16,8 +16,9 @@ sequential, batched, pipelined and suffix engines:
      and BCD at its own bfloat16 (``lm_bf16_bcd``: the batched engine,
      unfused, and the suffix engine, fused on route A, must select the
      same blocks; route A's stacked kernel must be launched);
-  3. RWKV-6 3B the same way (``rwkv_batch``, ``rwkv_forward``, ``rwkv_bcd``,
-     ``rwkv_sited`` lines), its time-mix scan on the ``rwkv6_scan`` kernel
+  3. RWKV-6 3B the same way, on 8 of its 32 repeats (``rwkv_batch``,
+     ``rwkv_forward``, ``rwkv_bcd``, ``rwkv_sited`` lines), its time-mix
+     scan on the ``rwkv6_scan`` kernel
      (route C, on the tensor cores), its channel-mix gate on the gate
      kernels; no fused route;
   4. DeepSeek-MoE-16B the same way, float32, every one of its 28 layers
@@ -29,8 +30,9 @@ sequential, batched, pipelined and suffix engines:
      ``moe_forward`` counts the (token, k) routes that differ between
      evaluation paths, profiles a forward and reports the card's peak
      memory;
-  5. Zamba2-2.7B the same way (``hybrid_*`` lines): 9 repeats of five
-     Mamba2 blocks (gate on kernels 1/2, the scan in plain PyTorch, as
+  5. Zamba2-2.7B the same way (``hybrid_*`` lines), on 3 of its 9
+     repeats of five Mamba2 blocks (gate on kernels 1/2, the scan in plain
+     PyTorch, as
      the reference's is jnp code) and one shared attention block; each
      Mamba2 output projection drawn at 1/32 of the init's scale, as
      RWKV-6's is, for the same reason.
@@ -64,13 +66,24 @@ recurrence) and an exact-length ``ServeLoop``; every served token and its
 logits held against the uncached forward; one decode tick timed and
 profiled; and the reduced chaos drill (virtual clock, chaos plan, queue
 bound, ladder, deadlines) on the card and on the CPU, whose decision
-fingerprints, tokens and bills must be equal.
+fingerprints, tokens and bills must be equal.  Then the same in the
+configs' own bfloat16 (``serve`` line, ``bfloat16``): each model built at
+its published config from the same seed's draws rounded — StableLM-2-1.6B
+through the same ``ServeLoop``, RWKV-6 3B, DeepSeek-MoE-16B (all 28
+layers) and Zamba2-2.7B (all 54) through ``generate`` — each served
+sequence held to the uncached bfloat16 forward and the float32 forward of
+the same parameters, upcast; a tie of bfloat16 logits; and
+``python -m repro_torch.launch.serve --arch stablelm_1p6b`` as a user runs
+it, in a child process.
 Then training the LM families (``<tag>_family_sweep`` lines,
 ``--only-family`` alone): RWKV-6 3B's train-step gradients on the card
 against the CPU's, then ``examples/torch_family_bcd_sweep.py``'s own
-functions at the published widths — RWKV-6 3B on 8 of its 32 repeats,
-DeepSeek-MoE-16B on 4 of its 28 layers, Zamba2-2.7B — train → SNL → a
-budget sweep on two engines, whose stages and losses must agree.
+functions at the published widths — RWKV-6 3B on 2 of its 32 repeats,
+DeepSeek-MoE-16B on 3 of its 28 layers, Zamba2-2.7B on 6 of its 54 —
+train → SNL → a budget sweep on two engines, whose stages and losses must
+agree; then the same in the configs' own bfloat16
+(``<tag>_bf16_family_sweep``) at RWKV-6's 8 repeats, DeepSeek's 4 layers
+and Zamba2's 54, each with its card-vs-CPU gradient check in bfloat16.
 Then training an LM (``lm_train`` line, ``--only-lm-train`` alone):
 StableLM-2-1.6B at its published widths in its own bfloat16 through the
 launcher's own ``launch.train.run`` (8 steps of 8 x 128 tokens, remat,
@@ -203,6 +216,26 @@ Tolerances (stated again in the output):
     positions from such a drop on are another function of the tokens and
     are counted, not judged.  The chaos drill's decisions, tokens and
     bills: equal on the card and the CPU, exactly.
+  * Served in bfloat16 (the configs' own): the served sequence through the
+    uncached bfloat16 forward (teacher forcing); each served token its
+    argmax at all but 5 % of the positions, a position whose uncached
+    top-2 margin is within 4 bfloat16 ulps of its top logit counting as
+    agreeing (two bfloat16 evaluations whose products are summed in other
+    orders swap such an argmax; an elementwise bound between two bfloat16
+    forwards would measure where each rounds); the float32 forward of the
+    same parameters, upcast, is the yardstick: the cached logits' largest
+    error against it at most 2x the uncached bfloat16 forward's, plus 1e-3
+    — the cache adds no error beyond what bfloat16 costs — and the cached
+    argmax agrees with the float32 one at no fewer positions than the
+    uncached argmax does, less 5 %.  The MoE at ``capacity_factor = E /
+    top_k``, its two yardsticks taken with the routes the served run chose
+    (the routes differing between the cached and the uncached path are
+    counted).  ``torch.argmax`` takes the first index of a tie, as
+    ``jnp.argmax``.
+  * Family sweeps in bfloat16: the card-vs-CPU gradients by the
+    ``lm_train`` bfloat16 rule above, on each family's first repeats; on
+    DeepSeek the routers' and routed experts' leaves are not held where a
+    route of the card's forward differs from the CPU's (counted).
 
 Times are CUDA-event times over repeated launches after a warm-up, at the
 shapes the main path uses, without flushing the L2 cache between launches
@@ -291,12 +324,20 @@ PATH_KERNELS = {
     "resnet18_sweep": ("masked_act_2d", "masked_act_2d_batched",
                        "masked_act_conv3x3_batched", "masked_act_2d_bwd"),
     "serve": ("masked_act_2d", "rwkv6_scan"),
+    "serve_bf16": ("masked_act_2d", "rwkv6_scan"),
     # DeepSeek's fused suffix forwards add kernel 4 (no un-stacked fused
     # forward runs on this path: training and the batched engine are
     # unfused)
     "family_sweep": ("masked_act_2d", "masked_act_2d_bwd",
                      "masked_act_2d_batched", "rwkv6_scan",
                      "rwkv6_scan_bwd", "masked_act_matmul_2d_batched"),
+    # the same in bfloat16 (the gate's backward in bfloat16, the scans in
+    # float32 inside the bfloat16 model); DeepSeek's fused suffix forwards
+    # launch kernel 4 on route A where the suffix engine's cost model sends
+    # a chunk down the sited path, reported by route, not required
+    "family_sweep_bf16": ("masked_act_2d", "masked_act_2d_bwd",
+                          "masked_act_2d_batched", "rwkv6_scan",
+                          "rwkv6_scan_bwd"),
     # the LM train step (gate and its backward), the example's BCD pass on
     # the batched engine (kernel 2)
     "lm_train": ("masked_act_2d", "masked_act_2d_bwd",
@@ -324,12 +365,16 @@ PATH_ROUTES = {
                          "masked_act_matmul_2d_batched:fma"),
     "resnet18_sweep": ("masked_act_conv3x3_batched:tf32x3",),
     "serve": ("rwkv6_scan:tf32x3",),
+    "serve_bf16": ("rwkv6_scan:tf32x3",),
     "family_sweep": ("rwkv6_scan:tf32x3",
                      "masked_act_matmul_2d_batched:fma"),
+    "family_sweep_bf16": ("rwkv6_scan:tf32x3",),
 }
 # (rows, K, N_out) of the LM paths' fused products: every bfloat16 case at
-# one of these must take route A
-LM_MATMUL_SHAPES = {(1016, 5632, 2048)}
+# one of these must take route A (StableLM-2-1.6B's eval batch; DeepSeek's
+# shared expert and dense head block at the family sweep's 4 x 32 tokens)
+LM_MATMUL_SHAPES = {(1016, 5632, 2048), (128, 2816, 2048),
+                    (128, 10944, 2048)}
 # ResNet18's eval batch and its four stages (H = W, C): every float32 conv
 # case at this batch must take route T and keep its error against a float64
 # convolution within CONV_ERR_RATIO times the plain version's
@@ -406,6 +451,33 @@ SERVE_TICK_CACHE_LENS = (40, 64, 88, 112)
 SERVE_TIMED_TICKS = 10
 RWKV_SERVE_BATCH, RWKV_SERVE_PROMPT, RWKV_SERVE_GEN = 4, 20, 12
 RWKV_LOOP_PROMPTS, RWKV_LOOP_MAX_LEN = (7, 20, 32, 64), 72
+# serving in the configs' own bfloat16 (each model built at its published
+# config from the path's seed's draws, rounded): StableLM-2-1.6B's loop as
+# above; (batch, prompt, new tokens) of ``generate`` for RWKV-6 3B,
+# DeepSeek-MoE-16B and Zamba2-2.7B.  Gates (judge_bf16, route_gate):
+# every served token is the argmax of the logits it was served from; the
+# cached logits' largest error against the float32 forward of the same
+# parameters, upcast, is at most SERVE_BF16_RATIO times the uncached
+# bfloat16 forward's plus SERVE_BF16_ABS (the cache adds no error beyond
+# what bfloat16 costs); the served token is the uncached bfloat16
+# forward's argmax (teacher forcing) at SERVE_BF16_TOKENS of all positions
+# at least, a position where it is not counting as agreeing only where
+# the two logits' uncached gap is within what the logit gate allows the
+# two paths to differ by there: (1 + SERVE_BF16_RATIO) times the uncached
+# forward's measured error against float32 at the two tokens, plus
+# SERVE_BF16_ABS; on a MoE, no route of the first MoE layer differs
+# between the cached and the uncached path, and every served expert that
+# the yardstick's own router would not have chosen trails its k-th choice
+# by at most twice what the logit gate allows: 2 (1 + SERVE_BF16_RATIO)
+# times the layer's measured router-logit error of the bfloat16 forward
+# against the float32 one
+SERVE_BF16_GENERATE = ((RWKV_SERVE_BATCH, RWKV_SERVE_PROMPT, RWKV_SERVE_GEN),
+                       (2, 16, 8), (2, 16, 8))
+SERVE_BF16_TOKENS = 0.95
+SERVE_BF16_RATIO, SERVE_BF16_ABS = 2.0, 1e-3
+# the serve launcher as a user runs it on the card (no --reduced, no
+# --device): the batch, prompt and generation flags alone
+LAUNCHER_FLAGS = ("--batch", "4", "--prompt-len", "16", "--gen", "8")
 # the family sweep (examples/torch_family_bcd_sweep.py): its batch of
 # sequences of its sequence length, as the reference's CI runs it
 FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ = 4, 32
@@ -1239,6 +1311,29 @@ def run_kernel_cases():
         cases.append(gate_case(g2, f32, kind, n=1, rows=rows, cols=cols,
                                poly=False, shared_x=False, primary=False,
                                seed=190 + i, timed=True))
+    # ... and in the configs' own bfloat16, at the decode step of each
+    # model the serve phase runs in bfloat16: StableLM-2-1.6B's FFN over
+    # the loop's slots, RWKV-6 3B's channel mix over the generate batch,
+    # DeepSeek-MoE-16B's dense head block, shared expert and routed
+    # experts (rows B·C of E·F columns, C slots an expert at one token
+    # and the judged capacity factor E / top_k) and Zamba2-2.7B's Mamba2
+    # gate, over a batch of FAMILY_SERVE_BATCH
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, moe
+    moe_cfg = lm._moe_cfg(get_config(FAMILY_PATHS[0].arch))
+    decode_moe_rows = FAMILY_SERVE_BATCH * moe._capacity(
+        dataclasses.replace(moe_cfg, capacity_factor=moe_cfg.n_experts /
+                            moe_cfg.top_k), 1)
+    for i, (kind, rows, cols) in enumerate((
+            ("silu", SERVE_SLOTS, 5632),
+            ("sqrelu", RWKV_SERVE_BATCH, 8960),
+            ("silu", FAMILY_SERVE_BATCH, 10944),
+            ("silu", FAMILY_SERVE_BATCH, 2816),
+            ("silu", decode_moe_rows, 64 * 1408),
+            ("silu", FAMILY_SERVE_BATCH, 5120))):
+        cases.append(gate_case(g2, bf16, kind, n=1, rows=rows, cols=cols,
+                               poly=False, shared_x=False, primary=False,
+                               seed=300 + i, timed=True))
 
     # ---- masked_act_2d_bwd: every ResNet18 site shape of the train step
     # at batch 32 (the stem and stage 0, then stages 1-3), relu with the
@@ -1277,6 +1372,21 @@ def run_kernel_cases():
                                        need_dpoly=dpoly))
     cases.append(gate_bwd_case("gelu", 37, 96, True, primary=False, seed=290,
                                dtype=bf16, poly_dtype=bf16))
+    # ... and at the bfloat16 family sweeps' training sites, rows of the
+    # example's batch (FAMILY_TRAIN_BATCH x FAMILY_TRAIN_SEQ), timed:
+    # RWKV-6 3B's channel-mix sqrelu, Zamba2-2.7B's Mamba2 gate,
+    # DeepSeek-MoE-16B's dense head block and shared expert, and its
+    # routed experts (rows B·C of E·F columns, C slots an expert at the
+    # config's capacity factor)
+    fam_rows = FAMILY_TRAIN_BATCH * FAMILY_TRAIN_SEQ
+    train_moe_rows = FAMILY_TRAIN_BATCH * moe._capacity(
+        moe_cfg, FAMILY_TRAIN_SEQ)
+    for i, (kind, rows, cols) in enumerate((
+            ("sqrelu", fam_rows, 8960), ("silu", fam_rows, 5120),
+            ("silu", fam_rows, 10944), ("silu", fam_rows, 2816),
+            ("silu", train_moe_rows, 64 * 1408))):
+        cases.append(gate_bwd_case(kind, rows, cols, False, primary=False,
+                                   seed=320 + i, timed=True, dtype=bf16))
 
     # ---- masked_act_2d_batched: a chunk of 8 candidates
     g2b = "masked_act_2d_batched"
@@ -1293,8 +1403,6 @@ def run_kernel_cases():
     # E·F columns (C slots an expert, 16 at 127 tokens; the first MoE
     # layer after a cut reads a shared x), and Zamba2-2.7B's Mamba2 gate,
     # rows B·S of d_inner
-    from repro_torch.configs import get_config
-    from repro_torch.models import lm, moe
     moe_path = FAMILY_PATHS[0]
     moe_rows = LM_BATCH * moe._capacity(
         lm._moe_cfg(get_config(moe_path.arch)), moe_path.seq - 1)
@@ -1408,6 +1516,16 @@ def run_kernel_cases():
         cases.append(matmul_case(m2b, f32, "silu", LM_CHUNK, rows, k_moe,
                                  nout, True, False, primary=False,
                                  seed=211 + 2 * i, timed=True))
+    # ... and in bfloat16 on route A at the family sweep's shapes: rows of
+    # the example's batch (FAMILY_TRAIN_BATCH x FAMILY_TRAIN_SEQ), the
+    # shared expert's and the dense head block's K
+    for i, k_moe in enumerate((2816, 10944)):
+        cases.append(matmul_case(m2, bf16, "silu", 1, fam_rows, k_moe, nout,
+                                 True, False, primary=False,
+                                 seed=310 + 2 * i, timed=True))
+        cases.append(matmul_case(m2b, bf16, "silu", LM_CHUNK, fam_rows,
+                                 k_moe, nout, True, False, primary=False,
+                                 seed=311 + 2 * i, timed=True))
     for i, kind in enumerate(kinds):
         for dt in (f32, bf16):
             # ragged in rows, K and N_out; K = 203 takes the scalar loads,
@@ -2475,6 +2593,7 @@ class LMPath:
     bf16: bool = True   # one forward at the config's bfloat16 as well
     drc: int = LM_DRC   # nonlinearities removed per BCD step
     bf16_bcd: bool = False   # BCD at the config's bfloat16 as well
+    layers: int = 0     # n_layers of the path's model (0: every layer)
 
 
 LM_PATHS = (
@@ -2492,13 +2611,23 @@ LM_PATHS = (
     # un-stacked forwards of the same masks differ by O(1) in the logits.
     # So the time-mix w_o is drawn at 1/32 of the init's scale;
     # ``rwkv_forward`` measures both (``rounding_growth``).
-    LMPath("rwkv6_3b", "rwkv", 129, 32, False, ("s0.rwkv@8", "s0.rwkv@24"),
-           8, w_o_scale=1 / 32),
+    LMPath("rwkv6_3b", "rwkv", 129, 32, False, ("s0.rwkv@2", "s0.rwkv@6"),
+           8, w_o_scale=1 / 32, layers=8),
 )
 # The MoE and hybrid paths, each also served (``<tag>_serve`` line).
+# RWKV-6 above and Zamba2 below run a quarter and a third of their
+# published depth (``layers``: the depth of RWKV-6's card-vs-CPU check,
+# and 3 of Zamba2's 9 repeats), to pay in the script's time for serving
+# and sweeping the families in their bfloat16, which run them at full
+# depth.  DeepSeek keeps all 28 layers: at 14, with the sites moved to
+# fit, a MoE route flipped
+# between the suffix and the batched engine's stacked forwards (a margin
+# of 0.043 at a labelled position; ROADMAP Queue C 2) and its sited check
+# failed.
 # DeepSeek-MoE-16B: a dense head block and 27 MoE blocks, 16.2 B parameters,
 # 64.7 GB in float32 — no room for a bfloat16 copy beside them, so no
-# bfloat16 forward; exact-length greedy forwards (pad 1: a MoE's capacity
+# bfloat16 forward on this path (the serve phase runs all 28 layers in
+# bfloat16); exact-length greedy forwards (pad 1: a MoE's capacity
 # depends on the length); the card-vs-CPU check runs the head block and
 # the first MoE repeat (3.5 GB on the host); 2.52 M nonlinearities, so a
 # BCD step removes 4096 (0.16 %, StableLM's 256 of 135 k is 0.19 %).
@@ -2515,7 +2644,8 @@ FAMILY_PATHS = (
     LMPath("deepseek_moe_16b", "moe", 128, 1, True, ("s0.moe@8", "s0.moe@20"),
            1, bf16=False, drc=4096),
     LMPath("zamba2_2p7b", "hybrid", 129, 64, False,
-           ("s0.mamba@2", "s4.mamba@6"), 2, w_o_scale=1 / 32, drc=512),
+           ("s0.mamba@1", "s4.mamba@2"), 2, w_o_scale=1 / 32, drc=512,
+           layers=18),
 )
 FAMILY_SERVE_BATCH, FAMILY_SERVE_PROMPT, FAMILY_SERVE_GEN = 2, 16, 8
 
@@ -2625,6 +2755,7 @@ def run_lm_forward(model, params, batch, seed: int, spec, device="cuda"):
     each comparison holds the logits to LM_LOGIT_TOL at every position
     before the first token the two forwards routed differently
     (:func:`held_diff`) and counts the rest."""
+    from repro_torch.configs import get_config
     from repro_torch.convert import to_device
     from repro_torch.core import masks as M
     rng = np.random.default_rng(seed)
@@ -2710,6 +2841,9 @@ def run_lm_forward(model, params, batch, seed: int, spec, device="cuda"):
                max_abs_diff=diffs, cpu_check=f"1 x {LM_CPU_TOKENS} tokens, "
                f"{cut.cfg.n_layers} of {model.cfg.n_layers} layers",
                min_top2_margin_labelled=margin)
+    if spec.layers:
+        out["layers"] = f"{spec.layers} of the config's " \
+            f"{get_config(spec.arch).n_layers}: the script's time"
     if any(h["moe_layers"] for h in held.values()):
         out["routes"] = dict(held, dropped_pairs_unstacked=dropped)
     out["bfloat16"] = run_lm_bf16(model.cfg, trees[0], x, spec, ref_logits,
@@ -2745,6 +2879,43 @@ class record_routes:
 
     def __exit__(self, *exc):
         self.moe._sorted_slots = self.inner
+
+
+class pinned_routes:
+    """Within the block, every MoE routing of a forward takes the experts
+    given, layer by layer in call order, at its first positions (its own
+    beyond them), with gates computed from its own router logits as
+    ``models.moe._top_k`` computes them (softmax, the chosen experts'
+    probabilities, renormalised): chip_smoke.py holds a forward to the
+    routes a served run chose.  Each routing's router logits and the
+    experts its own top-k would have taken are kept (``logits``, ``own``)
+    for :func:`route_gate`.  Measurement only; the function is put back
+    on exit."""
+
+    def __init__(self, routes):
+        self.routes, self.calls = routes, 0
+        self.logits, self.own = [], []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.inner = moe, moe._top_k
+
+        def pinned(logits, c):
+            _, own = self.inner(logits, c)
+            want = self.routes[self.calls % len(self.routes)]
+            self.calls += 1
+            n = want.shape[-2]
+            self.logits.append(logits[..., :n, :].float())
+            self.own.append(own[..., :n, :])
+            eidx = torch.cat([want.to(own.device), own[..., n:, :]], dim=-2)
+            probs = torch.softmax(logits.to(torch.float32), dim=-1)
+            gates = torch.gather(probs, -1, eidx)
+            return gates / gates.sum(-1, keepdim=True), eidx
+        moe._top_k = pinned
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._top_k = self.inner
 
 
 def held_diff(items, n: int):
@@ -3084,8 +3255,10 @@ def run_family_serve(model, params, spec, device="cuda"):
     moe = any(b.kind == "moe" for b in cfg.head_blocks + cfg.pattern)
 
     def served(m):
-        gen = serve.generate(m, params, masks, prompts, n_gen, ties=False,
-                             keep_logits=True)
+        with record_routes() as rec:
+            gen = serve.generate(m, params, masks, prompts, n_gen,
+                                 ties=False, keep_logits=True)
+        gen["routes"] = rec.calls
         seq = torch.cat([prompts, gen["tokens"].long()], dim=1)
         fulls = []
         judged = torch.ones((n_gen, FAMILY_SERVE_BATCH), dtype=torch.bool)
@@ -3117,14 +3290,12 @@ def run_family_serve(model, params, spec, device="cuda"):
         fail(f"{spec.tag}_serve: {off} of {check['tokens_checked']} served "
              f"tokens are not the uncached argmax where its top-2 margin "
              f"exceeds {SERVE_MARGIN}")
-    pbytes = param_bytes(params)
     dec = gen["decode_ms"]
     out = dict(model=cfg.name, dtype="float32", batch=FAMILY_SERVE_BATCH,
                prompt=P, gen=n_gen, prefill_ms=gen["prefill_ms"],
                decode_ms_mean=float(np.mean(dec)),
                decode_ms_min=float(np.min(dec)), decode_steps=len(dec),
-               decode_bound_ms=pbytes / HBM_BYTES_PER_S * 1e3,
-               decode_bound_by="bytes (every parameter read once a step)",
+               **decode_bound(model, params, gen["routes"], n_gen),
                margin=SERVE_MARGIN, check=check)
     if moe:
         out["check"]["capacity_factor"] = cfg.n_experts / cfg.top_k
@@ -3188,7 +3359,12 @@ def run_lm_path(spec, by_path, device="cuda"):
         torch.cuda.reset_peak_memory_stats()
         memory["allocated_before_init"] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    model, params = make_lm(SEED, spec, device)
+    cfg = None
+    if spec.layers:
+        from repro_torch.configs import get_config
+        cfg = dataclasses.replace(get_config(spec.arch),
+                                  n_layers=spec.layers)
+    model, params = make_lm(SEED, spec, device, cfg=cfg)
     sync(device)
     memory.update(param_bytes=param_bytes(params),
                   init_s=time.perf_counter() - t0)
@@ -3307,7 +3483,7 @@ def cache_bytes_read(model, cache_lens) -> int:
     """KV bytes a decode tick needs: every layer reads the K and V rows
     of each slot's positions 0..cache_len."""
     cfg = model.cfg
-    row = cfg.n_kv_heads * cfg.head_dim * 4 * 2
+    row = cfg.n_kv_heads * cfg.head_dim * model.dtype.itemsize * 2
     return int(sum(int(c) + 1 for c in cache_lens) * row * cfg.n_layers)
 
 
@@ -3327,6 +3503,43 @@ def param_bytes(params) -> int:
             total += t.numel() * t.element_size()
     walk(params)
     return total
+
+
+def decode_bound(model, params, calls, steps: int) -> dict:
+    """The byte bound of a decode step: every parameter read once (the
+    embedding once), but of a MoE's routed experts only those its tokens
+    were routed to in that step (``calls``: :class:`record_routes` of a
+    prefill, then ``steps - 1`` decode steps), averaged over the decode
+    steps."""
+    total = param_bytes(params)
+    L = len(calls) // steps if calls else 0
+    if not L or steps < 2:
+        return dict(decode_bound_ms=total / HBM_BYTES_PER_S * 1e3,
+                    decode_bound_by="bytes (every parameter read once a "
+                                    "step)")
+    routed = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            if "router" in t:
+                routed.extend(t[k] for k in ("w_gate", "w_up", "w_down"))
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+    walk(params)
+    all_experts = sum(t.numel() * t.element_size() for t in routed)
+    per_expert = all_experts / (L * model.cfg.n_experts)
+    used = [sum(int(calls[s * L + i][0].unique().numel()) for i in range(L))
+            for s in range(1, steps)]
+    step_bytes = total - all_experts + float(np.mean(used)) * per_expert
+    return dict(decode_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+                decode_bound_by="bytes (every parameter read once a step, "
+                                "of the routed experts those the step's "
+                                "tokens were routed to)",
+                routed_experts_a_step=float(np.mean(used)),
+                of_routed_experts=L * model.cfg.n_experts)
 
 
 def time_serve_ticks(model, params, store, loop, device):
@@ -3450,16 +3663,20 @@ def run_chaos_drill(device="cuda"):
     return out
 
 
-def run_serve_stablelm(device="cuda"):
-    """StableLM-2-1.6B at full width, float32: a ``ServeLoop`` of two
-    synthetic budgets, 4 slots of 128 tokens, prompts bucketed to 16,
-    ``SERVE_REQUESTS`` requests of 4-100 tokens and 16 new tokens each,
-    alternating between the classes; counts set to 0 just before the
-    drive, read just after.  Then the served tokens against the uncached
-    forward, and the timings."""
+def run_serve_stablelm(device="cuda", dtype="float32"):
+    """StableLM-2-1.6B at full width, in ``dtype`` (float32, or the
+    config's own bfloat16 from the same seed's draws rounded): a
+    ``ServeLoop`` of two synthetic budgets, 4 slots of 128 tokens, prompts
+    bucketed to 16, ``SERVE_REQUESTS`` requests of 4-100 tokens and 16 new
+    tokens each, alternating between the classes; counts set to 0 just
+    before the drive, read just after.  Then the served tokens against the
+    uncached forward (:func:`served_consistency`, in bfloat16
+    :func:`served_consistency_bf16`), the timings and the card's peak
+    memory."""
     from repro_torch.kernels import build
     from repro_torch.launch import serve_loop
-    model, params = make_lm(SEED, LM_PATHS[0], device)
+    resident = _reset_peak(device)
+    model, params = make_lm(SEED, LM_PATHS[0], device, dtype=dtype)
     store = serve_loop.threshold_mask_sets(model, SERVE_FRACS, seed=SEED,
                                            device=device)
     classes = [serve_loop.SLOClass(f"c{i}", n, SERVE_MAX_NEW)
@@ -3479,7 +3696,9 @@ def run_serve_stablelm(device="cuda"):
             any(len(r.tokens) != SERVE_MAX_NEW for r in reqs):
         fail(f"serve: stablelm states {[r.state for r in reqs]}")
     stats = loop.stats()
-    out = dict(model=model.cfg.name, dtype="float32", slots=SERVE_SLOTS,
+    consistency = served_consistency if dtype == "float32" else \
+        served_consistency_bf16
+    out = dict(model=model.cfg.name, dtype=dtype, slots=SERVE_SLOTS,
                max_len=SERVE_MAX_LEN, prompt_bucket=16,
                requests=len(reqs), max_new=SERVE_MAX_NEW,
                prompt_lens=[len(p) for p in prompts],
@@ -3491,13 +3710,15 @@ def run_serve_stablelm(device="cuda"):
                loop_decode_tok_s_per_slot={
                    c: stats["classes"][c]["decode_tok_s"]
                    for c in loop.lanes},
-               check=served_consistency(model, params, store, reqs,
-                                        LM_PATHS[0].pad, device))
+               check=consistency(model, params, store, reqs,
+                                 LM_PATHS[0].pad, device))
     for r in reqs:
         r.logits = None
     if torch.device(device).type == "cuda":
         out.update(time_serve_ticks(model, params, store, loop, device))
+        out["memory"] = _peak(device, resident)
         del model, params, store, loop, reqs
+        gc.collect()
         torch.cuda.empty_cache()
     return out, launches
 
@@ -3561,16 +3782,415 @@ def run_serve_rwkv(device="cuda"):
     return out, launches
 
 
+# ---------------------------------------- serving in the configs' bfloat16
+
+
+def upcast_logits(model, params, masks, tokens):
+    """Logits of the float32 forward of a bfloat16 model's parameters,
+    upcast, on ``tokens`` (no cache): the yardstick of the bfloat16 serving
+    gates.  ``LM.forward(upcast=True)`` casts one block's parameters at a
+    time (DeepSeek-MoE-16B's 32.3 GB of bfloat16 parameters leave no room
+    for a 64.7 GB float32 copy beside them); where a float32 copy fits it
+    is the forward of the upcast parameters (the CPU rehearsal checks that
+    to the bit)."""
+    from repro_torch.models import lm
+    m32 = lm.LM(dataclasses.replace(model.cfg, dtype="float32"))
+    with torch.no_grad():
+        return m32.forward(params, masks, tokens, ties=False, upcast=True)
+
+
+def judge_bf16(kept, full, exact, tokens, where):
+    """The bfloat16 serving gates over the positions of rows of (n, V)
+    logits: ``kept`` (the cached path's), ``full`` (the uncached bfloat16
+    forward's, teacher-forced on the served sequence) and ``exact`` (the
+    float32 forward of the same parameters, upcast).
+
+    * Every served token is the argmax of its kept logits.
+    * Logits: the cached logits' largest error against ``exact`` at most
+      ``SERVE_BF16_RATIO`` times the uncached forward's, plus
+      ``SERVE_BF16_ABS``: the cache adds no error beyond what bfloat16
+      itself costs.
+    * Tokens: the served token ``s`` is the uncached argmax ``a`` at
+      ``SERVE_BF16_TOKENS`` of all positions at least, where a position
+      with ``s != a`` counts as agreeing when the uncached gap ``full[a] -
+      full[s]`` is at most ``(1 + SERVE_BF16_RATIO) * (e[a] + e[s]) +
+      SERVE_BF16_ABS``, ``e = |full - exact|`` there: the most the two
+      paths may differ by at those two logits when the cached one's error
+      is held as the logit gate holds it.  No position is left out.
+    * The cached path's argmax agrees with the float32 forward's at no
+      fewer positions than the uncached forward's does, less
+      ``1 - SERVE_BF16_TOKENS``."""
+    exact = exact.float()
+    kept, full = kept.float(), full.float()
+    tokens = tokens.to(full.device).long()
+    n = int(tokens.numel())
+    if not n:
+        fail(f"{where}: no position to judge")
+    cached = float((kept - exact).abs().max())
+    uncached = float((full - exact).abs().max())
+    rows = torch.arange(n, device=full.device)
+    a = full.argmax(-1)
+    err = (full - exact).abs()
+    gap = full[rows, a] - full[rows, tokens]
+    window = (1 + SERVE_BF16_RATIO) * (err[rows, a] + err[rows, tokens]) + \
+        SERVE_BF16_ABS
+    miss = tokens != a
+    excused = miss & (gap <= window)
+    out = dict(positions=n, misses=int(miss.sum()),
+               misses_within_window=int(excused.sum()),
+               max_misses_beyond=(1 - SERVE_BF16_TOKENS) * n,
+               token_agreement=float((~miss).float().mean()),
+               token_agreement_with_window=float(
+                   (~miss | excused).float().mean()),
+               # where the served token is not the uncached argmax: the
+               # uncached gap there and its window
+               miss_gaps=gap[miss].tolist(),
+               miss_windows=window[miss].tolist(),
+               served_is_kept_argmax=bool(
+                   torch.equal(kept.argmax(-1), tokens)),
+               logit_abs_max=float(full.abs().max()),
+               cached_argmax_vs_f32=float(
+                   (kept.argmax(-1) == exact.argmax(-1)).float().mean()),
+               uncached_argmax_vs_f32=float(
+                   (full.argmax(-1) == exact.argmax(-1)).float().mean()),
+               cached_max_abs_err_vs_f32=cached,
+               uncached_max_abs_err_vs_f32=uncached,
+               cached_bound=SERVE_BF16_RATIO * uncached + SERVE_BF16_ABS,
+               cached_vs_uncached_max_abs_diff=float(
+                   (kept - full).abs().max()))
+    if not out["served_is_kept_argmax"] or \
+            out["misses"] - out["misses_within_window"] > \
+            out["max_misses_beyond"] or not cached <= out["cached_bound"] \
+            or out["cached_argmax_vs_f32"] < out["uncached_argmax_vs_f32"] \
+            - (1 - SERVE_BF16_TOKENS):
+        fail(f"{where}: bfloat16 serving gates: {out}")
+    return out
+
+
+def served_consistency_bf16(model, params, store, reqs, pad, device):
+    """Every completed request of a bfloat16 ``keep_logits`` loop: its
+    served tokens against the uncached bfloat16 forward of its prompt and
+    the tokens generated before each position (teacher forcing, padded
+    with zeros to a multiple of ``pad``, exact as in :func:`last_logits`),
+    and the kept logits and the uncached ones against the float32 forward
+    of the same parameters, upcast (:func:`judge_bf16`)."""
+    kept, full, exact, toks = [], [], [], []
+    with torch.no_grad():
+        for r in reqs:
+            seq = np.concatenate([r.prompt, r.tokens[:-1]]).astype(np.int64)
+            n = len(seq)
+            seq = np.concatenate([seq, np.zeros(-(-n // pad) * pad - n,
+                                                np.int64)])
+            x = torch.from_numpy(seq)[None].to(device)
+            masks = store.select(r.mask_set)
+            lo = len(r.prompt) - 1
+            full.append(model.forward(params, masks, x,
+                                      ties=False)[0, lo:n].float())
+            exact.append(upcast_logits(model, params, masks, x)[0, lo:n])
+            kept.append(torch.stack(r.logits).float())
+            toks.append(torch.tensor(r.tokens))
+            if kept[-1].shape != full[-1].shape or \
+                    not bool(torch.isfinite(kept[-1]).all()):
+                fail(f"serve bfloat16: request {r.rid} kept logits "
+                     f"{tuple(kept[-1].shape)} vs {tuple(full[-1].shape)}, "
+                     "or not finite")
+    return judge_bf16(torch.cat(kept), torch.cat(full), torch.cat(exact),
+                      torch.cat(toks), "serve bfloat16")
+
+
+def route_diff(cached_calls, uncached_calls, steps: int, n: int):
+    """The (token, k) routes of a cached run (a prefill, then ``steps - 1``
+    decode steps, :class:`record_routes` calls in order) against those of
+    the uncached forward of the same ``n`` tokens, layer by layer: the
+    counts (by layer, and of (token, layer) pairs whose set of experts
+    differs, not only their order), each row's first position whose route
+    differs in some layer (``n`` where none does), and the cached run's
+    routes, (B, n, k) a layer."""
+    L = len(uncached_calls)
+    if len(cached_calls) != L * steps:
+        fail(f"route_diff: {len(cached_calls)} cached routings, expected "
+             f"{L} layers x {steps} forwards")
+    compared, first, by_layer, sets, cached = 0, None, [], 0, []
+    for layer in range(L):
+        a = torch.cat([cached_calls[s * L + layer][0] for s in range(steps)],
+                      dim=-2)
+        b = uncached_calls[layer][0][..., :n, :]
+        cached.append(a)
+        ne = a != b
+        by_layer.append(int(ne.sum()))
+        sets += int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+        compared += ne.numel()
+        pos = ne.any(-1)
+        first = pos if first is None else first | pos
+    idx = torch.arange(n, device=first.device)
+    first_pos = torch.where(first, idx, n).amin(-1)
+    return dict(moe_layers=L, routes_compared=compared,
+                routes_differ=sum(by_layer), routes_differ_by_layer=by_layer,
+                token_layers_whose_expert_set_differs=sets,
+                first_differing_position=first_pos.tolist()), cached
+
+
+def route_gate(served, bf, f32, where):
+    """The MoE routes a bfloat16 run served (``served``: (B, n, k) experts
+    a layer) against its yardstick, the uncached bfloat16 forward pinned
+    to them (``bf``, a :class:`pinned_routes` that ran), layer by layer:
+    wherever the yardstick's own router would have taken another set of
+    experts for a token, each served expert it would not have taken must
+    trail the k-th of its own choices, in router logits, by at most
+    ``2 (1 + SERVE_BF16_RATIO)`` times the layer's largest router-logit
+    error of that forward against the float32 forward pinned alike
+    (``f32``): a choice that two bfloat16 evaluations of the layer, each
+    held as the logit gate holds it, can make apart, and no wrong
+    expert."""
+    L = len(served)
+    if len(bf.logits) != L or len(f32.logits) != L:
+        fail(f"{where}: {len(bf.logits)} and {len(f32.logits)} pinned "
+             f"routings for {L} MoE layers")
+    layers, worst = [], 0.0
+    for lb, lf, own, want in zip(bf.logits, f32.logits, bf.own, served):
+        delta = float((lb - lf).abs().max())
+        window = 2 * (1 + SERVE_BF16_RATIO) * delta
+        want = want.to(own.device)
+        in_own = (want[..., :, None] == own[..., None, :]).any(-1)
+        kth = lb.gather(-1, own).amin(-1, keepdim=True)
+        deficit = torch.where(in_own, torch.zeros_like(kth),
+                              kth - lb.gather(-1, want))
+        most = float(deficit.max())
+        layers.append(dict(experts_not_own=int((~in_own).sum()),
+                           max_deficit=most, router_err_vs_f32=delta,
+                           window=window))
+        if most > window:
+            fail(f"{where}: a served expert trails its yardstick's own "
+                 f"top-k by {most} router logits, beyond {window}: "
+                 f"{layers}")
+        if window > 0:
+            worst = max(worst, most / window)
+    return dict(moe_layers=L, rule="each served expert the yardstick's "
+                "own top-k would not take trails its k-th choice by <= "
+                f"2 * (1 + {SERVE_BF16_RATIO}) * the layer's router-logit "
+                "error, bfloat16 vs float32",
+                experts_not_own=sum(x["experts_not_own"] for x in layers),
+                worst_deficit_over_window=worst, by_layer=layers)
+
+
+def time_decode_steps(model, params, masks, prompts, device):
+    """After ``generate``: a cache prefilled with the prompts, then decode
+    steps of the whole batch at one position (the work of a step does not
+    depend on the cache's contents): the host clock around each
+    synchronised step, our kernels' launches a step and one profiler
+    window."""
+    from repro_torch.kernels import build
+    from repro_torch.training import serve as serve_lib
+    B, P = prompts.shape
+    step = serve_lib.make_decode_step(model)
+    with torch.no_grad():
+        cache = model.init_cache(B, P + 1, device)
+        last, cache = serve_lib.make_prefill(model)(params, masks, prompts,
+                                                    cache, ties=False)
+        tok = last.argmax(-1)[:, None].to(torch.int32)
+
+        def tick(_=0):
+            return step(params, masks, tok, cache, P, ties=False)
+        tick()
+        sync(device)
+        before, walls = dict(build.launch_counts), []
+        for _ in range(SERVE_TIMED_TICKS):
+            t0 = time.perf_counter()
+            tick()
+            sync(device)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        per_step = {k: (build.launch_counts[k] - before[k]) /
+                    SERVE_TIMED_TICKS for k in before
+                    if build.launch_counts[k] != before[k]}
+        prof = profile_window(tick, 5)
+    return dict(ms_mean=float(np.mean(walls)), ms_min=float(np.min(walls)),
+                steps=len(walls), our_kernel_launches=per_step, profile=prof)
+
+
+def run_serve_generate_bf16(spec, batch: int, prompt: int, n_gen: int,
+                            device="cuda"):
+    """One model at its published config in its own bfloat16 (the path's
+    seed's draws rounded, as ``lm_bf16_bcd``): ``launch.serve.generate``
+    of ``batch`` Markov prompts of ``prompt`` tokens by ``n_gen`` tokens
+    (density-0.9 masks), the served tokens and the kept logits judged by
+    :func:`judge_bf16` against the uncached bfloat16 forward of the served
+    sequence (teacher forcing) and the float32 forward of the same
+    parameters, upcast (:func:`upcast_logits`).  The MoE runs at
+    ``capacity_factor = E / top_k`` (no pair dropped at any length, the
+    decode step unchanged, as :func:`run_family_serve` judges it); the
+    routes of the cached and the uncached path are counted
+    (:func:`route_diff`; none may differ in the first MoE layer), and the
+    two yardsticks are taken with the routes the served run chose
+    (:class:`pinned_routes`), so that every position is judged: in
+    bfloat16 the two paths' routes part at the first positions of a
+    28-layer random DeepSeek-MoE (a float32 router on bfloat16 rows that
+    other row counts round otherwise), where holding only the positions
+    before the first differing route holds none.  The served routes are
+    then held to the pinned yardsticks' own routers (:func:`route_gate`).
+    Then the decode step alone (:func:`time_decode_steps`), beside its
+    byte bound (:func:`decode_bound`).  Returns the line and the launch
+    counts (set to 0 just before ``generate``, read just after)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import masks as M
+    from repro_torch.data import MarkovTokens
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    cuda = torch.device(device).type == "cuda"
+    cfg = get_config(spec.arch)
+    moe = bool(cfg.n_experts)
+    if moe:
+        cfg = dataclasses.replace(cfg,
+                                  capacity_factor=cfg.n_experts / cfg.top_k)
+    resident = _reset_peak(device)
+    t0 = time.perf_counter()
+    model, params = make_lm(SEED, spec, device, cfg=cfg, dtype="bfloat16")
+    sync(device)
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 3)
+    masks = M.as_device({k: (rng.random(s.shape) < 0.9).astype(np.float32)
+                         for k, s in model.mask_sites().items()}, device)
+    prompts = torch.from_numpy(MarkovTokens(cfg.vocab, seed=SEED + 3).batch(
+        batch, prompt, 0)["tokens"]).long().to(device)
+    build.reset_launch_counts()
+    with record_routes() as cached_routes:
+        gen = serve.generate(model, params, masks, prompts, n_gen,
+                             ties=False, keep_logits=True)
+    sync(device)
+    launches = counts()
+    toks = gen["tokens"].long()
+    n = prompt + n_gen - 1
+    width = -(-n // spec.pad) * spec.pad
+    seq = torch.cat([prompts, toks[:, :-1],
+                     prompts.new_zeros((batch, width - n))], dim=1)
+    where = f"{spec.tag}_bf16_serve"
+    routes = None
+    pin_bf = pin_32 = contextlib.nullcontext()
+    if moe:
+        with torch.no_grad(), record_routes() as uncached_routes:
+            model.forward(params, masks, seq, ties=False)
+        routes, served = route_diff(cached_routes.calls,
+                                    uncached_routes.calls, n_gen, n)
+        del uncached_routes
+        if routes["routes_differ_by_layer"][0]:
+            fail(f"{where}: the first MoE layer routes otherwise cached "
+                 f"and uncached: {routes}")
+        pin_bf, pin_32 = pinned_routes(served), pinned_routes(served)
+    bound = decode_bound(model, params, cached_routes.calls, n_gen)
+    del cached_routes
+    with torch.no_grad(), pin_bf:
+        full = model.forward(params, masks, seq, ties=False)[:, prompt - 1:n]
+    with pin_32:
+        exact = upcast_logits(model, params, masks, seq)[:, prompt - 1:n]
+    if moe:
+        routes["gate"] = route_gate(served, pin_bf, pin_32, where)
+        del served, pin_bf, pin_32
+    kept = torch.stack(gen["logits"], dim=1)             # (B, n_gen, V)
+    check = judge_bf16(kept.flatten(0, 1), full.flatten(0, 1),
+                       exact.flatten(0, 1), toks.flatten(), where)
+    dec = gen["decode_ms"]
+    out = dict(model=cfg.name, dtype="bfloat16", layers=cfg.n_layers,
+               batch=batch, prompt=prompt, gen=n_gen, init_s=init_s,
+               prefill_ms=gen["prefill_ms"],
+               decode_ms_mean=float(np.mean(dec)),
+               decode_ms_min=float(np.min(dec)), decode_steps=len(dec),
+               tokens_per_s=batch * 1e3 / float(np.mean(dec)),
+               param_bytes=param_bytes(params), **bound, check=check)
+    if spec.w_o_scale != 1.0:
+        out["w_o_scale"] = spec.w_o_scale
+    if moe:
+        out["capacity_factor"] = cfg.capacity_factor
+        out["routes_cached_vs_uncached"] = routes
+    del gen, full, exact, kept
+    if cuda:
+        out["decode_step"] = time_decode_steps(model, params, masks, prompts,
+                                               device)
+        out["memory"] = _peak(device, resident)
+    del model, params, masks
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def argmax_ties(device="cuda"):
+    """``torch.argmax`` on bfloat16 logits of a 100,352-token vocabulary
+    with the largest value made to tie at several indices: the first index
+    of the tie, as ``jnp.argmax`` takes it (the served token and the
+    uncached argmax are both taken so)."""
+    g = torch.Generator(device=device).manual_seed(SEED)
+    logits = torch.randn((4, 100352), generator=g, device=device).to(
+        torch.bfloat16)
+    ties = torch.tensor([[7, 50000, 100351], [0, 1, 2], [99, 98, 100000],
+                         [65535, 65536, 70000]], device=device)
+    logits.scatter_(1, ties, torch.full(ties.shape, 8.0, device=device,
+                                        dtype=torch.bfloat16))
+    got = logits.argmax(-1).tolist()
+    want = ties.amin(-1).tolist()
+    if got != want:
+        fail(f"serve: argmax of tied bfloat16 logits gave {got}, not the "
+             f"first index {want}")
+    return dict(rows=4, vocab=100352, tied_at=ties.tolist(), argmax=got)
+
+
+LAUNCHER_TIMEOUT_S = 600
+
+
+def run_serve_launcher():
+    """``python -m repro_torch.launch.serve --arch stablelm_1p6b`` as a user
+    runs it on the card, with no ``--reduced`` and no ``--device``, in a
+    child process: it must exit 0, serve the published config in its own
+    bfloat16 on the card and print its tokens/s."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "stablelm_1p6b", *LAUNCHER_FLAGS]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(HERE, "src")] +
+        ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
+    proc, wall = _child(cmd, env, LAUNCHER_TIMEOUT_S)
+    lines = proc.stdout.strip().splitlines()
+    model = next((x for x in lines if x.startswith("model ")), "")
+    rate = next((x for x in lines if "tok/s" in x), "")
+    if proc.returncode != 0 or "dtype=bfloat16" not in model or \
+            "device=cuda" not in model or not rate:
+        fail(f"serve launcher: exit {proc.returncode}, stdout "
+             f"{lines[-6:]}, stderr {proc.stderr.strip().splitlines()[-6:]}")
+    return dict(command=" ".join(["python", "-m", "repro_torch.launch.serve",
+                                  "--arch", "stablelm_1p6b",
+                                  *LAUNCHER_FLAGS]),
+                wall_s=wall, model_line=model, rate_line=rate)
+
+
 def run_serve_path(by_path, device="cuda"):
     """The serving slice: StableLM-2-1.6B's continuous-batching loop,
     RWKV-6 3B's batched prefill + decode and its exact-length loop (their
     launch counts summed into ``by_path["serve"]``), and the reduced chaos
-    drill on the card and on the CPU."""
+    drill on the card and on the CPU; then the configs' own bfloat16
+    (``by_path["serve_bf16"]``): StableLM-2-1.6B's loop, ``generate`` on
+    RWKV-6 3B, DeepSeek-MoE-16B (28 layers) and Zamba2-2.7B (54 layers),
+    a tie of bfloat16 logits, and the launcher as a user runs it."""
     lm, lm_counts = run_serve_stablelm(device)
     rwkv, rwkv_counts = run_serve_rwkv(device)
     by_path["serve"] = {k: lm_counts[k] + rwkv_counts[k] for k in lm_counts}
-    return dict(stablelm=lm, rwkv=rwkv, chaos_drill=run_chaos_drill(device),
-                launches={k: v for k, v in by_path["serve"].items() if v})
+    out = dict(stablelm=lm, rwkv=rwkv, chaos_drill=run_chaos_drill(device),
+               launches={k: v for k, v in by_path["serve"].items() if v})
+    t0 = time.perf_counter()
+    bf16 = {"argmax_ties": argmax_ties(device), "lines": []}
+    line, total = run_serve_stablelm(device, dtype="bfloat16")
+    emit({"lm_bf16_serve": line})
+    bf16["lines"].append("lm_bf16_serve")
+    for spec, (b, p, g) in zip(LM_PATHS[1:] + FAMILY_PATHS,
+                               SERVE_BF16_GENERATE):
+        line, launches = run_serve_generate_bf16(spec, b, p, g, device)
+        emit({f"{spec.tag}_bf16_serve": line})
+        bf16["lines"].append(f"{spec.tag}_bf16_serve")
+        total = {k: total[k] + launches[k] for k in total}
+    if torch.device(device).type == "cuda":
+        emit({"serve_launcher": run_serve_launcher()})
+        bf16["lines"].append("serve_launcher")
+    by_path["serve_bf16"] = total
+    bf16["launches"] = {k: v for k, v in total.items() if v}
+    bf16["seconds"] = time.perf_counter() - t0
+    out["bfloat16"] = bf16
+    return out
 
 
 # ------------------------------------------------- training the families
@@ -3585,6 +4205,16 @@ FAMILY_FLAGS = ("--sweep", "0.6,0.45", "--ref-frac", "0.75",
 FAMILY_GRAD_REPEATS = 2      # the card-vs-CPU gradient check: 2 of 32
 FAMILY_GRAD_TOL = 1e-3       # each leaf's relative L2 error, card vs CPU
 FAMILY_PROFILED_STEPS = 3
+# the card-vs-CPU gradient check of a bfloat16 family sweep: lm_train's
+# bfloat16 rule (each leaf's relative L2 error against the CPU's float32
+# gradient of the upcast parameters within LM_TRAIN_BF16_GRAD_RATIO times
+# the CPU's own bfloat16 gradient's, plus LM_TRAIN_BF16_GRAD_ABS), on the
+# family cut to its head blocks and its first ``grad_repeats`` repeats;
+# on a MoE, these leaves are held over the experts that no (token, k)
+# route differing between the card's forward and the CPU's reached
+MOE_ROUTED_LEAVES = ("router", "w_gate", "w_up", "w_down")
+
+
 @dataclasses.dataclass(frozen=True)
 class FamilySweep:
     spec: LMPath        # the LM path's config, tag and output scaling
@@ -3592,27 +4222,50 @@ class FamilySweep:
     layers: int = 0     # n_layers cut (0: every layer)
     lr_scale: float = 1.0   # factor on the example's learning rates
     lr_why: str = ""    # the loss seen first at the example's own
+    dtype: str = "float32"  # the model's dtype (bfloat16: the config's own)
+    grad_repeats: int = 0   # depth of the card-vs-CPU check (0: none)
+    layers_why: str = "the script's time and its disk writes"
+
+    @property
+    def tag(self) -> str:
+        """The line's tag: ``<path tag>`` in float32, ``<path tag>_bf16``
+        in bfloat16."""
+        return self.spec.tag + ("_bf16" if self.dtype == "bfloat16" else "")
 
 
+_PAYS = "the script's time: cut to pay for the bfloat16 sweeps"
 FAMILY_SWEEPS = (
-    # 8 of 32 repeats at the published width (4.1 GB; the depth of the
-    # RWKV-6 LM path's card-vs-CPU check): the script's time and the
-    # machine's 45 GiB of disk writes a run.  Full depth wrote and read
-    # back a 12.4 GB warm start (24.3 s and ~34 s) and ran two host-bound
-    # sweeps of 65-67 s; the LM training phase after it writes a 17.3 GB
-    # train state
-    FamilySweep(LM_PATHS[1], ("batched", "suffix"), layers=8),
-    # AdamW's state for all 16.2 B parameters (~259 GB with the gradients
-    # and the parameters) fits no single card: the dense head block and 3
-    # MoE repeats, ~8.2 GB (4 repeats until the LM training phase's 17.3 GB
-    # checkpoint came: the disk writes again)
-    FamilySweep(FAMILY_PATHS[0], ("batched", "suffix"), layers=4),
+    # float32, each family as shallow as still drives its path: 2 of 32
+    # RWKV-6 repeats (the depth of the float32 gradient check) and the
+    # dense head block and 2 MoE repeats of DeepSeek, so that each has a
+    # repeat r >= 1 for the example's mid-scan timing (the suffix engine's
+    # carry-checkpointed sited chunks: kernel 4 on DeepSeek's shared
+    # experts), and 1 of Zamba2's 9 repeats.  At 8 repeats, 4 layers and
+    # all 54 layers the three took 78.6, 110.3 and 147.8 s on one H100
+    FamilySweep(LM_PATHS[1], ("batched", "suffix"), layers=2,
+                layers_why=_PAYS, grad_repeats=FAMILY_GRAD_REPEATS),
+    FamilySweep(FAMILY_PATHS[0], ("batched", "suffix"), layers=3,
+                layers_why=_PAYS),
     # at the example's learning rates (tuned on the reduced configs),
     # SNL's SGD at 1e-2 turned the full-width model's loss to NaN in its
     # first epoch (10.88 after training; measured on one H100)
-    FamilySweep(FAMILY_PATHS[1], ("suffix",), lr_scale=1 / 32,
+    FamilySweep(FAMILY_PATHS[1], ("suffix",), layers=6, lr_scale=1 / 32,
                 lr_why="at the example's own, the loss after SNL was NaN "
-                       "(10.88 after training)"),
+                       "(10.88 after training)", layers_why=_PAYS),
+    # the configs' own bfloat16, the same seed's draws rounded, at the
+    # depths the float32 sweeps had: 8 of 32 RWKV-6 repeats (full depth
+    # wrote and read back a 12.4 GB float32 warm start and ran two
+    # host-bound sweeps of 65-67 s), DeepSeek's dense head block and 3 MoE
+    # repeats (AdamW's state for all 16.2 B parameters fits no single
+    # card), Zamba2 at full depth
+    FamilySweep(LM_PATHS[1], ("batched", "suffix"), layers=8,
+                dtype="bfloat16", grad_repeats=2),
+    FamilySweep(FAMILY_PATHS[0], ("batched", "suffix"), layers=4,
+                dtype="bfloat16", grad_repeats=1),
+    FamilySweep(FAMILY_PATHS[1], ("suffix",), lr_scale=1 / 32,
+                lr_why="at the example's own, the float32 loss after SNL "
+                       "was NaN (10.88 after training)",
+                dtype="bfloat16", grad_repeats=1),
 )
 
 
@@ -3627,65 +4280,149 @@ def load_family_example():
     return mod
 
 
-def family_grad_check(model, params, ex, device="cuda"):
-    """One float32 train step's gradients of RWKV-6 3B at full width, cut
-    to its embedding and first ``FAMILY_GRAD_REPEATS`` of 32 repeats, on
-    the card (the gates through ``gate_bwd_kernel``, the scans through
-    ``rwkv6_scan_bwd``) and on the CPU (the plain versions), from the same
-    parameters, random hard masks and the example's first batch: each
-    leaf's relative L2 error within ``FAMILY_GRAD_TOL``."""
+def _moe_layers(cfg):
+    """The leaf prefix of each MoE block in forward order, with its stack
+    repeat (None for a head or tail block): the order in which
+    :class:`record_routes` records their routings."""
+    out = [(f"head.{i}.moe", None) for i, b in enumerate(cfg.head_blocks)
+           if b.kind == "moe"]
+    for r in range(cfg.n_repeats):
+        out += [(f"stack.{pos}.moe", r) for pos, b in enumerate(cfg.pattern)
+                if b.kind == "moe"]
+    return out + [(f"tail.{i}.moe", None) for i, b in enumerate(cfg.tail)
+                  if b.kind == "moe"]
+
+
+def _by_expert(name, t, r):
+    """A routed leaf (``MOE_ROUTED_LEAVES``) with its repeat ``r`` taken
+    (None: no repeat axis) and its expert axis first: the router's last
+    axis, an expert weight's first."""
+    if r is not None:
+        t = t[r]
+    return t.movedim(-1, 0) if name.endswith(".router") else t
+
+
+def family_grad_check(model, params, ex, repeats: int, device="cuda"):
+    """One train step's gradients of a family at full width, cut to its
+    head blocks and first ``repeats`` repeats (:func:`first_repeats`), on
+    the card (the gates' backward on ``gate_bwd_kernel``, RWKV-6's scans
+    through ``rwkv6_scan_bwd``) and on the CPU (the plain versions), from
+    the same parameters, random hard masks and the example's first batch.
+    The rule follows the model's dtype:
+
+    * float32: each leaf's relative L2 error within ``FAMILY_GRAD_TOL`` of
+      the CPU's gradient;
+    * bfloat16 (``lm_train``'s rule): each leaf's relative L2 error
+      against the CPU's float32 gradient of the same parameters, upcast,
+      within ``LM_TRAIN_BF16_GRAD_RATIO`` times the CPU's own bfloat16
+      gradient's, plus ``LM_TRAIN_BF16_GRAD_ABS``.
+
+    On a MoE the (token, k) routes of the card's forward and the CPU's are
+    counted; in each MoE layer where some differ, the routed leaves
+    (``MOE_ROUTED_LEAVES``: the router and the routed experts, not the
+    shared expert) are held over the experts that no differing token
+    reached (neither path chose them for it: its gates renormalise over
+    the experts it chose) and the experts left out are reported."""
     from repro_torch.convert import to_device
     from repro_torch.core import masks as M
     from repro_torch.data import MarkovTokens
+    from repro_torch.models.lm import LM
     from repro_torch.training import optimizer as opt_lib, train
     rng = np.random.default_rng(SEED)
     tree = {k: (rng.random(s.shape) < 0.6).astype(np.float32)
             for k, s in model.mask_sites().items()}
-    cut, sub, sub_tree = first_repeats(model, params, tree,
-                                       FAMILY_GRAD_REPEATS)
+    cut, sub, sub_tree = first_repeats(model, params, tree, repeats)
+    bf16 = cut.dtype == torch.bfloat16
     args = ex.parse_args(["--out-dir", "unused"] + list(FAMILY_FLAGS))
     batch = MarkovTokens(cut.cfg.vocab, seed=0).batch(args.batch, args.seq,
                                                       0)
+    names = opt_lib.tree_leaves(_leaf_names(sub))
+    where = f"family_grad {cut.cfg.name} {cut.cfg.dtype}"
 
-    def loss_fn(p, m, b):
-        return train.cross_entropy(cut.forward(p, m, b["tokens"]),
-                                   b["labels"])
+    def grads(m, p, dev):
+        def loss_fn(q, a, b):
+            return train.cross_entropy(m.forward(q, a, b["tokens"]),
+                                       b["labels"])
+        with record_routes() as rec, train.deterministic():
+            loss, g = train.loss_and_grads(loss_fn, p,
+                                           M.as_device(sub_tree, dev),
+                                           to_device(batch, dev))
+        g = [t.float().cpu() for t in opt_lib.tree_leaves(g)]
+        for name, t in zip(names, g):
+            if not bool(torch.isfinite(t).all()):
+                fail(f"{where}: the {dev} gradient of {name} is not finite")
+        return float(loss), g, [r[0].cpu() for r in rec.calls]
     before = counts()
-    with train.deterministic():
-        loss_c, g_card = train.loss_and_grads(
-            loss_fn, sub, M.as_device(sub_tree, device),
-            to_device(batch, device))
+    loss_card, g_card, r_card = grads(cut, sub, device)
     sync(device)
     launched = {k: v - before[k] for k, v in counts().items()
                 if v != before[k]}
     sub_cpu = to_device(sub, "cpu")
-    loss_h, g_cpu = train.loss_and_grads(loss_fn, sub_cpu,
-                                         M.as_device(sub_tree, "cpu"),
-                                         to_device(batch, "cpu"))
-    names = opt_lib.tree_leaves(_leaf_names(sub))
-    per_leaf = {}
-    for name, gc, gh in zip(names, opt_lib.tree_leaves(g_card),
-                            opt_lib.tree_leaves(g_cpu)):
-        gc = gc.cpu()
-        if not bool(torch.isfinite(gc).all()):
-            fail(f"family_grad: the card's gradient of {name} is not finite")
-        per_leaf[name] = float((gc - gh).norm() / max(float(gh.norm()),
-                                                      1e-30))
-    worst = max(per_leaf, key=per_leaf.get)
-    if per_leaf[worst] > FAMILY_GRAD_TOL:
-        fail(f"family_grad: {worst}'s gradient on the card is "
-             f"{per_leaf[worst]} (relative L2) from the CPU's, above "
-             f"{FAMILY_GRAD_TOL}")
-    for k in ("masked_act_2d_bwd", "rwkv6_scan_bwd"):
+    loss_cpu, g_cpu, r_cpu = grads(cut, sub_cpu, "cpu")
+    if bf16:
+        cut32 = LM(dataclasses.replace(cut.cfg, dtype="float32"))
+        loss_32, g_32, r_32 = grads(
+            cut32, opt_lib.tree_map(lambda t: t.float(), sub_cpu), "cpu")
+    del sub_cpu
+    # the routed leaves' experts that a differing (token, k) route reached
+    moe_layers = _moe_layers(cut.cfg)
+    if len(moe_layers) != len(r_cpu):
+        fail(f"{where}: {len(r_cpu)} routings for {len(moe_layers)} MoE "
+             "layers")
+    E = cut.cfg.n_experts
+    held = {}               # leaf name -> (repeat or None, held experts)
+    excluded = {}
+    for (prefix, r), a, b in zip(moe_layers, r_card, r_cpu):
+        a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+        diff = (a != b).any(-1)
+        reached = torch.zeros(E, dtype=torch.bool)
+        reached[torch.cat([a[diff], b[diff]]).unique()] = True
+        excluded[prefix if r is None else f"{prefix}[{r}]"] = \
+            int(reached.sum())
+        for leaf in MOE_ROUTED_LEAVES:
+            held.setdefault(f"{prefix}.{leaf}", []).append((r, ~reached))
+
+    def sliced(gs):
+        out = []
+        for name, t in zip(names, gs):
+            if name in held:
+                t = torch.cat([_by_expert(name, t, r)[keep]
+                               for r, keep in held[name]])
+            out.append(t)
+        return out
+    g_card, g_cpu = sliced(g_card), sliced(g_cpu)
+    out = dict(model=cut.cfg.name, dtype=cut.cfg.dtype,
+               layers=cut.cfg.n_layers, of=model.cfg.n_layers,
+               repeats=repeats, batch=[args.batch, args.seq],
+               leaves=len(names), loss_card=loss_card, loss_cpu=loss_cpu,
+               launched=launched)
+    if r_cpu:
+        out["routes"] = dict(
+            card_vs_cpu=sum(int((a != b).sum())
+                            for a, b in zip(r_card, r_cpu)),
+            compared=sum(a.numel() for a in r_cpu), moe_layers=len(r_cpu),
+            experts_not_held_by_layer=excluded, of_experts=E)
+        if bf16:
+            out["routes"]["cpu_vs_cpu_float32"] = sum(
+                int((a != b).sum()) for a, b in zip(r_cpu, r_32))
+    if bf16:
+        rule, ok = bf16_grad_rule(names, g_card, g_cpu, sliced(g_32))
+        out.update(rule, loss_cpu_f32=loss_32)
+        bad = not ok
+    else:
+        card = _rel_l2_leaves(names, g_card, g_cpu)
+        worst = max(card, key=card.get)
+        out.update(worst_leaf=worst, worst_l2_rel=card[worst],
+                   tol=FAMILY_GRAD_TOL, l2_rel_by_leaf=card)
+        bad = card[worst] > FAMILY_GRAD_TOL
+    if bad:
+        fail(f"{where}: {out}")
+    needed = ["masked_act_2d_bwd"] + (
+        ["rwkv6_scan_bwd"] if model.cfg.pattern[0].kind == "rwkv" else [])
+    for k in needed:
         if torch.device(device).type == "cuda" and not launched.get(k):
-            fail(f"family_grad: the card's step launched no {k}")
-    del g_card, g_cpu, sub_cpu
-    return dict(model=cut.cfg.name, layers=cut.cfg.n_layers,
-                repeats=FAMILY_GRAD_REPEATS, batch=[args.batch, args.seq],
-                loss_card=float(loss_c), loss_cpu=float(loss_h),
-                worst_leaf=worst, worst_l2_rel=per_leaf[worst],
-                tol=FAMILY_GRAD_TOL, launched=launched,
-                l2_rel_by_leaf=per_leaf)
+            fail(f"{where}: the card's step launched no {k}")
+    return out
 
 
 class scored_losses:
@@ -3906,7 +4643,9 @@ class warm_start_probe:
             warm["finetune_repeats"] = finetune_repeats(
                 ex, trained, hard, sloss, batches, dev)
             self.mark("finetune_repeats")
-            if self.spec.w_o_scale != 1.0:
+            # (in bfloat16 the probe's 1e-7 relative noise rounds away)
+            if self.spec.w_o_scale != 1.0 and \
+                    self.model.dtype == torch.float32:
                 warm["rounding_growth_trained"] = rounding_growth(
                     self.model, trained, [masks0, hard],
                     self.held["tokens"], self.spec, dev)
@@ -3952,15 +4691,18 @@ def run_family_sweep(fam, ex, root, device="cuda"):
     if fam.layers:
         cfg = dataclasses.replace(cfg, n_layers=fam.layers)
     t0 = time.perf_counter()
-    model, params = make_lm(SEED, spec, device, cfg=cfg)
+    model, params = make_lm(SEED, spec, device, cfg=cfg, dtype=fam.dtype)
     sync(device)
-    line = dict(model=model.cfg.name, layers=model.cfg.n_layers,
-                param_bytes=param_bytes(params),
+    line = dict(model=model.cfg.name, dtype=fam.dtype,
+                layers=model.cfg.n_layers, param_bytes=param_bytes(params),
                 init_s=time.perf_counter() - t0, engines=list(fam.engines),
                 flags=list(FAMILY_FLAGS))
-    grad = family_grad_check(model, params, ex, device) \
-        if spec.arch == "rwkv6_3b" else None
-    dirs = {e: os.path.join(root, f"{spec.tag}_{e}") for e in fam.engines}
+    t0 = time.perf_counter()
+    grad = family_grad_check(model, params, ex, fam.grad_repeats, device) \
+        if fam.grad_repeats else None
+    if grad is not None:
+        grad["seconds"] = time.perf_counter() - t0
+    dirs = {e: os.path.join(root, f"{fam.tag}_{e}") for e in fam.engines}
     argv = {e: ["--arch", spec.arch, "--engine", e, "--out-dir", dirs[e],
                 "--bench-history", os.path.join(root, "BENCH_history.jsonl")]
             + list(FAMILY_FLAGS) for e in fam.engines}
@@ -4018,7 +4760,7 @@ def run_family_sweep(fam, ex, root, device="cuda"):
                        fingerprint=st["mask_fingerprint"])
                   for st in payload["stages"]]
         if not payload["complete"] or len(stages) != len(args.sweep):
-            fail(f"{spec.tag}_family_sweep ({e}): the sweep did not "
+            fail(f"{fam.tag}_family_sweep ({e}): the sweep did not "
                  f"complete: {stages}")
         for st, loss in zip(stages, sc.losses):
             st["loss_after"] = loss
@@ -4042,8 +4784,8 @@ def run_family_sweep(fam, ex, root, device="cuda"):
         if len(sc.losses) != len(stages) or \
                 not all(math.isfinite(x) for x in sc.losses):
             line["runs"] = runs
-            emit({f"{spec.tag}_family_sweep_failed": line})
-            fail(f"{spec.tag}_family_sweep ({e}): losses after the stages "
+            emit({f"{fam.tag}_family_sweep_failed": line})
+            fail(f"{fam.tag}_family_sweep ({e}): losses after the stages "
                  f"{sc.losses} are not one finite value a stage")
         gc.collect()
         # the stages' checkpoints go; the warm start stays for the next run
@@ -4056,11 +4798,11 @@ def run_family_sweep(fam, ex, root, device="cuda"):
                       ("loss_after", "held-out losses after the stages")):
         got = {e: [st[key] for st in r["stages"]] for e, r in runs.items()}
         if len({tuple(v) for v in got.values()}) != 1:
-            fail(f"{spec.tag}_family_sweep: the engines' {what} differ: "
+            fail(f"{fam.tag}_family_sweep: the engines' {what} differ: "
                  f"{got}")
     ft = {e: r["finetune_losses"] for e, r in runs.items()}
     if len({tuple(v) for v in ft.values()}) != 1:
-        fail(f"{spec.tag}_family_sweep: the engines' losses after their "
+        fail(f"{fam.tag}_family_sweep: the engines' losses after their "
              f"finetunes differ: {ft}")
     launches = counts()
     line.update(runs=runs, engines_agree=len(fam.engines) > 1 or None,
@@ -4070,7 +4812,7 @@ def run_family_sweep(fam, ex, root, device="cuda"):
         line["device_total"] = torch.cuda.get_device_properties(0) \
             .total_memory
         if line["max_allocated"] >= line["device_total"]:
-            fail(f"{spec.tag}_family_sweep: peak allocated "
+            fail(f"{fam.tag}_family_sweep: peak allocated "
                  f"{line['max_allocated']} is not below the card's memory")
     line["reduced"] = family_cuts(fam, model)
     if grad is not None:
@@ -4104,15 +4846,19 @@ def family_cuts(fam, model) -> list:
             "example's default --train-steps is 30)",
             "random weights from seed 0 (no pretrained checkpoint), "
             "synthetic Markov tokens",
-            "float32 throughout (the config's bfloat16 is not run)"]
+            "the config's own bfloat16, the seed's draws rounded"
+            if fam.dtype == "bfloat16" else
+            "float32 (the config's own bfloat16 is the "
+            f"{fam.spec.tag}_bf16_family_sweep line)"]
     if fam.layers:
         from repro_torch.configs import get_config
         full = get_config(fam.spec.arch).n_layers
         heads = len(model.cfg.head_blocks)
-        what = f"the dense head block and {fam.layers - heads} MoE " \
-            "repeats" if heads else f"{fam.layers} repeats"
-        cuts.append(f"{fam.layers} of {full} layers: {what} (the script's "
-                    "time and its disk writes)")
+        reps = (fam.layers - heads) // len(model.cfg.pattern)
+        what = f"the dense head block and {reps} MoE repeats" if heads \
+            else f"{reps} of {full // len(model.cfg.pattern)} repeats"
+        cuts.append(f"{fam.layers} of {full} layers: {what} "
+                    f"({fam.layers_why})")
     if fam.spec.w_o_scale != 1.0:
         cuts.append(f"recurrent output projections drawn at "
                     f"{fam.spec.w_o_scale} of the init's scale")
@@ -4127,13 +4873,18 @@ def family_cuts(fam, model) -> list:
                 "the example writes 12.4 GB of RWKV-6 3B parameters after "
                 "every accepted block and a stage, and the script keeps "
                 "its disk writes under 45 GiB")
+    if fam.grad_repeats:
+        cuts.append(f"the card-vs-CPU gradient check on the first "
+                    f"{fam.grad_repeats} repeats (and the head blocks)")
     return cuts
 
 
 def run_family_path(by_path, device="cuda", only=None):
     """The family path: the three families' sweeps (``FAMILY_SWEEPS``),
-    their launch counts summed into ``by_path["family_sweep"]`` (``only``:
-    one family's tag, to run it alone).  Run
+    in float32 and in the configs' own bfloat16, their launch counts
+    summed into ``by_path["family_sweep"]`` and
+    ``by_path["family_sweep_bf16"]`` (``only``: one family's tag, both
+    dtypes, or one sweep's, e.g. ``rwkv_bf16``, to run it alone).  Run
     directories live under ``build/family_sweep`` of this checkout (tens
     of GB of checkpoints at full width), removed at the end."""
     import shutil
@@ -4151,23 +4902,26 @@ def run_family_path(by_path, device="cuda", only=None):
         root=root, free_bytes=disk.free, total_bytes=disk.total,
         allocated_at_start=torch.cuda.memory_allocated()
         if torch.device(device).type == "cuda" else None)})
-    total = None
+    totals = {}
     lines = []
     try:
         for fam in FAMILY_SWEEPS:
-            if only is not None and fam.spec.tag != only:
+            if only is not None and only not in (fam.spec.tag, fam.tag):
                 continue
             t0 = time.perf_counter()
             with scaled_learning_rates(ex, fam.lr_scale):
                 line, launches = run_family_sweep(fam, ex, root, device)
             line["seconds"] = time.perf_counter() - t0
-            emit({f"{fam.spec.tag}_family_sweep": line})
+            emit({f"{fam.tag}_family_sweep": line})
             lines.append(line)
-            total = launches if total is None else \
+            path = "family_sweep_bf16" if fam.dtype == "bfloat16" \
+                else "family_sweep"
+            total = totals.get(path)
+            totals[path] = launches if total is None else \
                 {k: total[k] + launches[k] for k in total}
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    by_path["family_sweep"] = total
+    by_path.update(totals)
     return lines
 
 
@@ -4254,6 +5008,28 @@ def _rel_l2_leaves(names, got, want) -> dict:
     return out
 
 
+def bf16_grad_rule(names, card, cpu, f32):
+    """The bfloat16 gradient rule over leaf lists (host tensors): each
+    leaf's relative L2 error of the card's bfloat16 gradient ``card``
+    against the CPU's float32 gradient of the same parameters, upcast
+    (``f32``), within ``LM_TRAIN_BF16_GRAD_RATIO`` times the CPU's own
+    bfloat16 gradient's (``cpu``), plus ``LM_TRAIN_BF16_GRAD_ABS``.
+    Returns the report at the leaf closest to its bound, and whether every
+    leaf is within it."""
+    c = _rel_l2_leaves(names, card, f32)
+    h = _rel_l2_leaves(names, cpu, f32)
+    excess = {n: c[n] - (LM_TRAIN_BF16_GRAD_RATIO * h[n] +
+                         LM_TRAIN_BF16_GRAD_ABS) for n in names}
+    worst = max(excess, key=excess.get)
+    return dict(worst_leaf=worst, card_rel_l2_vs_cpu_f32=c[worst],
+                cpu_rel_l2_vs_cpu_f32=h[worst],
+                max_card_rel_l2_vs_cpu_f32=max(c.values()),
+                max_cpu_rel_l2_vs_cpu_f32=max(h.values()),
+                tol=f"card <= {LM_TRAIN_BF16_GRAD_RATIO} * cpu + 2^-5 "
+                    "(relative L2 against the CPU's float32 gradient)"), \
+        excess[worst] <= 0
+
+
 def lm_train_grad_check(model, params, batch, device="cuda"):
     """The train step's loss gradients of the model cut to its first
     ``LM_TRAIN_GRAD_LAYERS`` layers, on the card (the gates through
@@ -4306,24 +5082,14 @@ def lm_train_grad_check(model, params, batch, device="cuda"):
         return out
     loss_bc, g_bcard = grads(cut, sub, device)
     loss_bh, g_bcpu = grads(cut, sub, "cpu")
-    card = _rel_l2_leaves(names, g_bcard, g_cpu)
-    cpu = _rel_l2_leaves(names, g_bcpu, g_cpu)
+    rule, ok = bf16_grad_rule(names, g_bcard, g_bcpu, g_cpu)
     direct = _rel_l2_leaves(names, g_bcard, g_bcpu)
-    excess = {n: card[n] - (LM_TRAIN_BF16_GRAD_RATIO * cpu[n] +
-                            LM_TRAIN_BF16_GRAD_ABS) for n in names}
-    worst = max(excess, key=excess.get)
     out["bfloat16"] = dict(
-        worst_leaf=worst, card_rel_l2_vs_cpu_f32=card[worst],
-        cpu_rel_l2_vs_cpu_f32=cpu[worst],
-        max_card_rel_l2_vs_cpu_f32=max(card.values()),
-        max_cpu_rel_l2_vs_cpu_f32=max(cpu.values()),
-        max_card_vs_cpu_bf16_rel_l2=max(direct.values()),
-        tol=f"card <= {LM_TRAIN_BF16_GRAD_RATIO} * cpu + 2^-5 (relative "
-            "L2 against the CPU's float32 gradient)",
+        rule, max_card_vs_cpu_bf16_rel_l2=max(direct.values()),
         loss_card=loss_bc, loss_cpu=loss_bh)
-    if excess[worst] > 0:
-        fail(f"lm_train: card vs CPU bfloat16 gradient of {worst}: "
-             f"{out['bfloat16']}")
+    if not ok:
+        fail(f"lm_train: card vs CPU bfloat16 gradient of "
+             f"{rule['worst_leaf']}: {out['bfloat16']}")
     return out
 
 
@@ -4736,10 +5502,12 @@ def main() -> None:
     ap.add_argument("--only-family", nargs="?", const="all", default=None,
                     metavar="TAG",
                     help="build the kernels and run the family path alone "
-                         "(the card-vs-CPU gradient check and the three "
-                         "families' sweeps), without the kernel comparison; "
-                         "with a tag (rwkv, moe, hybrid), that family's "
-                         "sweep alone (prints no result line)")
+                         "(the three families' sweeps in float32 and in "
+                         "bfloat16, with their card-vs-CPU gradient "
+                         "checks), without the kernel comparison; with a "
+                         "tag (rwkv, moe, hybrid), that family's sweeps "
+                         "alone, with rwkv_bf16, moe_bf16 or hybrid_bf16 "
+                         "its bfloat16 sweep alone (prints no result line)")
     ap.add_argument("--only-lm-train", action="store_true",
                     help="build the kernels and run the LM training phase "
                          "alone (StableLM-2-1.6B through launch.train at "
@@ -4826,7 +5594,7 @@ def main() -> None:
     if args.only_serve:
         by_path = {}
         emit({"serve": run_serve_path(by_path)})
-        check_launches(by_path, ("serve",))
+        check_launches(by_path, ("serve", "serve_bf16"))
         return
     if args.only_lm_train:
         by_path = {}
@@ -4841,9 +5609,10 @@ def main() -> None:
         run_family_path(by_path, only=None if args.only_family == "all"
                         else args.only_family)
         if args.only_family == "all":
-            check_launches(by_path, ("family_sweep",))
-        emit({"family_launches": {k: v for k, v in
-                                  by_path["family_sweep"].items() if v}})
+            check_launches(by_path, ("family_sweep", "family_sweep_bf16"))
+        emit({"family_launches": {
+            path: {k: v for k, v in c.items() if v}
+            for path, c in by_path.items()}})
         return
     t0 = time.perf_counter()
     cases = run_kernel_cases()

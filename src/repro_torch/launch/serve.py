@@ -100,6 +100,8 @@ def main(argv=None):
     model = LM(cfg)
     gen = torch.Generator(device=args.device).manual_seed(0)
     params = model.init(gen, args.device)
+    print(f"model {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, dtype={cfg.dtype}, device={args.device}")
     if args.masks_from:
         shapes = {k: s.shape for k, s in model.mask_sites().items()}
         try:

@@ -303,12 +303,17 @@ class LM:
         return 1 + len(cfg.head_blocks) + cfg.n_repeats + len(cfg.tail)
 
     def _fold(self, params, masks, x, lo: int, hi: int, opt, cache=None,
-              cache_len=0, remat=False):
+              cache_len=0, remat=False, upcast=False):
         """Run segments ``[lo, hi)`` (lo >= 1) on the hidden state x;
         ``cache`` (serving) is updated in place.  ``remat`` (no cache):
         the stack repeats run under ``torch.utils.checkpoint``, as the
-        reference's ``_run_stack(remat=True)`` scans them."""
+        reference's ``_run_stack(remat=True)`` scans them.  ``upcast``:
+        each block's parameters are cast to the model's dtype as the block
+        runs."""
         cfg = self.cfg
+
+        def up(p):
+            return _cast_tree(p, self.dtype) if upcast else p
         H, R = len(cfg.head_blocks), cfg.n_repeats
         if cache is None:
             positions = torch.arange(x.shape[-2], device=x.device)
@@ -328,7 +333,7 @@ class LM:
                     lp = rows[pos][r]
                 lc = None if cache is None \
                     else _index(cache["stack"][str(pos)], r)
-                x = self._layer_apply(blk, lp, x, masks, f"s{pos}", opt,
+                x = self._layer_apply(blk, up(lp), x, masks, f"s{pos}", opt,
                                       positions, repeat=r, cache=lc,
                                       cache_len=cache_len)
             return x
@@ -336,7 +341,7 @@ class LM:
         for seg in range(max(lo, 1), min(hi, H + 1)):
             i = seg - 1
             x = self._layer_apply(
-                cfg.head_blocks[i], params["head"][i], x, masks, f"h{i}",
+                cfg.head_blocks[i], up(params["head"][i]), x, masks, f"h{i}",
                 opt, positions, cache=None if cache is None
                 else cache["head"][i], cache_len=cache_len)
         reps = range(max(lo - 1 - H, 0), min(hi - 1 - H, R))
@@ -349,7 +354,7 @@ class LM:
         for seg in range(max(lo, H + R + 1), hi):
             i = seg - 1 - H - R
             x = self._layer_apply(
-                cfg.tail[i], params["tail"][i], x, masks, f"t{i}", opt,
+                cfg.tail[i], up(params["tail"][i]), x, masks, f"t{i}", opt,
                 positions, cache=None if cache is None
                 else cache["tail"][i], cache_len=cache_len)
         return x
@@ -367,7 +372,8 @@ class LM:
 
     def forward(self, params, masks, tokens, *, prefix_embeds=None,
                 poly=None, soft=False, cache=None, cache_len=0, pre=None,
-                fused=False, ties=True, remat=False, return_hidden=False):
+                fused=False, ties=True, remat=False, return_hidden=False,
+                upcast=False):
         """Logits ``(B, S, V)``, or ``(N, B, S, V)`` for stacked masks.
 
         ``pre``: a cached :meth:`forward_pre` result (the mask-independent
@@ -401,8 +407,16 @@ class LM:
         The forward and the gradients are the bits of ``remat=False``.
         ``return_hidden``: the final-norm hidden state ``(B, S, D)`` in
         place of the logits (the caller owns the head's product, e.g. a
-        chunked loss)."""
+        chunked loss).
+
+        ``upcast`` (no cache): ``params`` may be of a narrower dtype (a
+        bfloat16 model's); each block's, the embedding's and the final
+        norm's are cast to this model's dtype as they are used, one block
+        at a time — a float32 model's forward of a bfloat16 model's
+        parameters, with no float32 copy of them all."""
         opt = (poly or {}, soft, fused, ties)
+        if upcast and cache is not None:
+            raise ValueError("forward(upcast=True) takes no cache")
         if cache is not None:
             sites = self.mask_sites()
             if any(masks[k].dim() != len(s.shape) for k, s in sites.items()):
@@ -415,8 +429,12 @@ class LM:
             if prefix_embeds is not None:
                 x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         if cache is None:
+            if upcast:
+                x = x.to(self.dtype)
+                params = dict(params, final_norm=_cast_tree(
+                    params["final_norm"], self.dtype))
             x = self._fold(params, masks, x, 1, self._n_segments(), opt,
-                           remat=remat)
+                           remat=remat, upcast=upcast)
             return self._logits(params, x, return_hidden)
         cache_len = _cache_len(cache_len, x.shape[0], x.device)
         x = self._fold(params, masks, x, 1, self._n_segments(), opt,
@@ -759,6 +777,16 @@ def _unbind(tree) -> list:
         n = len(next(iter(per.values())))
         return [{k: v[r] for k, v in per.items()} for r in range(n)]
     return list(torch.unbind(tree))
+
+
+def _cast_tree(tree, dtype):
+    """Every floating leaf of a parameter tree in ``dtype`` (a leaf already
+    of it as it is)."""
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast_tree(v, dtype) for v in tree)
+    return tree.to(dtype) if tree.is_floating_point() else tree
 
 
 def _index(tree, r: int):

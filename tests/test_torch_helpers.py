@@ -82,6 +82,19 @@ def tree_leaves(tree):
     return [tree]
 
 
+def to_jax_tree(ref, tree):
+    """A tree of the port's tensors -> the same nested dicts, lists and
+    tuples of jax arrays of the same dtypes and bits (bfloat16 stays
+    bfloat16)."""
+    if isinstance(tree, dict):
+        return {k: to_jax_tree(ref, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_jax_tree(ref, v) for v in tree)
+    import torch
+    a = ref.jnp.asarray(tree.float().numpy())
+    return a.astype(ref.jnp.bfloat16) if tree.dtype == torch.bfloat16 else a
+
+
 def random_masks(sites, seed, density=0.6):
     """Random binary mask tree for a ``mask_sites()`` dict, from numpy."""
     rng = np.random.default_rng(seed)
