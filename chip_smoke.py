@@ -29,7 +29,11 @@ sequential, batched, pipelined and suffix engines:
      experts fused (kernels 3/4, route B) under ``fused=``;
      ``moe_forward`` counts the (token, k) routes that differ between
      evaluation paths, profiles a forward and reports the card's peak
-     memory;
+     memory; then the model cut to 14 layers (``moe14_sited``,
+     ``MOE_REPRODUCER``), whose sited candidates at ``s0.moe@4`` and
+     ``s0.moe@10`` must read on the suffix engine's unfused forwards what
+     they read on the batched engine's, every trial (the fused ones are
+     reported beside them);
   5. Zamba2-2.7B the same way (``hybrid_*`` lines), on 3 of its 9
      repeats of five Mamba2 blocks (gate on kernels 1/2, the scan in plain
      PyTorch, as
@@ -68,9 +72,10 @@ profiled; and the reduced chaos drill (virtual clock, chaos plan, queue
 bound, ladder, deadlines) on the card and on the CPU, whose decision
 fingerprints, tokens and bills must be equal.  Then the same in the
 configs' own bfloat16 (``serve`` line, ``bfloat16``): each model built at
-its published config from the same seed's draws rounded — StableLM-2-1.6B
-through the same ``ServeLoop``, RWKV-6 3B, DeepSeek-MoE-16B (all 28
-layers) and Zamba2-2.7B (all 54) through ``generate`` — each served
+its published widths from the same seed's draws rounded — StableLM-2-1.6B
+through the same ``ServeLoop``, RWKV-6 3B (8 of 32 repeats),
+DeepSeek-MoE-16B (all 28 layers) and Zamba2-2.7B (18 of 54), each at its
+LM path's depth, through ``generate`` — each served
 sequence held to the uncached bfloat16 forward and the float32 forward of
 the same parameters, upcast; a tie of bfloat16 logits; and
 ``python -m repro_torch.launch.serve --arch stablelm_1p6b`` as a user runs
@@ -82,8 +87,8 @@ functions at the published widths — RWKV-6 3B on 2 of its 32 repeats,
 DeepSeek-MoE-16B on 3 of its 28 layers, Zamba2-2.7B on 6 of its 54 —
 train → SNL → a budget sweep on two engines, whose stages and losses must
 agree; then the same in the configs' own bfloat16
-(``<tag>_bf16_family_sweep``) at RWKV-6's 8 repeats, DeepSeek's 4 layers
-and Zamba2's 54, each with its card-vs-CPU gradient check in bfloat16.
+(``<tag>_bf16_family_sweep``) at the same depths, each with its
+card-vs-CPU gradient check in bfloat16.
 Then training an LM (``lm_train`` line, ``--only-lm-train`` alone):
 StableLM-2-1.6B at its published widths in its own bfloat16 through the
 launcher's own ``launch.train.run`` (8 steps of 8 x 128 tokens, remat,
@@ -171,7 +176,14 @@ Tolerances (stated again in the output):
     beside it at the path's shapes, is held to the same tolerance.  Under
     strong decay (w down to 2e-9) the plain version is not finite, and
     route C must be finite with its error against float64 within 4x route
-    S's.
+    S's.  Keeping the chunks' states for the backward changes neither y
+    nor the state by a bit.
+  * RWKV-6 scan backward, float32: each of dr, dk, dv, dw, du and ds0
+    within 1e-5 of its largest entry + 1e-5*|ref| of the plain backward,
+    and its error against the plain backward in float64 within 4x the
+    float32 plain backward's, on route ``tf32x3`` from the states route C
+    kept (as the path calls it) and alone, and on route ``serial``, forced
+    beside it; finite under strong decay; two launches equal to the bit.
   * LM training (``lm_train``, bfloat16): every step's loss finite; the
     checkpoint read back equal to the state to the bit; remat on vs off,
     gradients, parameters, moments and metrics equal to the bit (the
@@ -285,7 +297,7 @@ SOURCE = {
     "fma": _CSRC + "masked_act_matmul.cu",
     "wgmma": _CSRC + "masked_act_matmul_sm90.cu",
     "rwkv6_scan": _CSRC + "rwkv6_scan_sm90.cu",
-    "rwkv6_scan_bwd": _CSRC + "rwkv6_scan_bwd.cu",
+    "rwkv6_scan_bwd": _CSRC + "rwkv6_scan_bwd_sm90.cu",
 }
 # the fused conv's routes (kernels.masked_act.conv_route)
 CONV_SOURCE = {"tf32x3": _CSRC + "masked_act_conv_sm90.cu",
@@ -293,6 +305,9 @@ CONV_SOURCE = {"tf32x3": _CSRC + "masked_act_conv_sm90.cu",
 # the scan's routes (kernels.rwkv6_scan.scan_route)
 SCAN_SOURCE = {"tf32x3": _CSRC + "rwkv6_scan_sm90.cu",
                "serial": _CSRC + "rwkv6_scan.cu"}
+# the scan backward's routes (kernels.rwkv6_scan.scan_bwd_route)
+SCAN_BWD_SOURCE = {"tf32x3": _CSRC + "rwkv6_scan_bwd_sm90.cu",
+                   "serial": _CSRC + "rwkv6_scan_bwd.cu"}
 REPLACES = {
     "masked_act_2d": "src/repro/kernels/masked_act.py:55",
     # port-only: the gradient of kernel 1, which the reference takes by
@@ -352,7 +367,8 @@ PORT_ONLY = {"masked_act_2d_bwd": "the gradient of kernel 1 (the reference "
              "linattn_chunked)"}
 # ... and the routes (build.route_counts): ResNet18's float32 convs on
 # route T (tensor cores); StableLM's float32 path on route B, its bfloat16
-# forward and bfloat16 BCD on route A; RWKV-6's scans on route C (tensor cores), every one;
+# forward and bfloat16 BCD on route A; RWKV-6's scans on route C (tensor
+# cores), every one, and their backwards on route "tf32x3", every one;
 # DeepSeek-MoE's float32 dense head block and shared experts on route B
 PATH_ROUTES = {
     "resnet18": ("masked_act_conv3x3:tf32x3",
@@ -366,9 +382,9 @@ PATH_ROUTES = {
     "resnet18_sweep": ("masked_act_conv3x3_batched:tf32x3",),
     "serve": ("rwkv6_scan:tf32x3",),
     "serve_bf16": ("rwkv6_scan:tf32x3",),
-    "family_sweep": ("rwkv6_scan:tf32x3",
+    "family_sweep": ("rwkv6_scan:tf32x3", "rwkv6_scan_bwd:tf32x3",
                      "masked_act_matmul_2d_batched:fma"),
-    "family_sweep_bf16": ("rwkv6_scan:tf32x3",),
+    "family_sweep_bf16": ("rwkv6_scan:tf32x3", "rwkv6_scan_bwd:tf32x3"),
 }
 # (rows, K, N_out) of the LM paths' fused products: every bfloat16 case at
 # one of these must take route A (StableLM-2-1.6B's eval batch; DeepSeek's
@@ -412,6 +428,7 @@ LM_CHUNK = 4                # candidates per chunk on the LM path
 LM_STEPS = 2                # BCD outer steps per engine on the LM path
 LM_DRC = 256                # nonlinearities removed per BCD step
 LM_SITED_DRC = 32
+LM_SITED_REPS = 1           # timed passes of a sited row, after its first
 LM_LOGIT_TOL = 1e-3
 LM_CPU_TOKENS = 32          # the card-vs-CPU check: 1 sequence x 32 tokens
 BCD_STEPS = 3       # outer steps per engine (b_target 300 below the start)
@@ -560,7 +577,9 @@ KERNEL_TEMPLATES = ("gate_conv3x3_kernel", "gate_conv3x3_tf32x3_kernel",
                     "split_weights_kernel", "gate_matmul_fma_kernel",
                     "gate_matmul_wgmma_kernel", "gate_bwd_kernel",
                     "poly_reduce_kernel", "gate_kernel",
-                    "rwkv6_scan_tf32x3_kernel", "rwkv6_scan_kernel")
+                    "rwkv6_scan_tf32x3_kernel", "rwkv6_scan_kernel",
+                    "rwkv6_scan_bwd_tf32x3_kernel", "rwkv6_scan_bwd_kernel",
+                    "rwkv6_du_reduce_kernel")
 
 
 def ptxas_summary(log: str) -> dict:
@@ -965,6 +984,17 @@ def scan_case(bh, T, K, V, chunk, heads, shared_state, primary, seed,
     out = flat(kernel())
     routes = [n.split(":")[1] for n, c in build.route_counts.items()
               if c != before[n]]
+
+    def keeping():
+        return RS.rwkv6_scan(r, k, v, w, u, state, chunk=chunk,
+                             keep_states=True)
+    # under autograd route C also writes the chunks' states: the same y and
+    # state to the bit
+    kept = keeping()
+    if not torch.equal(flat(kept[:2]), out):
+        fail(f"rwkv6_scan {[bh, T, K, V]}: keeping the chunks' states "
+             "changed y or the state")
+    del kept
     want = flat(plain())
     torch.cuda.synchronize()
     rule = RS.scan_route(torch.float32, bh, T, K, V)
@@ -1004,6 +1034,8 @@ def scan_case(bh, T, K, V, chunk, heads, shared_state, primary, seed,
     if with_serial and (primary or timed):
         with forced_route(RS, "scan_route", "serial"):
             extra["serial_ms"] = time_ms(kernel)
+    if primary or timed:
+        extra["keep_states_ms"] = time_ms(keeping)
     if not strong:
         if not extra["kernel_err_vs_f64"] <= \
                 SCAN_ERR_RATIO * extra["plain_err_vs_f64"]:
@@ -1040,17 +1072,24 @@ def scan_case(bh, T, K, V, chunk, heads, shared_state, primary, seed,
 
 def scan_bwd_case(bh, T, K, V, heads, shared_state, with_ds_end, primary,
                   seed, timed=False, strong=False):
-    """The scan's backward kernel (``rwkv6_scan_bwd``) against its plain
-    version ``ref.rwkv6_scan_bwd_ref`` on the same inputs, gradient by
-    gradient (``SCAN_BWD_ATOL``, ``SCAN_BWD_RTOL``), and both against the
-    plain backward in float64 (the kernel's error within
-    ``SCAN_ERR_RATIO`` times the plain version's); a second launch must
-    give the same bits (du is summed over each head's rows in a fixed
-    order).  ``heads``, ``shared_state`` and ``strong`` as
-    :func:`scan_case`; the path's calls have a stride-0 zero state that
-    needs no gradient and no gradient of the final state
-    (``with_ds_end=False``: ds0 is not asked for)."""
-    from repro_torch.kernels import ref, rwkv6_scan as RS
+    """The scan's backward (``rwkv6_scan_bwd``) on the route the rule picks
+    (``"tf32x3"``) — from the chunks' states that route C of the forward
+    keeps, as the path calls it, and alone, where the wrapper runs route C
+    first to get them — and on route ``"serial"``, forced beside it, each
+    against the plain version ``ref.rwkv6_scan_bwd_ref`` on the same inputs,
+    gradient by gradient (``SCAN_BWD_ATOL``, ``SCAN_BWD_RTOL``), and against
+    the plain backward in float64: each route's error within
+    ``SCAN_ERR_RATIO`` times the float32 plain version's (the tensor-core
+    rule).  Each route launched twice must give the same bits (du is summed
+    over each head's rows in a fixed order), and be finite.  ``heads``,
+    ``shared_state`` and ``strong`` as :func:`scan_case` (the plain backward
+    never divides by a decay, so it stays finite under strong decay); the
+    path's calls have a stride-0 zero state that needs no gradient and no
+    gradient of the final state (``with_ds_end=False``: ds0 is not asked
+    for).  Timed cases time both routes whole and queued, and the plain
+    version; route ``"tf32x3"``'s bound counts its operations at the TF32
+    rate, three passes each, route ``"serial"``'s at the float32 rate."""
+    from repro_torch.kernels import build, ref, rwkv6_scan as RS
     name = "rwkv6_scan_bwd"
     g = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -1069,72 +1108,122 @@ def scan_bwd_case(bh, T, K, V, heads, shared_state, with_ds_end, primary,
     dy = randn(bh, T, V)
     ds_end = randn(bh, K, V) if with_ds_end else None
     names = ("dr", "dk", "dv", "dw", "du", "ds0")
+    rule = RS.scan_bwd_route(torch.float32, bh, T, K, V)
+    # as the path calls it: from the chunks' states that route C of the
+    # forward kept (ops.RWKV6ScanFn)
+    states = RS.rwkv6_scan(r, k, v, w, u, state, chunk=1,
+                           keep_states=True)[2]
 
     def kernel():
         return RS.rwkv6_scan_bwd(r, k, v, w, u, state, dy, ds_end,
+                                 need_ds0=with_ds_end, states=states)
+
+    def alone():
+        return RS.rwkv6_scan_bwd(r, k, v, w, u, state, dy, ds_end,
                                  need_ds0=with_ds_end)
+
+    def serial():
+        with forced_route(RS, "scan_bwd_route", "serial"):
+            return alone()
 
     def plain():
         return ref.rwkv6_scan_bwd_ref(r, k, v, w, u, state, dy, ds_end)
 
-    got, want = kernel(), plain()
-    again = kernel()
-    torch.cuda.synchronize()
-    extra = dict(shape=[bh, T, K, V],
+    extra = dict(scan_bwd_route=rule, shape=[bh, T, K, V],
                  decay="exp(-exp(U(-1, 3)))" if strong else "U(0.7, 0.999)",
                  u="(H, K) table" if heads > 1 else
                  "stride-0 row" if heads == 1 else "(BH, K)",
                  state="shared zeros" if shared_state else "random",
                  ds_end=with_ds_end,
-                 tol=f"{SCAN_BWD_ATOL}*max|plain| + {SCAN_BWD_RTOL}*|plain|")
-    for n_, a, b in zip(names, got, again):
-        if a is not None and not torch.equal(a, b):
-            fail(f"{name} {extra}: two launches gave different {n_} bits")
-    del again
+                 tol=f"{SCAN_BWD_ATOL}*max|plain| + {SCAN_BWD_RTOL}*|plain|; "
+                     f"error vs float64 <= {SCAN_ERR_RATIO}x the plain "
+                     "version's")
+    want = plain()
     f64 = ref.rwkv6_scan_bwd_ref(*(t.double() for t in (r, k, v, w, u,
                                                        state, dy)),
                                  None if ds_end is None else ds_end.double())
-    max_err, errs = 0.0, {}
-    for n_, a, b, c in zip(names, got, want, f64):
-        if a is None:
-            continue
-        if a.shape != b.shape or not torch.isfinite(a).all():
-            fail(f"{name} {extra}: {n_} {tuple(a.shape)} is not finite or "
-                 f"not the plain version's {tuple(b.shape)}")
-        scale = float(b.abs().max())
-        err = (a - b).abs()
-        if bool((err > SCAN_BWD_ATOL * scale + SCAN_BWD_RTOL * b.abs())
-                .any()):
-            fail(f"{name} {extra}: {n_} misses its tolerance by "
-                 f"{float(err.max())} (scale {scale})")
-        k_err = float((a.double() - c).abs().max())
-        p_err = float((b.double() - c).abs().max())
-        if not k_err <= SCAN_ERR_RATIO * p_err:
-            fail(f"{name} {extra}: {n_}'s error against float64 {k_err} is "
-                 f"above {SCAN_ERR_RATIO}x the plain version's {p_err}")
-        errs[n_] = dict(max_abs_err=float(err.max()), scale=scale,
-                        kernel_err_vs_f64=k_err, plain_err_vs_f64=p_err)
-        max_err = max(max_err, float(err.max()))
-    del f64, got, want
+    by_route = {}
+    variants = ((rule, rule, kernel), (rule + "_alone", rule, alone),
+                ("serial", "serial", serial))
+    for label, route, fn in variants:
+        before = dict(build.route_counts)
+        got = fn()
+        took = [n.split(":")[1] for n, c in build.route_counts.items()
+                if c != before[n] and n.startswith(name + ":")]
+        again = fn()
+        torch.cuda.synchronize()
+        if took != [route]:
+            fail(f"{name} {extra}: took routes {took}, asked for {route}")
+        for n_, a, b in zip(names, got, again):
+            if a is not None and not torch.equal(a, b):
+                fail(f"{name} {extra}: two launches of route {route} gave "
+                     f"different {n_} bits")
+        del again
+        max_err, errs = 0.0, {}
+        for n_, a, b, c in zip(names, got, want, f64):
+            if a is None:
+                continue
+            if a.shape != b.shape or not torch.isfinite(a).all():
+                fail(f"{name} {extra}: route {route}'s {n_} "
+                     f"{tuple(a.shape)} is not finite or not the plain "
+                     f"version's {tuple(b.shape)}")
+            scale = float(b.abs().max())
+            err = (a - b).abs()
+            if bool((err > SCAN_BWD_ATOL * scale + SCAN_BWD_RTOL * b.abs())
+                    .any()):
+                fail(f"{name} {extra}: route {route}'s {n_} misses its "
+                     f"tolerance by {float(err.max())} (scale {scale})")
+            k_err = float((a.double() - c).abs().max())
+            p_err = float((b.double() - c).abs().max())
+            if not k_err <= SCAN_ERR_RATIO * p_err:
+                fail(f"{name} {extra}: route {route}'s {n_} error against "
+                     f"float64 {k_err} is above {SCAN_ERR_RATIO}x the plain "
+                     f"version's {p_err}")
+            errs[n_] = dict(max_abs_err=float(err.max()), scale=scale,
+                            kernel_err_vs_f64=k_err, plain_err_vs_f64=p_err)
+            max_err = max(max_err, float(err.max()))
+        by_route[label] = dict(max_abs_err=max_err, errors=errs)
+        del got
+    del f64, want
     torch.cuda.empty_cache()
-    case = dict(name=name, dtype="float32", max_abs_err=max_err,
+    case = dict(name=name, dtype="float32",
+                max_abs_err=by_route[rule]["max_abs_err"],
+                errors=by_route[rule]["errors"],
+                alone_max_abs_err=by_route[rule + "_alone"]["max_abs_err"],
+                serial_max_abs_err=by_route["serial"]["max_abs_err"],
+                serial_errors=by_route["serial"]["errors"],
                 atol=SCAN_BWD_ATOL, rtol=SCAN_BWD_RTOL, primary=primary,
-                errors=errs, **extra)
+                states_bytes=nbytes(states), **extra)
     if primary or timed:
         # read r, k, v, w, u, the state, dy (and ds_end) once, write dr, dk,
         # dv, dw, du (and ds0) once; per token and row: the state step
-        # recomputed once (2KV), dS's step, dr, dk, dv, dw (2KV each)
+        # (2KV), dS's step, dr, dk, dv, dw (2KV each)
         byts = nbytes(r, k, v, w, u, state, dy, ds_end) + 4 * (
             3 * bh * T * K + bh * T * V + u.shape[0] * K +
             (bh * K * V if with_ds_end else 0))
         flops = bh * T * 12.0 * K * V
         t_bytes = byts / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOP_PER_S * 1e3
-        case.update(ms=time_ms(kernel), queued_ms=queued_ms(kernel),
+        bounds = {"tf32x3": 3 * flops / TF32_FLOP_PER_S * 1e3,
+                  "serial": flops / FP32_FLOP_PER_S * 1e3}
+        for label, route, fn in variants:
+            by_route[label].update(
+                ms=time_ms(fn), queued_ms=queued_ms(fn),
+                bound_ms=max(t_bytes, bounds[route]),
+                bound_by="bytes" if t_bytes >= bounds[route]
+                else "operations")
+        case.update(ms=by_route[rule]["ms"],
+                    queued_ms=by_route[rule]["queued_ms"],
+                    alone_ms=by_route[rule + "_alone"]["ms"],
+                    alone_queued_ms=by_route[rule + "_alone"]["queued_ms"],
+                    serial_ms=by_route["serial"]["ms"],
+                    serial_queued_ms=by_route["serial"]["queued_ms"],
                     plain_ms=time_ms(plain, reps=3, warm=1),
-                    library_ms=None, bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    library_ms=None, bound_ms=by_route[rule]["bound_ms"],
+                    bound_by=by_route[rule]["bound_by"],
+                    serial_bound_ms=by_route["serial"]["bound_ms"],
+                    serial_bound_by=by_route["serial"]["bound_by"],
                     bytes=byts, flops=flops)
+    del states
     torch.cuda.empty_cache()
     return case
 
@@ -1241,9 +1330,31 @@ def scan_routes(mine, by_path) -> dict:
         c["serial_max_abs_err"] for c in mine if "serial_max_abs_err" in c)
     by_shape = [{k: c.get(k) for k in (
         "shape", "decay", "scan_route", "ms", "queued_ms", "serial_ms",
-        "plain_ms", "bound_ms", "kernel_err_vs_f64", "serial_err_vs_f64",
-        "plain_err_vs_f64", "plain_finite")}
+        "keep_states_ms", "plain_ms", "bound_ms", "kernel_err_vs_f64",
+        "serial_err_vs_f64", "plain_err_vs_f64", "plain_finite")}
         for c in mine if "serial_err_vs_f64" in c]
+    return {"by_route": by_route, "by_shape": by_shape}
+
+
+def scan_bwd_routes(mine, by_path) -> dict:
+    """The scan backward's two routes side by side: each one's source,
+    launches on the main paths, largest error against the plain version,
+    and, at every timed shape, both routes' times whole and queued, their
+    bounds and the plain version's time."""
+    by_route = {route: {
+        "source": SCAN_BWD_SOURCE[route],
+        "launches": sum(p[f"rwkv6_scan_bwd:{route}"]
+                        for p in by_path.values())}
+        for route in ("tf32x3", "serial")}
+    by_route["tf32x3"]["max_abs_err"] = max(c["max_abs_err"] for c in mine)
+    by_route["serial"]["max_abs_err"] = max(c["serial_max_abs_err"]
+                                            for c in mine)
+    by_shape = [{key: c.get(key) for key in (
+        "shape", "decay", "scan_bwd_route", "ms", "queued_ms", "alone_ms",
+        "alone_queued_ms", "bound_ms", "bound_by", "serial_ms",
+        "serial_queued_ms", "serial_bound_ms", "serial_bound_by", "plain_ms",
+        "states_bytes")}
+        for c in mine if "ms" in c]
     return {"by_route": by_route, "by_shape": by_shape}
 
 
@@ -2618,12 +2729,15 @@ LM_PATHS = (
 # RWKV-6 above and Zamba2 below run a quarter and a third of their
 # published depth (``layers``: the depth of RWKV-6's card-vs-CPU check,
 # and 3 of Zamba2's 9 repeats), to pay in the script's time for serving
-# and sweeping the families in their bfloat16, which run them at full
-# depth.  DeepSeek keeps all 28 layers: at 14, with the sites moved to
-# fit, a MoE route flipped
-# between the suffix and the batched engine's stacked forwards (a margin
-# of 0.043 at a labelled position; ROADMAP Queue C 2) and its sited check
-# failed.
+# and sweeping the families in their bfloat16; the bfloat16 serving runs
+# each family at its path's depth too.  DeepSeek keeps all 28 layers: at 14, with the sites moved to
+# fit (``s0.moe@4``, ``s0.moe@10``), the suffix engine's fused forwards
+# read one trial apart from the batched engine's (route B's shared expert
+# rounds otherwise than the gate and cuBLAS, and a route near a tie
+# flips: ROADMAP Queue C 7).  The unfused ones agree there, because every
+# engine runs the layers before a chunk's first differing gate at B rows
+# (``linearize.first_differences``); ``MOE_REPRODUCER`` holds them to it
+# after this path.
 # DeepSeek-MoE-16B: a dense head block and 27 MoE blocks, 16.2 B parameters,
 # 64.7 GB in float32 — no room for a bfloat16 copy beside them, so no
 # bfloat16 forward on this path (the serve phase runs all 28 layers in
@@ -2647,6 +2761,13 @@ FAMILY_PATHS = (
            ("s0.mamba@1", "s4.mamba@2"), 2, w_o_scale=1 / 32, drc=512,
            layers=18),
 )
+# The 14-layer DeepSeek-MoE-16B of ROADMAP Queue C 6, after DeepSeek's
+# path (``moe14_sited`` line): its sited candidates through the batched
+# engine and the suffix engine, the unfused suffix forwards held equal to
+# the batched ones on every trial, the fused ones reported beside them.
+MOE_REPRODUCER = dataclasses.replace(
+    FAMILY_PATHS[0], tag="moe14", sited=("s0.moe@4", "s0.moe@10"), layers=14)
+MOE_REPRODUCER_GATED = ("suffix_unfused",)
 FAMILY_SERVE_BATCH, FAMILY_SERVE_PROMPT, FAMILY_SERVE_GEN = 2, 16, 8
 
 
@@ -3129,17 +3250,20 @@ def run_lm_bf16_bcd(spec, steps: int, device="cuda"):
     return out
 
 
-def run_lm_sited(model, params, batch, drc: int, spec, device="cuda"):
+def run_lm_sited(model, params, batch, drc: int, spec, device="cuda",
+                 gated=None, reps: int = LM_SITED_REPS):
     """Site-local candidates at mid-scan per-repeat sites through the
     batched engine and the suffix engine, unfused and (where the config has
     the fused route) fused: equal accuracies, prefix reuse in the trie,
-    and the rates."""
+    and the rates over ``reps`` timed passes.  ``gated``: the labels held
+    equal to the batched engine (every one by default); the others' trials
+    that differ are reported."""
     from repro_torch.core import engine as E, linearize, masks as M
     from repro_torch.launch.sweep import make_bcd_evaluator
     masks0 = linearize.init_masks(model.mask_sites())
     fractions = model.site_prefix_fractions()
     rng = np.random.default_rng(0)
-    n_cand, reps, out = 16, 2, []
+    n_cand, out = 16, []
     engines = [("batched", "batched", False),
                ("suffix_unfused", "suffix", False)]
     if spec.fused:
@@ -3187,12 +3311,21 @@ def run_lm_sited(model, params, batch, drc: int, spec, device="cuda"):
                 fail(f"{spec.tag}_sited {site}: the fused suffix did not "
                      "launch masked_act_matmul_2d_batched")
         for label, a in accs.items():
-            if not np.array_equal(a, accs["batched"]):
-                emit({f"{spec.tag}_sited_failed": sited_diagnosis(
-                    model, params, batch, masks0, chunks, site, a,
-                    accs["batched"], label == "suffix_fused", device)})
+            if np.array_equal(a, accs["batched"]):
+                continue
+            diag = sited_diagnosis(model, params, batch, masks0, chunks,
+                                   site, a, accs["batched"],
+                                   label == "suffix_fused", device)
+            if gated is None or label in gated:
+                emit({f"{spec.tag}_sited_failed": diag})
                 fail(f"{spec.tag}_sited {site}: {label} accuracies {a} "
                      f"differ from batched {accs['batched']}")
+            bad = np.flatnonzero(a != accs["batched"])
+            row[label]["not_gated"] = dict(
+                trials_differing=[int(i) for i in bad],
+                accs=[float(a[i]) for i in bad],
+                batched=[float(accs["batched"][i]) for i in bad],
+                diagnosis=diag)
         row["accs"] = [float(a) for a in accs["batched"]]
         row["suffix_vs_batched"] = {
             lab: row[lab]["candidates_per_s"] /
@@ -3310,8 +3443,9 @@ def sited_diagnosis(model, params, batch, masks0, chunks, site, got, want,
     chunk holding a disagreeing candidate, the largest logit difference
     between the suffix forward over the shared prefix and the full stacked
     forward, the labelled positions whose argmax differs and their top-2
-    margins there, and the MoE routes that differ."""
-    from repro_torch.core import masks as M
+    margins there, and the MoE routes that differ (both forwards with the
+    engines' host decision, ``linearize.first_differences``)."""
+    from repro_torch.core import linearize, masks as M
     tokens = torch.from_numpy(batch["tokens"]).to(device).long()
     x, labels = tokens[:, :-1], tokens[:, 1:]
     base = M.as_device(masks0, device)
@@ -3322,12 +3456,17 @@ def sited_diagnosis(model, params, batch, masks0, chunks, site, got, want,
             st = M.as_device(chunks[c], device)
             ra, rb = record_routes(), record_routes()
             with ra:
-                full = model.forward(params, st, x, ties=False)
+                full = model.forward(
+                    params, st, x, ties=False,
+                    differ=linearize.first_differences(chunks[c]))
             cached = model.forward_prefix(params, base, x, site)
-            sub = {k: st[k] for k in model.suffix_sites(site)}
+            names = model.suffix_sites(site)
+            sub = {k: st[k] for k in names}
             with rb:
-                suf = model.forward_suffix(params, sub, cached, site,
-                                           fused=fused, ties=False)
+                suf = model.forward_suffix(
+                    params, sub, cached, site, fused=fused, ties=False,
+                    differ=linearize.first_differences(
+                        {k: chunks[c][k] for k in names}))
             flip = full.argmax(-1) != suf.argmax(-1)
             top2 = full.topk(2, dim=-1).values
             margin = (top2[..., 0] - top2[..., 1])[flip]
@@ -3410,6 +3549,32 @@ def run_lm_path(spec, by_path, device="cuda"):
     # before the next path allocates its own (DeepSeek's take 64.7 GB)
     gc.collect()
     if cuda:
+        torch.cuda.empty_cache()
+
+
+def run_moe_reproducer(by_path, device="cuda"):
+    """ROADMAP Queue C 6's 14-layer DeepSeek-MoE-16B (``MOE_REPRODUCER``),
+    after DeepSeek's path has freed the card: its eval batch, then its
+    sited candidates through the batched and the suffix engine, the
+    unfused suffix forwards held equal to the batched ones on every trial
+    (``moe14_sited`` line).  Its launches count under its own key."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    spec = MOE_REPRODUCER
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(spec.arch), n_layers=spec.layers)
+    model, params = make_lm(SEED, spec, device, cfg=cfg)
+    batch, batch_info = make_lm_batch(model, params, SEED, spec, device)
+    build.reset_launch_counts()
+    sited = run_lm_sited(model, params, batch, LM_SITED_DRC, spec, device,
+                         gated=MOE_REPRODUCER_GATED)
+    by_path[f"{spec.arch}_{spec.layers}_layers"] = counts()
+    sited.update(layers=spec.layers, gated=list(MOE_REPRODUCER_GATED),
+                 batch_info=batch_info, seconds=time.perf_counter() - t0)
+    emit({f"{spec.tag}_sited": sited})
+    del model, params
+    gc.collect()
+    if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
 
 
@@ -4009,8 +4174,9 @@ def time_decode_steps(model, params, masks, prompts, device):
 
 def run_serve_generate_bf16(spec, batch: int, prompt: int, n_gen: int,
                             device="cuda"):
-    """One model at its published config in its own bfloat16 (the path's
-    seed's draws rounded, as ``lm_bf16_bcd``): ``launch.serve.generate``
+    """One model at its published widths and its LM path's depth
+    (``spec.layers``) in its own bfloat16 (the path's seed's draws
+    rounded, as ``lm_bf16_bcd``): ``launch.serve.generate``
     of ``batch`` Markov prompts of ``prompt`` tokens by ``n_gen`` tokens
     (density-0.9 masks), the served tokens and the kept logits judged by
     :func:`judge_bf16` against the uncached bfloat16 forward of the served
@@ -4037,6 +4203,8 @@ def run_serve_generate_bf16(spec, batch: int, prompt: int, n_gen: int,
     from repro_torch.launch import serve
     cuda = torch.device(device).type == "cuda"
     cfg = get_config(spec.arch)
+    if spec.layers:
+        cfg = dataclasses.replace(cfg, n_layers=spec.layers)
     moe = bool(cfg.n_experts)
     if moe:
         cfg = dataclasses.replace(cfg,
@@ -4165,21 +4333,30 @@ def run_serve_path(by_path, device="cuda"):
     launch counts summed into ``by_path["serve"]``), and the reduced chaos
     drill on the card and on the CPU; then the configs' own bfloat16
     (``by_path["serve_bf16"]``): StableLM-2-1.6B's loop, ``generate`` on
-    RWKV-6 3B, DeepSeek-MoE-16B (28 layers) and Zamba2-2.7B (54 layers),
+    RWKV-6 3B, DeepSeek-MoE-16B and Zamba2-2.7B at their LM paths' depths,
     a tie of bfloat16 logits, and the launcher as a user runs it."""
+    t0 = time.perf_counter()
     lm, lm_counts = run_serve_stablelm(device)
+    lm["seconds"], t0 = time.perf_counter() - t0, time.perf_counter()
     rwkv, rwkv_counts = run_serve_rwkv(device)
+    rwkv["seconds"], t0 = time.perf_counter() - t0, time.perf_counter()
     by_path["serve"] = {k: lm_counts[k] + rwkv_counts[k] for k in lm_counts}
-    out = dict(stablelm=lm, rwkv=rwkv, chaos_drill=run_chaos_drill(device),
+    drill = run_chaos_drill(device)
+    drill["seconds"] = time.perf_counter() - t0
+    out = dict(stablelm=lm, rwkv=rwkv, chaos_drill=drill,
                launches={k: v for k, v in by_path["serve"].items() if v})
     t0 = time.perf_counter()
     bf16 = {"argmax_ties": argmax_ties(device), "lines": []}
+    t1 = time.perf_counter()
     line, total = run_serve_stablelm(device, dtype="bfloat16")
+    line["seconds"] = time.perf_counter() - t1
     emit({"lm_bf16_serve": line})
     bf16["lines"].append("lm_bf16_serve")
     for spec, (b, p, g) in zip(LM_PATHS[1:] + FAMILY_PATHS,
                                SERVE_BF16_GENERATE):
+        t1 = time.perf_counter()
         line, launches = run_serve_generate_bf16(spec, b, p, g, device)
+        line["seconds"] = time.perf_counter() - t1
         emit({f"{spec.tag}_bf16_serve": line})
         bf16["lines"].append(f"{spec.tag}_bf16_serve")
         total = {k: total[k] + launches[k] for k in total}
@@ -4234,6 +4411,7 @@ class FamilySweep:
 
 
 _PAYS = "the script's time: cut to pay for the bfloat16 sweeps"
+_LIMIT = "the script's 1,200 s limit, with room for slower hosts"
 FAMILY_SWEEPS = (
     # float32, each family as shallow as still drives its path: 2 of 32
     # RWKV-6 repeats (the depth of the float32 gradient check) and the
@@ -4253,19 +4431,20 @@ FAMILY_SWEEPS = (
                 lr_why="at the example's own, the loss after SNL was NaN "
                        "(10.88 after training)", layers_why=_PAYS),
     # the configs' own bfloat16, the same seed's draws rounded, at the
-    # depths the float32 sweeps had: 8 of 32 RWKV-6 repeats (full depth
-    # wrote and read back a 12.4 GB float32 warm start and ran two
-    # host-bound sweeps of 65-67 s), DeepSeek's dense head block and 3 MoE
-    # repeats (AdamW's state for all 16.2 B parameters fits no single
-    # card), Zamba2 at full depth
-    FamilySweep(LM_PATHS[1], ("batched", "suffix"), layers=8,
-                dtype="bfloat16", grad_repeats=2),
-    FamilySweep(FAMILY_PATHS[0], ("batched", "suffix"), layers=4,
-                dtype="bfloat16", grad_repeats=1),
-    FamilySweep(FAMILY_PATHS[1], ("suffix",), lr_scale=1 / 32,
+    # float32 sweeps' depths (AdamW's state for all 16.2 B DeepSeek
+    # parameters fits no single card).  The host-bound sweeps took 77.6,
+    # 112.3 and 102.5 s at 8 repeats, 4 layers and 36 layers on one H100
+    # (146-176 s for Zamba2 at 54), and with them the script came within
+    # 230 s of its 1,200 s limit on one host and went past it on another;
+    # at 4 repeats, 3 and 12 layers it took 852 and 991 s on two hosts
+    FamilySweep(LM_PATHS[1], ("batched", "suffix"), layers=2,
+                dtype="bfloat16", grad_repeats=2, layers_why=_LIMIT),
+    FamilySweep(FAMILY_PATHS[0], ("batched", "suffix"), layers=3,
+                dtype="bfloat16", grad_repeats=1, layers_why=_LIMIT),
+    FamilySweep(FAMILY_PATHS[1], ("suffix",), layers=6, lr_scale=1 / 32,
                 lr_why="at the example's own, the float32 loss after SNL "
                        "was NaN (10.88 after training)",
-                dtype="bfloat16", grad_repeats=1),
+                dtype="bfloat16", grad_repeats=1, layers_why=_LIMIT),
 )
 
 
@@ -5459,6 +5638,11 @@ def check_launches(by_path, paths) -> None:
         if by_path[path]["rwkv6_scan:tf32x3"] != by_path[path]["rwkv6_scan"]:
             fail(f"the {path} path ran {by_path[path]['rwkv6_scan:serial']} "
                  "scans on route S, not route C")
+        if by_path[path]["rwkv6_scan_bwd:tf32x3"] != \
+                by_path[path]["rwkv6_scan_bwd"]:
+            fail(f"the {path} path ran "
+                 f"{by_path[path]['rwkv6_scan_bwd:serial']} scan backwards "
+                 "on route serial, not tf32x3")
 
 
 def sync(device) -> None:
@@ -5583,6 +5767,8 @@ def main() -> None:
             emit({f"only_{spec.tag}": {
                 "repro_torch": os.path.dirname(K.__file__)}})
             run_lm_path(spec, by_path)
+            if spec is FAMILY_PATHS[0]:
+                run_moe_reproducer(by_path)
             check_launches(by_path, (spec.arch,))
             return
     if args.only_sweep:
@@ -5660,6 +5846,8 @@ def main() -> None:
     # Zamba2-2.7B
     for spec in LM_PATHS + FAMILY_PATHS:
         run_lm_path(spec, by_path)
+        if spec is FAMILY_PATHS[0]:
+            run_moe_reproducer(by_path)
 
     # ---- serving StableLM-2-1.6B and RWKV-6 3B, counted on its own
     t0 = time.perf_counter()
@@ -5719,6 +5907,8 @@ def main() -> None:
             kernels[-1].update(conv_routes(name, mine, by_path))
         if name == "rwkv6_scan":
             kernels[-1].update(scan_routes(mine, by_path))
+        if name == "rwkv6_scan_bwd":
+            kernels[-1].update(scan_bwd_routes(mine, by_path))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True,

@@ -105,10 +105,12 @@ def main(argv=None, device=None):
     eval_b = {k: torch.from_numpy(v).to(device)
               for k, v in mt.batch(16, args.seq, 10**6).items()}
 
-    def token_acc_fn(m, ties=True):
+    def token_acc_fn(m, ties=True, differ=None):
         with torch.no_grad():
-            logits = model.forward(params, m, eval_b["tokens"], ties=ties)
-            return token_accuracy(logits, eval_b["labels"])
+            logits = model.forward(params, m, eval_b["tokens"], ties=ties,
+                                   differ=differ)
+            return linearize.per_candidate(
+                token_accuracy(logits, eval_b["labels"]), m, differ)
 
     def token_acc(m):
         return float(token_acc_fn(M.as_device(m, device),

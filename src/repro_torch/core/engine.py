@@ -44,10 +44,19 @@ Backends must rank candidates identically: ``run_bcd`` breaks ties by first
 occurrence, and all backends evaluate candidates in sampling order, so for a
 given seed/config every backend selects the same block (the site-aware path
 reorders *evaluation* but replays selection in sampling order).
+
+The candidate axis begins at a chunk's first differing gate: the batched,
+pipelined and suffix backends hand the model's closure the host decision
+``linearize.first_differences`` (``differ=``), so the layers before it run
+at B rows in every backend, as the suffix backend's cached prefix does.  A
+product on the card may round a row otherwise at another row count, so
+this keeps a candidate's rows up to its chunk's first differing gate the
+same bits in every backend.
 """
 from __future__ import annotations
 
 import collections
+import inspect
 import statistics
 import time
 from typing import (Any, Callable, Dict, Iterable, Iterator, NamedTuple,
@@ -62,8 +71,30 @@ from . import linearize
 from . import masks as M
 
 # eval_fn: (device mask tree, one or N stacked) -> accuracy tensor [%],
-# 0-d or (N,); takes ``ties=`` (see linearize.has_share_ties).
+# 0-d or (N,); takes ``ties=`` (see linearize.has_share_ties) and, where it
+# names the keyword, ``differ=`` (linearize.first_differences): the models'
+# closures then run every layer before a chunk's first differing gate at B
+# rows.
 EvalFn = Callable[..., torch.Tensor]
+
+
+def takes_differ(fn) -> bool:
+    """Whether an eval closure takes the host decision ``differ=``."""
+    try:
+        params = inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        return False
+    return "differ" in params or any(
+        p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values())
+
+
+def host_decisions(stacked: M.MaskTree, with_differ: bool) -> dict:
+    """The keywords a stacked chunk's forward takes, decided on the host:
+    ``ties=`` and, for a closure that takes it, ``differ=``."""
+    kw = {"ties": linearize.has_share_ties(stacked)}
+    if with_differ:
+        kw["differ"] = linearize.first_differences(stacked)
+    return kw
 
 
 @runtime_checkable
@@ -252,6 +283,7 @@ class BatchedEvaluator:
         self.context = None if context is None else \
             to_device(context, self.device)
         self._eval_fn = eval_fn
+        self._with_differ = takes_differ(eval_fn)
         self._pad_to = pad_to
 
     def set_context(self, context) -> None:
@@ -285,11 +317,11 @@ class BatchedEvaluator:
         n = M.stacked_len(stacked)
         if self._pad_to is not None and n < self._pad_to:
             stacked = M.pad_stacked(stacked, self._pad_to)
-        ties = linearize.has_share_ties(stacked)      # host decision
+        kw = host_decisions(stacked, self._with_differ)
         batch = self._device_batch(stacked)
         with torch.no_grad():
-            accs = self._eval_fn(batch, self.context, ties=ties) \
-                if self._has_ctx else self._eval_fn(batch, ties=ties)
+            accs = self._eval_fn(batch, self.context, **kw) \
+                if self._has_ctx else self._eval_fn(batch, **kw)
         return StagedChunk(n, accs)
 
     def evaluate_staged(self, staged: StagedChunk) -> np.ndarray:
@@ -572,6 +604,7 @@ class SuffixEvaluator:
             cost_model = SuffixCostModel()
         repro_torch.use_full_float32()
         self._split = split
+        self._suffix_differ = takes_differ(split.suffix)
         self.cost_model = cost_model
         self.fused_kernels = bool(fused_kernels)
         self._pad_to = pad_to
@@ -739,14 +772,14 @@ class SuffixEvaluator:
         n_pad = max(n, self._pad_to or 0)
         if n_pad > n:
             sub = M.pad_stacked(sub, n_pad)
-        ties = linearize.has_share_ties(sub)          # host decision
+        kw = host_decisions(sub, self._suffix_differ)
         batch = self._inner._device_batch(sub)
         cached = self._prefix_for(site)
         seg = self._split.site_segment[site]
         with torch.no_grad():
             accs = self._split.suffix(
                 self._segment_site[seg], batch, cached, self.context,
-                fused=self.fused_kernels and not ties, ties=ties)
+                fused=self.fused_kernels and not kw["ties"], **kw)
         return StagedChunk(n, accs)
 
     # ------------------------------------------------------------- protocol

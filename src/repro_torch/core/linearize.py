@@ -9,11 +9,21 @@ PyTorch runs eagerly, so nothing here is a trace-time hint: whether a gate
 is folded into the next convolution is the plain ``fused`` argument of the
 model's forward, and the candidate axis is an explicit leading dimension of
 the mask (and, once candidates differ, of the activation).
+
+**The candidate axis begins where the candidates differ.**  Evaluators hand
+a stacked chunk's forward a host decision, :func:`first_differences`; a
+model applies the gate of a site (or of a stack repeat) that every
+candidate shares with the one mask (:func:`shared_mask`) while its
+activation is still shared, so every layer before the first differing gate
+runs at B rows, as a cached prefix does, and its products run at the same
+shapes whichever engine computes them.  A chunk whose candidates are all
+equal runs once and its accuracy is each candidate's
+(:func:`per_candidate`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,6 +94,49 @@ def has_share_ties(masks) -> bool:
         if np.any((v > 0.5) & (v < 0.9)):
             return True
     return False
+
+
+def first_differences(stacked) -> Dict[str, Optional[int]]:
+    """Host-side decision for a stacked numpy mask tree: for each key, None
+    where the N candidates' masks are all equal, else the first index along
+    the axis after the candidate axis at which they differ — for a stack
+    site, whose leaves are ``(N, R, *shape)``, the first repeat that
+    differs.  Evaluators compute it on the host copy of a chunk and hand it
+    to the forward as ``differ=``, as they hand it ``ties=``: nothing is
+    read back from the device."""
+    out = {}
+    for k, v in stacked.items():
+        v = np.asarray(v)
+        rows = np.flatnonzero(
+            (v != v[:1]).reshape(v.shape[0], v.shape[1], -1).any(axis=(0, 2)))
+        out[k] = int(rows[0]) if rows.size else None
+    return out
+
+
+def shared_mask(mask, differ, name: str, repeat=None):
+    """The one mask ``mask[0]`` of a stacked leaf where the decision
+    ``differ`` (:func:`first_differences`) says every candidate has the same
+    mask at ``name`` — at stack repeat ``repeat`` for a leaf with a repeat
+    axis, which the candidates share before their first differing repeat;
+    otherwise ``mask`` as it is.  A model calls it while the gate's input
+    is still shared by the candidates, so the gate's output stays
+    un-stacked.  ``differ=None`` (no decision) keeps every stacked mask."""
+    if differ is None or name not in differ:
+        return mask
+    first = differ[name]
+    if first is None or (repeat is not None and repeat < first):
+        return mask[0]
+    return mask
+
+
+def per_candidate(acc, masks, differ):
+    """A stacked chunk's ``(N,)`` accuracies: where no gate differed the
+    forward ran once, un-stacked, and its 0-d accuracy is each
+    candidate's."""
+    if differ is None or acc.dim() > 0:
+        return acc
+    n = next(iter(masks.values())).shape[0]
+    return acc.reshape(1).expand(n).contiguous()
 
 
 def _apply_share_ties(x, mask, out):

@@ -48,7 +48,8 @@ launch_counts = {
 }
 # the fused matmul's, the fused conv's and the scan's launches by route
 # (kernels.masked_act.matmul_route and conv_route,
-# kernels.rwkv6_scan.scan_route), reset with launch_counts
+# kernels.rwkv6_scan.scan_route and scan_bwd_route), reset with
+# launch_counts
 route_counts = {
     **{f"{name}:{route}": 0
        for name in ("masked_act_matmul_2d", "masked_act_matmul_2d_batched")
@@ -56,7 +57,8 @@ route_counts = {
     **{f"{name}:{route}": 0
        for name in ("masked_act_conv3x3", "masked_act_conv3x3_batched")
        for route in ("fma", "tf32x3")},
-    **{f"rwkv6_scan:{route}": 0 for route in ("serial", "tf32x3")}}
+    **{f"{name}:{route}": 0 for name in ("rwkv6_scan", "rwkv6_scan_bwd")
+       for route in ("serial", "tf32x3")}}
 
 
 _count_lock = threading.Lock()
@@ -189,11 +191,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.masked_act_rcp_check.argtypes = [vp, vp]
     lib.rwkv6_scan_launch.restype = i
     lib.rwkv6_scan_launch.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, ll, i, vp]
+        vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, ll, i, vp]
     lib.rwkv6_scan_bwd_launch.restype = i
     lib.rwkv6_scan_bwd_launch.argtypes = [
         vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i,
-        i, i, i, i, ll, i, vp]
+        i, i, i, i, ll, i, i, vp]
     lib.masked_act_error_string.restype = ctypes.c_char_p
     lib.masked_act_error_string.argtypes = [i]
 

@@ -141,26 +141,30 @@ void launch(const float* r, const float* k, const float* v, const float* w,
 // route C, in rwkv6_scan_sm90.cu
 int rwkv6_scan_tf32x3_launch(const void* r, const void* k, const void* v,
                              const void* w, const void* u, const void* s0,
-                             void* y, void* s_out, int BH, int T, int K,
-                             int V, int u_rows, long long s0_stride,
-                             cudaStream_t stream);
+                             void* y, void* s_out, void* states, int BH,
+                             int T, int K, int V, int u_rows,
+                             long long s0_stride, cudaStream_t stream);
 
 // K, V in [1, 64]; u_rows >= 1 divides BH; s0_stride is K*V or 0; route 0
-// (S, token-serial) or 1 (C, chunked on the tensor cores).  A route that
-// cannot take the call is refused, never replaced.
+// (S, token-serial) or 1 (C, chunked on the tensor cores).  states, null
+// or BH * ceil(T / 16) tiles of 64 x 64 floats, takes the state entering
+// each chunk of 16 tokens (route C only; the backward reads it).  A route
+// that cannot take the call is refused, never replaced.
 extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v,
                                  const void* w, const void* u, const void* s0,
-                                 void* y, void* s_out, int BH, int T, int K,
-                                 int V, int u_rows, long long s0_stride,
-                                 int route, void* stream) {
+                                 void* y, void* s_out, void* states, int BH,
+                                 int T, int K, int V, int u_rows,
+                                 long long s0_stride, int route,
+                                 void* stream) {
   if (BH <= 0) return 0;
   if (T < 0 || K < 1 || K > 64 || V < 1 || V > kVMax || u_rows < 1 ||
-      BH % u_rows || (route != 0 && route != 1))
+      BH % u_rows || (route != 0 && route != 1) ||
+      (route == 0 && states != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (route == 1)
-    return rwkv6_scan_tf32x3_launch(r, k, v, w, u, s0, y, s_out, BH, T, K, V,
-                                    u_rows, s0_stride, s);
+    return rwkv6_scan_tf32x3_launch(r, k, v, w, u, s0, y, s_out, states, BH,
+                                    T, K, V, u_rows, s0_stride, s);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto o = [](void* p) { return static_cast<float*>(p); };
   if (K <= 16)

@@ -1,5 +1,7 @@
 // The gradient of the RWKV-6 scan for NVIDIA Hopper (sm_90a), plain C
-// interface.
+// interface: route "serial" (this file's token-serial kernel) and the entry
+// point of both routes; route "tf32x3", the chunked form on the TF32 tensor
+// cores, is rwkv6_scan_bwd_sm90.cu.
 //
 // Built by repro_torch/kernels/build.py with the flags of masked_act.cu and
 // loaded with ctypes.  The entry point launches on the stream it is given,
@@ -280,29 +282,51 @@ __global__ void rwkv6_du_reduce_kernel(const float* __restrict__ du_row,
 
 }  // namespace
 
+// route "tf32x3", in rwkv6_scan_bwd_sm90.cu
+int rwkv6_scan_bwd_tf32x3_launch(const void* r, const void* k, const void* v,
+                                 const void* w, const void* u, const void* dy,
+                                 const void* ds_end, const void* states,
+                                 void* du_row, void* dr, void* dk, void* dv,
+                                 void* dw, void* ds0, int BH, int T, int K,
+                                 int V, int u_rows, cudaStream_t stream);
+
 // K, V in [1, 64]; u_rows >= 1 and du_rows >= 1 divide BH; s0_stride is
-// K*V or 0; ds_end and ds0 may be null.  ck holds BH * ceil(T / 8) * 64 * 64
-// floats.  du is (du_rows, K): with du_rows == BH the rows are written
-// straight into it (du_row may then be du itself), otherwise du_row
-// (BH, K) takes the per-row partials and a second kernel sums them by head.
+// K*V or 0; ds_end and ds0 may be null; route 0 ("serial", token by token)
+// or 1 ("tf32x3", chunked on the tensor cores).  A route that cannot take
+// the call is refused, never replaced.  ck: on route 0 the checkpoint
+// scratch, BH * ceil(T / 8) * 64 * 64 floats; on route 1 the state entering
+// each chunk of 16 tokens, BH * ceil(T / 16) * 64 * 64 floats, as route C
+// of the forward writes them, only read (route 1 takes the initial state
+// from there, not from s0).  du is (du_rows, K): with du_rows == BH the
+// rows are written straight into it (du_row may then be du itself),
+// otherwise du_row (BH, K) takes the per-row partials and a second kernel
+// sums them by head.
 extern "C" int rwkv6_scan_bwd_launch(
     const void* r, const void* k, const void* v, const void* w,
     const void* u, const void* s0, const void* dy, const void* ds_end,
     void* ck, void* du_row, void* dr, void* dk, void* dv, void* dw, void* du,
     void* ds0, int BH, int T, int K, int V, int u_rows, long long s0_stride,
-    int du_rows, void* stream) {
+    int du_rows, int route, void* stream) {
   if (BH <= 0) return 0;
   if (T < 0 || K < 1 || K > kW || V < 1 || V > kW || u_rows < 1 ||
-      BH % u_rows || du_rows < 1 || BH % du_rows)
+      BH % u_rows || du_rows < 1 || BH % du_rows ||
+      (route != 0 && route != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto o = [](void* p) { return static_cast<float*>(p); };
   float* rows = du_rows == BH ? o(du) : o(du_row);
-  rwkv6_scan_bwd_kernel<<<BH, kThreads, 0, s>>>(
-      f(r), f(k), f(v), f(w), f(u), f(s0), f(dy), f(ds_end), o(ck), o(dr),
-      o(dk), o(dv), o(dw), rows, o(ds0), T, K, V, u_rows, s0_stride);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err;
+  if (route == 1) {
+    err = static_cast<cudaError_t>(rwkv6_scan_bwd_tf32x3_launch(
+        r, k, v, w, u, dy, ds_end, ck, rows, dr, dk, dv, dw, ds0, BH, T, K,
+        V, u_rows, s));
+  } else {
+    rwkv6_scan_bwd_kernel<<<BH, kThreads, 0, s>>>(
+        f(r), f(k), f(v), f(w), f(u), f(s0), f(dy), f(ds_end), o(ck), o(dr),
+        o(dk), o(dv), o(dw), rows, o(ds0), T, K, V, u_rows, s0_stride);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess || du_rows == BH) return static_cast<int>(err);
   const int n = du_rows * K;
   rwkv6_du_reduce_kernel<<<(n + 255) / 256, 256, 0, s>>>(rows, o(du), BH,

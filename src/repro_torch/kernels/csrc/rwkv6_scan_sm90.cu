@@ -49,6 +49,8 @@
 //     factor that underflows to 0 is the right answer, so the kernel is
 //     finite wherever the token-serial recurrence is (the reference's form,
 //     which divides by the in-chunk products, is not under strong decay).
+//   - with a states buffer (the scan under autograd), the state entering
+//     each chunk is written out for the backward, 16 KB a chunk.
 //   - r, k, w and v of chunk c+1 are copied into a two-stage ring while
 //     chunk c computes: by TMA (four 3-D boxes of 16 tokens x 64 columns,
 //     issued by one thread, completion on an mbarrier) where K and V are
@@ -178,6 +180,7 @@ __global__ void __launch_bounds__(kThreads, 3)
                              const float* __restrict__ u,
                              const float* __restrict__ s0,
                              float* __restrict__ y, float* __restrict__ s_out,
+                             float* __restrict__ states,
                              int T, int K, int V, int u_rows,
                              long long s0_stride) {
   // (typed offsets from the array itself, so that every access is known to
@@ -285,6 +288,19 @@ __global__ void __launch_bounds__(kThreads, 3)
     __syncthreads();   // chunk c has landed; chunk c-1 is done everywhere
     const int t0 = c * kC, n = min(kC, T - t0);
     if (c + 1 < nchunks) issue(c + 1);
+    if (states != nullptr) {
+      // the state entering chunk c, for the backward: (v, k) of a 64 x 64
+      // tile
+      float* dst = states + ((long long)bh * nchunks + c) * kW * kW;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int kk = 8 * j + 2 * tg;
+        *reinterpret_cast<float2*>(dst + v0 * kW + kk) =
+            make_float2(S[j][0], S[j][1]);
+        *reinterpret_cast<float2*>(dst + v1 * kW + kk) =
+            make_float2(S[j][2], S[j][3]);
+      }
+    }
     float* st = ring + (c % kStages) * kStage;
     const float* sr = st;
     const float* sk = st + kTile;
@@ -537,8 +553,8 @@ bool encode_3d(CUtensorMap* map, const void* p, long long inner,
 template <bool TMA>
 int launch(const Maps& maps, const float* r, const float* k, const float* v,
            const float* w, const float* u, const float* s0, float* y,
-           float* s_out, int BH, int T, int K, int V, int u_rows,
-           long long s0_stride, cudaStream_t stream) {
+           float* s_out, float* states, int BH, int T, int K, int V,
+           int u_rows, long long s0_stride, cudaStream_t stream) {
   auto kernel = rwkv6_scan_tf32x3_kernel<TMA>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
@@ -548,8 +564,8 @@ int launch(const Maps& maps, const float* r, const float* k, const float* v,
                              cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return (int)e;
   kernel<<<BH, kThreads, kSmemBytes, stream>>>(maps, r, k, v, w, u, s0, y,
-                                               s_out, T, K, V, u_rows,
-                                               s0_stride);
+                                               s_out, states, T, K, V,
+                                               u_rows, s0_stride);
   return (int)cudaGetLastError();
 }
 
@@ -557,12 +573,14 @@ int launch(const Maps& maps, const float* r, const float* k, const float* v,
 
 // Route C of rwkv6_scan_launch (rwkv6_scan.cu), which has checked the
 // arguments: BH >= 1, T >= 0, K and V in [1, 64], u_rows >= 1 dividing BH,
-// s0_stride K*V or 0.
+// s0_stride K*V or 0.  states, if not null, holds BH * ceil(T / 16) tiles
+// of 64 x 64 floats and takes the state entering each chunk, (v, k) of a
+// tile, for the backward (rwkv6_scan_bwd_sm90.cu).
 int rwkv6_scan_tf32x3_launch(const void* r, const void* k, const void* v,
                              const void* w, const void* u, const void* s0,
-                             void* y, void* s_out, int BH, int T, int K,
-                             int V, int u_rows, long long s0_stride,
-                             cudaStream_t stream) {
+                             void* y, void* s_out, void* states, int BH,
+                             int T, int K, int V, int u_rows,
+                             long long s0_stride, cudaStream_t stream) {
   auto fp = [](const void* p) { return static_cast<const float*>(p); };
   auto o = [](void* p) { return static_cast<float*>(p); };
   Maps maps{};
@@ -574,8 +592,9 @@ int rwkv6_scan_tf32x3_launch(const void* r, const void* k, const void* v,
                    encode_3d(&maps.v, v, V, T, BH, kW, kC);
   if (tma)
     return launch<true>(maps, fp(r), fp(k), fp(v), fp(w), fp(u), fp(s0),
-                        o(y), o(s_out), BH, T, K, V, u_rows, s0_stride,
-                        stream);
+                        o(y), o(s_out), o(states), BH, T, K, V, u_rows,
+                        s0_stride, stream);
   return launch<false>(maps, fp(r), fp(k), fp(v), fp(w), fp(u), fp(s0), o(y),
-                       o(s_out), BH, T, K, V, u_rows, s0_stride, stream);
+                       o(s_out), o(states), BH, T, K, V, u_rows, s0_stride,
+                       stream);
 }

@@ -231,12 +231,14 @@ class RWKV6ScanFn(torch.autograd.Function):
     """The RWKV-6 scan over (BH, T, K/V) with its gradient for r, k, v, w,
     u and the initial state.
 
-    Forward: :func:`rwkv6_scan.rwkv6_scan` (route C) on a CUDA tensor, the
-    chunked plain version ``ref.rwkv6_scan_ref`` — the reference's
-    arithmetic — on a CPU one.  Backward: :func:`rwkv6_scan.rwkv6_scan_bwd`
-    (``rwkv6_scan_bwd_kernel``) on a CUDA tensor, ``ref.rwkv6_scan_bwd_ref``
-    on a CPU one: the exact recurrence walked backward from saved states,
-    which divides by no decay.  u's gradient comes in u's own shape, an
+    Forward: :func:`rwkv6_scan.rwkv6_scan` (route C) on a CUDA tensor,
+    which also keeps the state entering each chunk of 16 tokens for the
+    backward, the chunked plain version ``ref.rwkv6_scan_ref`` — the
+    reference's arithmetic — on a CPU one.  Backward:
+    :func:`rwkv6_scan.rwkv6_scan_bwd` (route ``"tf32x3"``, from those
+    states) on a CUDA tensor, ``ref.rwkv6_scan_bwd_ref`` on a CPU one: the
+    exact recurrence walked backward from saved states, which divides by no
+    decay.  u's gradient comes in u's own shape, an
     (H, K) table's summed over each head's rows.  float32 only."""
 
     @staticmethod
@@ -245,20 +247,25 @@ class RWKV6ScanFn(torch.autograd.Function):
             raise TypeError(f"RWKV6ScanFn: the scan's gradient is float32 "
                             f"only, got {r.dtype}")
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(r, k, v, w, u, state)
+        states = None
         if r.is_cuda:
-            return RS.rwkv6_scan(r, k, v, w, u, state, chunk=chunk)
-        return ref.rwkv6_scan_ref(r, k, v, w, u, state, chunk=chunk)
+            y, s, states = RS.rwkv6_scan(r, k, v, w, u, state, chunk=chunk,
+                                         keep_states=True)
+        else:
+            y, s = ref.rwkv6_scan_ref(r, k, v, w, u, state, chunk=chunk)
+        ctx.save_for_backward(r, k, v, w, u, state, states)
+        return y, s
 
     @staticmethod
     def backward(ctx, dy, ds_end):
-        r, k, v, w, u, state = ctx.saved_tensors
+        r, k, v, w, u, state, states = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros(r.shape[:2] + v.shape[-1:], dtype=r.dtype,
                              device=r.device)
         if r.is_cuda:
             grads = RS.rwkv6_scan_bwd(r, k, v, w, u, state, dy, ds_end,
-                                      need_ds0=ctx.needs_input_grad[5])
+                                      need_ds0=ctx.needs_input_grad[5],
+                                      states=states)
         else:
             grads = ref.rwkv6_scan_bwd_ref(r, k, v, w, u, state, dy, ds_end)
         return tuple(g if need else None for g, need in

@@ -16,9 +16,15 @@ version.  It takes CUDA tensors only; CPU tensors are served by
 ``kernels.ops.rwkv6`` through the plain version
 ``kernels.ref.rwkv6_scan_ref``.
 
-:func:`rwkv6_scan_bwd` is the scan's gradient (``csrc/rwkv6_scan_bwd.cu``),
-which the reference does not have as a kernel: ``kernels.ops.RWKV6ScanFn``
-calls it, and it counts its launches under ``"rwkv6_scan_bwd"``.
+:func:`rwkv6_scan_bwd` is the scan's gradient, which the reference does not
+have as a kernel: ``kernels.ops.RWKV6ScanFn`` calls it, and it counts its
+launches under ``"rwkv6_scan_bwd"`` and the route's entry.  It has two
+routes too, picked by :func:`scan_bwd_route`: ``"tf32x3"``
+(``csrc/rwkv6_scan_bwd_sm90.cu``: route C's form walked backward, chunks of
+16 tokens last to first, the chunk products on the TF32 tensor cores as
+big+small splits, no division by a decay) and ``"serial"``
+(``csrc/rwkv6_scan_bwd.cu``: token by token from checkpoints every 8
+tokens), kept as its yardstick.
 """
 from __future__ import annotations
 
@@ -110,7 +116,7 @@ def _table_and_state(u, state, bh):
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w: torch.Tensor, u: torch.Tensor, state: torch.Tensor, *,
-               chunk: int = 32):
+               chunk: int = 32, keep_states: bool = False):
     """The RWKV-6 recurrence over (BH, T, ·) CUDA tensors, float32 only.
 
     r, k, w: (BH, T, K); v: (BH, T, V); u: (BH, K) — its rows may be a
@@ -119,7 +125,10 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     expand of one shared state.  K and V at most 64.  ``chunk`` is the
     reference's: T must be a multiple of it, though the kernels chunk by
     their own rule (route C: 16 tokens; route S: token by token).  Returns
-    y (BH, T, V) and the new state (BH, K, V).
+    y (BH, T, V) and the new state (BH, K, V).  ``keep_states`` (the scan
+    under autograd): returns the state entering each chunk of 16 tokens as
+    well, the flat (BH, ceil(T / 16), V, K) tiles that route C writes for
+    :func:`rwkv6_scan_bwd`, or None on route S, which keeps none.
     """
     name = "rwkv6_scan"
     bh, T, K, V = _check(name, r, k, v, w, u, state, chunk=chunk)
@@ -128,41 +137,79 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     r, k, v, w = (t.contiguous() for t in (r, k, v, w))
     y = torch.empty((bh, T, V), dtype=torch.float32, device=r.device)
     s_out = torch.empty((bh, K, V), dtype=torch.float32, device=r.device)
-    if bh == 0:
-        return y, s_out
-    lib = build.load()
-    with torch.cuda.device(r.device):
-        code = lib.rwkv6_scan_launch(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-            u.data_ptr(), s0.data_ptr(), y.data_ptr(), s_out.data_ptr(),
-            bh, T, K, V, u.shape[0], 0 if shared_state else K * V,
-            SCAN_ROUTES[route],
-            torch.cuda.current_stream(r.device).cuda_stream)
-    build.check(lib, code, f"{name} ({route} route)")
-    build.count_launch(name, route)
-    return y, s_out
+    states = _states(bh, T, r.device) \
+        if keep_states and route == "tf32x3" else None
+    if bh > 0:
+        lib = build.load()
+        with torch.cuda.device(r.device):
+            code = lib.rwkv6_scan_launch(
+                r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                u.data_ptr(), s0.data_ptr(), y.data_ptr(), s_out.data_ptr(),
+                None if states is None else states.data_ptr(),
+                bh, T, K, V, u.shape[0], 0 if shared_state else K * V,
+                SCAN_ROUTES[route],
+                torch.cuda.current_stream(r.device).cuda_stream)
+        build.check(lib, code, f"{name} ({route} route)")
+        build.count_launch(name, route)
+    return (y, s_out, states) if keep_states else (y, s_out)
 
 
-# tokens a checkpoint interval of the backward (``csrc/rwkv6_scan_bwd.cu``
-# kCk), and the width its scratch pads K and V to
-BWD_CHUNK, BWD_PAD = 8, 64
+SCAN_BWD_ROUTES = {"serial": 0, "tf32x3": 1}
+# tokens between two of the states the backward reads, by route
+# (``csrc/rwkv6_scan_bwd.cu`` kCk: a checkpoint every 8 tokens;
+# ``csrc/rwkv6_scan_bwd_sm90.cu`` kC: the state entering each chunk of 16),
+# and the width their tiles pad K and V to
+BWD_CHUNK = {"serial": 8, "tf32x3": 16}
+BWD_PAD = 64
+
+
+def _states(bh: int, T: int, device) -> torch.Tensor:
+    """Room for the state entering each chunk of 16 tokens, a 64 x 64 tile
+    (v, k) each, as route C writes them and route ``"tf32x3"`` of the
+    backward reads them."""
+    n = -(-T // BWD_CHUNK["tf32x3"])
+    return torch.empty((bh * n * BWD_PAD * BWD_PAD,), dtype=torch.float32,
+                       device=device)
+
+
+def scan_bwd_route(dtype, bh: int, T: int, K: int, V: int) -> str:
+    """The route of a backward call on the card, by the rule of
+    :func:`scan_route`: ``"tf32x3"`` takes every float32 call with K and V
+    in [1, MAX_WIDTH], any number of rows and any T (a last partial chunk
+    and K, V below 64 are zero-padded on chip); ``"serial"`` takes the same
+    calls and is kept beside it as its yardstick.  Raises TypeError for
+    another dtype and ValueError for what no route takes."""
+    if dtype != torch.float32:
+        raise TypeError(f"rwkv6_scan_bwd: dtype must be float32, got {dtype}")
+    if bh < 0 or T < 0 or not (1 <= K <= MAX_WIDTH and 1 <= V <= MAX_WIDTH):
+        raise ValueError(f"rwkv6_scan_bwd: no route takes BH = {bh}, "
+                         f"T = {T}, K = {K}, V = {V} (K and V must lie in "
+                         f"[1, {MAX_WIDTH}])")
+    return "tf32x3"
 
 
 def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    w: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
-                   dy: torch.Tensor, ds_end=None, *, need_ds0: bool = True):
+                   dy: torch.Tensor, ds_end=None, *, need_ds0: bool = True,
+                   states=None):
     """The gradient of :func:`rwkv6_scan` over (BH, T, ·) CUDA tensors,
-    float32 only (``rwkv6_scan_bwd_kernel``, and ``rwkv6_du_reduce_kernel``
-    for an (H, K) table).
+    float32 only, on the route :func:`scan_bwd_route` picks
+    (``rwkv6_scan_bwd_tf32x3_kernel`` or ``rwkv6_scan_bwd_kernel``, and
+    ``rwkv6_du_reduce_kernel`` for an (H, K) table).
 
     Inputs as :func:`rwkv6_scan` (any T), plus dy (BH, T, V), the gradient
     of y, and ``ds_end`` (BH, K, V) or None, that of the final state.
+    ``states``: what ``rwkv6_scan(keep_states=True)`` returned for the same
+    inputs, the state entering each chunk, which route ``"tf32x3"`` reads;
+    without it that route runs :func:`rwkv6_scan` first to get them (route
+    ``"serial"`` recomputes its own checkpoints whatever it is given).
     Returns ``(dr, dk, dv, dw, du, ds0)``: du in u's own shape — an (H, K)
     table's rows summed over the rows of each head, in a fixed order — and
     ds0 (BH, K, V), or None without ``need_ds0``.  The plain version is
     ``ref.rwkv6_scan_bwd_ref``."""
     name = "rwkv6_scan_bwd"
     bh, T, K, V = _check(name, r, k, v, w, u, state, dy=dy, ds_end=ds_end)
+    route = scan_bwd_route(r.dtype, bh, T, K, V)
     du_rows = u.shape[0]
     u_k, s0, shared_state = _table_and_state(u, state, bh)
     r, k, v, w, dy = (t.contiguous() for t in (r, k, v, w, dy))
@@ -176,9 +223,25 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if need_ds0 else None
     if bh == 0:
         return dr, dk, dv, dw, du, ds0
-    n_ck = -(-T // BWD_CHUNK)
-    ck = torch.empty((bh * n_ck * BWD_PAD * BWD_PAD,), dtype=torch.float32,
-                     device=dev)
+    n_ck = -(-T // BWD_CHUNK[route])
+    if route == "serial":
+        ck = torch.empty((bh * n_ck * BWD_PAD * BWD_PAD,),
+                         dtype=torch.float32, device=dev)
+    elif states is None:
+        ck = rwkv6_scan(r, k, v, w, u, state, chunk=1, keep_states=True)[2]
+        if ck is None:
+            raise RuntimeError(f"{name}: the forward's route keeps no "
+                               "chunk states for route tf32x3")
+    else:
+        want = bh * n_ck * BWD_PAD * BWD_PAD
+        if states.dtype != torch.float32 or states.device != dev or \
+                states.numel() != want or not states.is_contiguous():
+            raise ValueError(f"{name}: states must be {want} contiguous "
+                             f"float32 on {dev} (rwkv6_scan(keep_states="
+                             f"True) of the same inputs), got "
+                             f"{tuple(states.shape)} {states.dtype} on "
+                             f"{states.device}")
+        ck = states
     du_row = du if du_rows == bh else \
         torch.empty((bh, K), dtype=torch.float32, device=dev)
     lib = build.load()
@@ -191,7 +254,8 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dw.data_ptr(), du.data_ptr(),
             None if ds0 is None else ds0.data_ptr(), bh, T, K, V,
             u_k.shape[0], 0 if shared_state else K * V, du_rows,
+            SCAN_BWD_ROUTES[route],
             torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, code, name)
-    build.count_launch(name)
+    build.check(lib, code, f"{name} ({route} route)")
+    build.count_launch(name, route)
     return dr, dk, dv, dw, du, ds0

@@ -26,10 +26,14 @@ stays ``(B, S, D)`` while the candidates share it and becomes
 ``(N, B, S, D)`` at the first stacked gate: attention and the gate and up
 projections of the first layer after a cached prefix run once, not N times,
 and attention and the RWKV time-mix scan fold ``N·B`` into their batch after
-that.  A MoE block routes per row of that explicit axis
-(``models.moe``).  Under ``fused=`` dense FFNs and MoE shared experts take
-the fused gate→matmul kernels; routed experts, Mamba2 and RWKV blocks stay
-on the gate route, as the reference routes them.
+that.  Given the host decision ``differ=``
+(``linearize.first_differences``), a site or stack repeat that every
+candidate shares is gated with its one mask while the activation is shared,
+so the first stacked gate is the first one where the candidates differ.  A
+MoE block routes per row of that explicit axis (``models.moe``).  Under
+``fused=`` dense FFNs and MoE shared experts take the fused gate→matmul
+kernels; routed experts, Mamba2 and RWKV blocks stay on the gate route, as
+the reference routes them.
 
 **Serving** (``forward(cache=, cache_len=)``, :meth:`LM.init_cache`):
 ``dense``, ``moe`` and ``attn_only`` blocks keep a KV cache, a Mamba2
@@ -225,12 +229,15 @@ class LM:
         the stack row its (R, ·) mask and poly arrays are read at.
         ``cache``: the block's own cache (views of the model's cache
         tree), updated in place."""
-        poly, soft, fused, ties = opt
+        poly, soft, fused, ties, differ = opt
         sites = _sites_for(self.cfg, blk)
+        shared_x = differ is not None and x.dim() == 3
         ms, plys = {}, {}
         for suf, site in sites.items():
             name = f"{prefix}.{suf}"
             m, ply = masks[name], poly.get(name)
+            if shared_x:
+                m = linearize.shared_mask(m, differ, name, repeat)
             if repeat is not None:
                 stacked = m.dim() == len(site.shape) + 2  # (N, R, *shape)
                 m = m[:, repeat] if stacked else m[repeat]
@@ -373,7 +380,7 @@ class LM:
     def forward(self, params, masks, tokens, *, prefix_embeds=None,
                 poly=None, soft=False, cache=None, cache_len=0, pre=None,
                 fused=False, ties=True, remat=False, return_hidden=False,
-                upcast=False):
+                upcast=False, differ=None):
         """Logits ``(B, S, V)``, or ``(N, B, S, V)`` for stacked masks.
 
         ``pre``: a cached :meth:`forward_pre` result (the mask-independent
@@ -382,6 +389,10 @@ class LM:
         ``fused``: every hard-mask FFN runs gate → down-projection as one
         kernel.  ``ties=False`` promises that no mask coordinate is
         share-tied (decided on the host, ``linearize.has_share_ties``).
+        ``differ`` (stacked masks): the host decision
+        ``linearize.first_differences``; sites and repeats that every
+        candidate shares are gated with one mask while the activation is
+        shared, and where none differs the logits stay ``(B, S, V)``.
 
         ``cache`` (prefill and decode; one mask tree, not stacked): a tree
         from :meth:`init_cache`, the reference's — ``{"head": [block
@@ -414,7 +425,7 @@ class LM:
         norm's are cast to this model's dtype as they are used, one block
         at a time — a float32 model's forward of a bfloat16 model's
         parameters, with no float32 copy of them all."""
-        opt = (poly or {}, soft, fused, ties)
+        opt = (poly or {}, soft, fused, ties, differ)
         if upcast and cache is not None:
             raise ValueError("forward(upcast=True) takes no cache")
         if cache is not None:
@@ -529,7 +540,7 @@ class LM:
         state instead of the embedding, folding only the segments in
         ``[seg(from_site), seg(site))`` — the prefix-trie extension
         contract ``prefix_ext(a, b, m, prefix(a)) == prefix(b)``."""
-        opt = (poly or {}, soft, fused, ties)
+        opt = (poly or {}, soft, fused, ties, None)
         seg = self._segment_of_site()
         if from_site is None:
             x, lo = self._embed(params, tokens), 1
@@ -538,12 +549,12 @@ class LM:
         return self._fold(params, masks, x, lo, seg[site], opt)
 
     def forward_suffix(self, params, masks, cached, site, *, poly=None,
-                       soft=False, fused=False, ties=True):
+                       soft=False, fused=False, ties=True, differ=None):
         """Finish the forward from a :meth:`forward_prefix` state: the
         segment applying ``site`` and everything after it, to logits.  With
         stacked masks the shared ``cached`` state is read by every candidate
-        and never broadcast in memory."""
-        opt = (poly or {}, soft, fused, ties)
+        and never broadcast in memory; ``differ`` as :meth:`forward`."""
+        opt = (poly or {}, soft, fused, ties, differ)
         cut = self._segment_of_site()[site]
         x = self._fold(params, masks, cached, cut, self._n_segments(), opt)
         return self._logits(params, x)
@@ -571,29 +582,34 @@ class LM:
     # tokens[:, 1:]).
 
     def make_param_eval_fn(self, batch, device="cuda"):
-        """``(mask_tree, params, ties=True) -> accuracy[%]`` on ``device``,
-        params as evaluator context (they change between BCD steps when a
-        run finetunes)."""
+        """``(mask_tree, params, ties=True, differ=None) -> accuracy[%]`` on
+        ``device``, params as evaluator context (they change between BCD
+        steps when a run finetunes)."""
         tokens = to_device(batch["tokens"], device)
 
-        def eval_fn(masks, params, ties=True):
-            logits = self.forward(params, masks, tokens[:, :-1], ties=ties)
-            return token_accuracy(logits, tokens[:, 1:])
+        def eval_fn(masks, params, ties=True, differ=None):
+            logits = self.forward(params, masks, tokens[:, :-1], ties=ties,
+                                  differ=differ)
+            return linearize.per_candidate(
+                token_accuracy(logits, tokens[:, 1:]), masks, differ)
         return eval_fn
 
     def make_eval_fn(self, params, batch, device="cuda"):
         fn = self.make_param_eval_fn(batch, device)
-        return lambda masks, ties=True: fn(masks, params, ties=ties)
+        return lambda masks, ties=True, differ=None: fn(
+            masks, params, ties=ties, differ=differ)
 
     def make_joint_eval_fn(self):
-        """``(mask_tree, ctx, ties=True) -> accuracy[%]`` with
+        """``(mask_tree, ctx, ties=True, differ=None) -> accuracy[%]`` with
         ``ctx = {"params": ..., "batch": ...}``; ``ctx["pre"]`` (optional)
         is the embedding, computed once per context by the evaluator."""
-        def eval_fn(masks, ctx, ties=True):
+        def eval_fn(masks, ctx, ties=True, differ=None):
             tokens = ctx["batch"]["tokens"]
             logits = self.forward(ctx["params"], masks, tokens[:, :-1],
-                                  pre=ctx.get("pre"), ties=ties)
-            return token_accuracy(logits, tokens[:, 1:])
+                                  pre=ctx.get("pre"), ties=ties,
+                                  differ=differ)
+            return linearize.per_candidate(
+                token_accuracy(logits, tokens[:, 1:]), masks, differ)
         return eval_fn
 
     def make_suffix_eval_fns(self):
@@ -613,10 +629,14 @@ class LM:
                                        from_site=from_site, cached=cached,
                                        ties=ties)
 
-        def suffix_fn(site, masks, cached, ctx, fused=False, ties=True):
+        def suffix_fn(site, masks, cached, ctx, fused=False, ties=True,
+                      differ=None):
             logits = self.forward_suffix(ctx["params"], masks, cached, site,
-                                         fused=fused, ties=ties)
-            return token_accuracy(logits, ctx["batch"]["tokens"][:, 1:])
+                                         fused=fused, ties=ties,
+                                         differ=differ)
+            return linearize.per_candidate(
+                token_accuracy(logits, ctx["batch"]["tokens"][:, 1:]), masks,
+                differ)
 
         def pre_fn(ctx):
             return self.forward_pre(ctx["params"],

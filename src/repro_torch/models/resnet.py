@@ -15,7 +15,10 @@ a plain nested dict of tensors with the reference's keys.
 Activations are ``(B, ...)`` while all candidates still share them and
 become ``(N, B, ...)`` at the first stacked gate; plain convolutions run on
 the ``(N·B, ...)`` view, and BatchNorm reduces over ``(B, H, W)`` *per
-candidate* (reducing over the folded view would mix candidates).
+candidate* (reducing over the folded view would mix candidates).  Given the
+host decision ``differ=`` (``linearize.first_differences``), a site that
+every candidate shares is gated with its one mask while the activation is
+shared, so the first stacked gate is the first one where they differ.
 """
 from __future__ import annotations
 
@@ -186,13 +189,21 @@ class CNN:
     #         == forward(p, m, x)
     # holds *by construction* — prefix/suffix run exactly the operations
     # forward runs (core.engine.SuffixEvaluator relies on it).  ``opt`` is
-    # the per-call option tuple (poly, soft, fused, ties).
+    # the per-call option tuple (poly, soft, fused, ties, differ).
+
+    def _mask(self, x, masks, name, differ):
+        """The site's mask: its one mask while the activation x (B, H, W, C)
+        is still shared and every candidate has the same mask there."""
+        m = masks[name]
+        if differ is not None and x.dim() == 4:
+            m = linearize.shared_mask(m, differ, name)
+        return m
 
     def _relu(self, x, masks, name, opt):
-        poly, soft, _, ties = opt
+        poly, soft, _, ties, differ = opt
         site = linearize.MaskSite(self._site_shapes[name], "relu")
         return linearize.apply_masked_act(
-            x, masks[name], site,
+            x, self._mask(x, masks, name, differ), site,
             poly=None if poly is None else poly.get(name), soft=soft,
             ties=ties)
 
@@ -202,10 +213,10 @@ class CNN:
         (``kernels.ops.masked_act_conv3x3[_batched]``) — the gated tensor is
         never written to device memory.  Soft relaxation, poly2 replacement
         and chunks that carry share ties keep the plain unfused pair."""
-        poly, soft, fused, ties = opt
+        poly, soft, fused, ties, differ = opt
         p = None if poly is None else poly.get(name)
         if fused and not soft and p is None and not ties:
-            m = masks[name]
+            m = self._mask(x, masks, name, differ)
             if m.dim() == 4:
                 return ops.masked_act_conv3x3_batched(x, m, w, stride=stride,
                                                       kind="relu")
@@ -277,7 +288,7 @@ class CNN:
         return segs
 
     def forward(self, params, masks, images, *, poly=None, soft=False,
-                pre=None, fused=False, ties=True):
+                pre=None, fused=False, ties=True, differ=None):
         """Full forward to logits: (B, classes), or (N, B, classes) for
         stacked masks.
 
@@ -286,8 +297,10 @@ class CNN:
         ``relu → 3x3 conv`` pair into one kernel.  ``ties=False`` promises
         that no mask coordinate is share-tied (decided on the host from the
         numpy tree, see ``linearize.has_share_ties``) and skips the tie
-        override's extra passes."""
-        opt = (poly, soft, fused, ties)
+        override's extra passes.  ``differ`` (stacked masks): the host
+        decision ``linearize.first_differences``; where no site differs the
+        logits stay ``(B, classes)``."""
+        opt = (poly, soft, fused, ties, differ)
         if pre is not None:
             x = self._stem_gate(params, masks, pre, opt)
             segs = self._segs[1:]
@@ -340,7 +353,7 @@ class CNN:
         ``forward_prefix(..., site=b, from_site=a, cached=prefix(a))``
         computes exactly ``forward_prefix(..., site=b)`` (the prefix-trie
         extension contract)."""
-        opt = (poly, soft, fused, ties)
+        opt = (poly, soft, fused, ties, None)
         lo = 0
         x = images
         if from_site is not None:
@@ -351,12 +364,13 @@ class CNN:
         return x
 
     def forward_suffix(self, params, masks, cached, site, *, poly=None,
-                       soft=False, fused=False, ties=True):
+                       soft=False, fused=False, ties=True, differ=None):
         """Finish forward from a :meth:`forward_prefix` cache: folds the
         segment applying ``site`` and everything after it to logits.  With
         stacked masks the shared ``cached`` activation is read by every
-        candidate and never broadcast in memory."""
-        opt = (poly, soft, fused, ties)
+        candidate and never broadcast in memory; ``differ`` as
+        :meth:`forward`."""
+        opt = (poly, soft, fused, ties, differ)
         x = cached
         for _, _, fn in self._segs[self._seg_of_site[site]:]:
             x = fn(params, masks, x, opt)
@@ -403,35 +417,41 @@ class CNN:
     # synchronise; the evaluator decides when to read.
 
     def make_param_eval_fn(self, batch, device="cuda"):
-        """``(mask_tree, params, ties=True) -> accuracy[%]`` on ``device``
+        """``(mask_tree, params, ties=True, differ=None) -> accuracy[%]`` on
+        ``device``
         — for evaluator backends whose params change between BCD outer
         steps (finetuning): params ride as evaluator context.  Stacked
         masks give an (N,) tensor."""
         images = to_device(batch["images"], device)
         labels = to_device(batch["labels"], device)
 
-        def eval_fn(masks, params, ties=True):
-            logits = self.forward(params, masks, images, ties=ties)
-            return accuracy(logits, labels)
+        def eval_fn(masks, params, ties=True, differ=None):
+            logits = self.forward(params, masks, images, ties=ties,
+                                  differ=differ)
+            return linearize.per_candidate(accuracy(logits, labels), masks,
+                                           differ)
         return eval_fn
 
     def make_eval_fn(self, params, batch, device="cuda"):
         """``mask_tree -> accuracy[%]`` closure over a fixed
         (params, batch)."""
         fn = self.make_param_eval_fn(batch, device)
-        return lambda masks, ties=True: fn(masks, params, ties=ties)
+        return lambda masks, ties=True, differ=None: fn(
+            masks, params, ties=ties, differ=differ)
 
     def make_joint_eval_fn(self):
-        """``(mask_tree, ctx, ties=True) -> accuracy[%]`` with
+        """``(mask_tree, ctx, ties=True, differ=None) -> accuracy[%]`` with
         ``ctx = {"params": ..., "batch": ...}`` — params AND the eval batch
         ride as evaluator context.  ``ctx["pre"]`` (optional) is the
         mask-independent stem fold, computed once per context by the
         evaluator (SplitEval.pre)."""
-        def eval_fn(masks, ctx, ties=True):
+        def eval_fn(masks, ctx, ties=True, differ=None):
             batch = ctx["batch"]
             logits = self.forward(ctx["params"], masks, batch["images"],
-                                  pre=ctx.get("pre"), ties=ties)
-            return accuracy(logits, batch["labels"])
+                                  pre=ctx.get("pre"), ties=ties,
+                                  differ=differ)
+            return linearize.per_candidate(
+                accuracy(logits, batch["labels"]), masks, differ)
         return eval_fn
 
     def make_suffix_eval_fns(self):
@@ -457,10 +477,13 @@ class CNN:
                                        from_site=from_site, cached=cached,
                                        ties=ties)
 
-        def suffix_fn(site, masks, cached, ctx, fused=False, ties=True):
+        def suffix_fn(site, masks, cached, ctx, fused=False, ties=True,
+                      differ=None):
             logits = self.forward_suffix(ctx["params"], masks, cached, site,
-                                         fused=fused, ties=ties)
-            return accuracy(logits, ctx["batch"]["labels"])
+                                         fused=fused, ties=ties,
+                                         differ=differ)
+            return linearize.per_candidate(
+                accuracy(logits, ctx["batch"]["labels"]), masks, differ)
 
         def pre_fn(ctx):
             return self.forward_pre(ctx["params"], ctx["batch"]["images"])

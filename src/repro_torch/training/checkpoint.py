@@ -42,12 +42,16 @@ import os
 import re
 import shutil
 import time
-from typing import Any, List, Optional, Tuple
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 _SEP = "/"
+# leaf files hashed at once: hashlib releases the GIL while it hashes a
+# block, so a checkpoint of many leaves hashes on several cores
+_HASH_THREADS = min(8, os.cpu_count() or 1)
 
 
 class CheckpointError(RuntimeError):
@@ -65,6 +69,24 @@ def _file_sha256(path: str) -> str:
         for block in iter(lambda: f.read(1 << 20), b""):
             h.update(block)
     return h.hexdigest()
+
+
+def _sha256_files(paths: List[str]) -> Dict[str, Future]:
+    """Each existing file of ``paths`` hashed on ``_HASH_THREADS``
+    threads; returns when all are done, a future per path (its digest, or
+    the error hashing it raised, from ``result()``).  Callers still check
+    their leaves in order, so the first bad leaf is the one reported."""
+    with ThreadPoolExecutor(_HASH_THREADS) as pool:
+        return {p: pool.submit(_file_sha256, p) for p in dict.fromkeys(paths)
+                if os.path.exists(p)}
+
+
+def _hashed_leaf_files(d: str, infos) -> List[str]:
+    """The files of the manifest entries ``infos`` that record a sha256
+    (entries of another form are left to the caller's own checks)."""
+    return [os.path.join(d, v["file"]) for v in infos
+            if isinstance(v, dict) and v.get("sha256")
+            and isinstance(v.get("file"), str)]
 
 
 def _node_kind(t) -> Optional[str]:
@@ -232,14 +254,20 @@ def save(state, ckpt_dir: str, step: int, *, meta: Optional[dict] = None,
     os.makedirs(tmp)
     manifest = {"step": step, "meta": meta or {}, "leaves": {},
                 "treedef": treedef}
-    for i, key in enumerate(sorted(arrays)):
-        arr, dtype = arrays[key]
-        fname = f"leaf_{i:05d}.npy"
-        fpath = os.path.join(tmp, fname)
-        _write_leaf(fpath, arr, dtype)
-        manifest["leaves"][key] = {
-            "file": fname, "shape": list(arr.shape), "dtype": dtype,
-            "sha256": _file_sha256(fpath)}
+    # each leaf is hashed from its file while the next ones are written
+    with ThreadPoolExecutor(_HASH_THREADS) as pool:
+        digests = {}
+        for i, key in enumerate(sorted(arrays)):
+            arr, dtype = arrays[key]
+            fname = f"leaf_{i:05d}.npy"
+            fpath = os.path.join(tmp, fname)
+            _write_leaf(fpath, arr, dtype)
+            manifest["leaves"][key] = {
+                "file": fname, "shape": list(arr.shape), "dtype": dtype,
+                "sha256": None}
+            digests[key] = pool.submit(_file_sha256, fpath)
+    for key, digest in digests.items():
+        manifest["leaves"][key]["sha256"] = digest.result()
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(final):
@@ -336,8 +364,11 @@ def restore(state_template, ckpt_dir: str, step: Optional[int] = None, *,
             raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     manifest = read_manifest(ckpt_dir, step)
+    keys = [key for key, _ in _flatten(state_template)]
+    digests = _sha256_files(_hashed_leaf_files(
+        d, [manifest["leaves"].get(key) for key in keys])) if verify else {}
     out = {}
-    for key, _ in _flatten(state_template):
+    for key in keys:
         if key not in manifest["leaves"]:
             raise CheckpointError(
                 f"checkpoint {d} is missing leaf {key!r} required by the "
@@ -348,7 +379,7 @@ def restore(state_template, ckpt_dir: str, step: Optional[int] = None, *,
             raise CheckpointError(f"checkpoint {d}: leaf file {info['file']} "
                                   "is missing (partial write?)")
         if verify and info.get("sha256") and \
-                _file_sha256(fpath) != info["sha256"]:
+                digests[fpath].result() != info["sha256"]:
             raise CheckpointError(
                 f"checkpoint {d}: leaf {key!r} ({info['file']}) fails its "
                 "manifest sha256 — corrupted on disk")
@@ -377,12 +408,15 @@ def validate(ckpt_dir: str, step: int, *, deep: bool = False) -> bool:
     except CheckpointError:
         return False
     try:
-        for v in manifest["leaves"].values():
+        leaves = list(manifest["leaves"].values())
+        digests = _sha256_files(_hashed_leaf_files(d, leaves)) if deep \
+            else {}
+        for v in leaves:
             fpath = os.path.join(d, v["file"])
             if not os.path.exists(fpath):
                 return False
             if deep and v.get("sha256") and \
-                    _file_sha256(fpath) != v["sha256"]:
+                    digests[fpath].result() != v["sha256"]:
                 return False
     except (KeyError, TypeError):
         return False

@@ -80,7 +80,8 @@ def test_route_counts_reset_with_launch_counts():
         f"{n}:{r}" for n in ("masked_act_conv3x3",
                              "masked_act_conv3x3_batched")
         for r in ("fma", "tf32x3")} | {
-        "rwkv6_scan:serial", "rwkv6_scan:tf32x3"}
+        f"{n}:{r}" for n in ("rwkv6_scan", "rwkv6_scan_bwd")
+        for r in ("serial", "tf32x3")}
     build.route_counts["masked_act_matmul_2d:wgmma"] += 3
     build.reset_launch_counts()
     assert not any(build.route_counts.values())
