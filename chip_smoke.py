@@ -6,34 +6,34 @@
 Builds the CUDA kernels from the sources in this checkout, holds each one
 against its plain PyTorch version on the card, and drives the port's five
 model paths, BCD candidate evaluation through ``bcd.run_bcd`` with the
-sequential, batched, pipelined and suffix engines:
+sequential, batched, pipelined and suffix engines.  Every engine runs one
+gate route per run (``fused_kernels``): under the fused route
+and under the unfused one the engines must select the same blocks and read
+every sited trial equal to the bit; the trials the two routes read apart
+are reported, not gated:
 
   1. masked-ReLU ResNet18 at full CIFAR width (``forward``, ``bcd``,
      ``sited`` lines);
   2. StableLM-2-1.6B at its published widths, float32, random weights, on
      eval tokens that the full-mask model continues greedily from a Markov
      prompt (``lm_batch``, ``lm_forward``, ``lm_bcd``, ``lm_sited`` lines),
-     and BCD at its own bfloat16 (``lm_bf16_bcd``: the batched engine,
-     unfused, and the suffix engine, fused on route A, must select the
-     same blocks; route A's stacked kernel must be launched);
+     and BCD at its own bfloat16 (``lm_bf16_bcd``: the batched and the
+     suffix engine, both fused on route A, must select the same blocks;
+     route A's stacked kernel must be launched);
   3. RWKV-6 3B the same way, on 8 of its 32 repeats (``rwkv_batch``,
      ``rwkv_forward``, ``rwkv_bcd``, ``rwkv_sited`` lines), its time-mix
      scan on the ``rwkv6_scan`` kernel
      (route C, on the tensor cores), its channel-mix gate on the gate
      kernels; no fused route;
-  4. DeepSeek-MoE-16B the same way, float32, every one of its 28 layers
-     on the card (``moe_batch``, ``moe_forward``, ``moe_bcd``,
-     ``moe_sited``, ``moe_serve`` lines): a dense head block and 27 MoE
-     blocks of 64 routed experts (top-6) and a shared expert; the routed
-     experts' gate on kernels 1/2, the dense head block and the shared
-     experts fused (kernels 3/4, route B) under ``fused=``;
-     ``moe_forward`` counts the (token, k) routes that differ between
-     evaluation paths, profiles a forward and reports the card's peak
-     memory; then the model cut to 14 layers (``moe14_sited``,
-     ``MOE_REPRODUCER``), whose sited candidates at ``s0.moe@4`` and
-     ``s0.moe@10`` must read on the suffix engine's unfused forwards what
-     they read on the batched engine's, every trial (the fused ones are
-     reported beside them);
+  4. DeepSeek-MoE-16B the same way, float32, 14 of its 28 layers on the
+     card (``moe_batch``, ``moe_forward``, ``moe_bcd``, ``moe_sited``,
+     ``moe_serve`` lines), sited at ``s0.moe@4`` and ``s0.moe@10``: a
+     dense head block and MoE blocks of 64 routed experts (top-6) and a
+     shared expert; the routed experts' gate on kernels 1/2, the dense
+     head block and the shared experts fused (kernels 3/4, route B) under
+     ``fused=``; ``moe_forward`` counts the (token, k) routes that differ
+     between evaluation paths, profiles a forward and reports the card's
+     peak memory;
   5. Zamba2-2.7B the same way (``hybrid_*`` lines), on 3 of its 9
      repeats of five Mamba2 blocks (gate on kernels 1/2, the scan in plain
      PyTorch, as
@@ -74,8 +74,8 @@ fingerprints, tokens and bills must be equal.  Then the same in the
 configs' own bfloat16 (``serve`` line, ``bfloat16``): each model built at
 its published widths from the same seed's draws rounded — StableLM-2-1.6B
 through the same ``ServeLoop``, RWKV-6 3B (8 of 32 repeats),
-DeepSeek-MoE-16B (all 28 layers) and Zamba2-2.7B (18 of 54), each at its
-LM path's depth, through ``generate`` — each served
+DeepSeek-MoE-16B (all 28 layers) and Zamba2-2.7B (18 of 54), each at
+its LM path's depth but DeepSeek, through ``generate`` — each served
 sequence held to the uncached bfloat16 forward and the float32 forward of
 the same parameters, upcast; a tie of bfloat16 logits; and
 ``python -m repro_torch.launch.serve --arch stablelm_1p6b`` as a user runs
@@ -102,6 +102,18 @@ supervisor drill at reduced width in bfloat16 (a failure injected at step
 13 gives the bits of an uninterrupted run, a rerun with more steps
 resumes); and ``examples/torch_train_lm.py`` at its defaults (one
 restart, BCD on the batched engine: kernel 2).
+
+After path 1's resumable sweep, candidate-parallel BCD (``sharded_bcd``
+line, ``--only-sharded`` alone): ResNet18 at full width, 4 ranks of one ``gloo`` process group
+sharing the card, each a child process of this one under a timeout, run
+``run_bcd`` on ``core.engine.ShardedEvaluator`` over a ``("cand",
+"batch") = (2, 2)`` mesh (chunks of 8, the joint layout, and of 6, the
+candidate-only one, whose ranks split the eval batch) and over a 1-D mesh
+of 4; every rank must select the blocks of a one-process batched run,
+by the reference's standard, and launch kernels 1, 2, 5 and 6; then
+``make_evaluator("sharded")`` in this process at a world of 1, and
+``training.pp.gpipe_forward`` on the card with stages through the gate,
+against the stages applied in turn.
 
 Every phase line carries its ``seconds``; a ``disk_writes`` line sums the
 bytes of the checkpoints this process wrote (the machine allows 45 GiB of
@@ -338,11 +350,14 @@ PATH_KERNELS = {
     "resnet18_train": ("masked_act_2d", "masked_act_2d_bwd"),
     "resnet18_sweep": ("masked_act_2d", "masked_act_2d_batched",
                        "masked_act_conv3x3_batched", "masked_act_2d_bwd"),
+    # every rank of the candidate-parallel phase (each checked on its own
+    # too), the world of 1 and gpipe_forward's gates
+    "sharded_bcd": ("masked_act_2d", "masked_act_2d_batched",
+                    "masked_act_conv3x3", "masked_act_conv3x3_batched"),
     "serve": ("masked_act_2d", "rwkv6_scan"),
     "serve_bf16": ("masked_act_2d", "rwkv6_scan"),
-    # DeepSeek's fused suffix forwards add kernel 4 (no un-stacked fused
-    # forward runs on this path: training and the batched engine are
-    # unfused)
+    # DeepSeek's fused forwards add kernel 4 (every engine runs the fused
+    # route; training is unfused)
     "family_sweep": ("masked_act_2d", "masked_act_2d_bwd",
                      "masked_act_2d_batched", "rwkv6_scan",
                      "rwkv6_scan_bwd", "masked_act_matmul_2d_batched"),
@@ -490,6 +505,13 @@ RWKV_LOOP_PROMPTS, RWKV_LOOP_MAX_LEN = (7, 20, 32, 64), 72
 # against the float32 one
 SERVE_BF16_GENERATE = ((RWKV_SERVE_BATCH, RWKV_SERVE_PROMPT, RWKV_SERVE_GEN),
                        (2, 16, 8), (2, 16, 8))
+# bfloat16 serving's depth where it is not the LM path's: DeepSeek-MoE-16B
+# serves all 28 layers.  Its LM path runs 14, and that model (other draws:
+# every stacked leaf is drawn with its repeat axis) routes 2 (token, k)
+# pairs of its first MoE layer otherwise cached and uncached in bfloat16
+# (positions 0 and 2; one NVIDIA H100 80GB HBM3), which ``route_gate``
+# refuses
+SERVE_BF16_LAYERS = {"deepseek_moe_16b": 0}
 SERVE_BF16_TOKENS = 0.95
 SERVE_BF16_RATIO, SERVE_BF16_ABS = 2.0, 1e-3
 # the serve launcher as a user runs it on the card (no --reduced, no
@@ -1778,14 +1800,21 @@ def run_bcd_phase(model, params, batch, steps: int):
     # deep enough for the suffix engine to go site-aware (uniform removals
     # from full masks touch the first sites in every candidate, so those
     # chunks take its full-forward fallback)
+    # every engine on the fused route; the stage_drop set's batched and
+    # suffix engines on the unfused route as well (the other route's
+    # selections must agree among themselves)
+    engines = ("sequential", "batched", "pipelined", "suffix")
     for adt, moves in ((0.3, ("remove",)), (-100.0, ("remove",)),
                        (-100.0, ("remove", "stage_drop"))):
         prints = {}
-        for backend in ("sequential", "batched", "pipelined", "suffix"):
+        plan = [(b, True) for b in engines]
+        if "stage_drop" in moves:
+            plan += [("batched", False), ("suffix", False)]
+        for backend, fused in plan:
             holder = {"params": params}
             evaluator, eval_acc, _ = make_bcd_evaluator(
                 backend, model, batch, holder, chunk_size=chunk, rt=rt,
-                prefetch=2, fused_kernels=True, device="cuda")
+                prefetch=2, fused_kernels=fused, device="cuda")
             cfg = bcd.BCDConfig(b_target=total - drc * steps, drc=drc, rt=rt,
                                 adt=adt, finetune_every_step=False, seed=0,
                                 chunk_size=chunk, moves=moves)
@@ -1803,14 +1832,15 @@ def run_bcd_phase(model, params, batch, steps: int):
             if not all(np.isfinite(a) and 0.0 <= a <= 100.0 for a in accs):
                 fail(f"bcd {backend}: accuracies {accs}")
             trials = sum(h.trials for h in res.history)
-            prints[backend] = M.fingerprint(res.masks)
-            run = dict(backend=backend, adt=adt, moves=list(moves),
-                       steps=len(res.history),
+            route = "fused" if fused else "unfused"
+            prints[(route, backend)] = M.fingerprint(res.masks)
+            run = dict(backend=backend, route=route, adt=adt,
+                       moves=list(moves), steps=len(res.history),
                        trials=trials, wall_s=wall,
                        # candidate forwards the engine was asked for, plus
                        # one base-accuracy forward per step, per second
                        candidates_per_s=(trials + len(res.history)) / wall,
-                       fingerprint=prints[backend][:16],
+                       fingerprint=prints[(route, backend)][:16],
                        best_drops=[h.best_drop for h in res.history],
                        acc_before=accs, launches=launches)
             trie = getattr(evaluator, "trie", None)
@@ -1821,21 +1851,26 @@ def run_bcd_phase(model, params, batch, steps: int):
                                    evictions=trie.evictions)
                 if "stage_drop" in moves and not (
                         trie.misses + trie.extensions > 0 and
-                        launches["masked_act_conv3x3_batched"] > 0):
+                        (launches["masked_act_conv3x3_batched"] > 0
+                         or not fused)):
                     fail(f"bcd suffix {moves}: no sited chunk was evaluated "
                          f"(trie {run['trie']}, launches {launches})")
             runs.append(run)
-        if len(set(prints.values())) != 1:
-            fail(f"bcd adt={adt} moves={moves}: engines selected different "
-                 f"blocks: {prints}")
+        for route in ("fused", "unfused"):
+            mine = {k: v for k, v in prints.items() if k[0] == route}
+            if len(set(mine.values())) > 1:
+                fail(f"bcd adt={adt} moves={moves}: engines selected "
+                     f"different blocks on the {route} route: {mine}")
     return dict(model="resnet18", batch=128, drc=drc, rt=rt,
                 chunk_size=chunk, steps=steps, runs=runs)
 
 
 def run_sited_phase(model, params, batch):
     """Site-local candidates at two depths through the batched engine and
-    the suffix engine (unfused and fused): equal accuracies, and the rates
-    the prefix reuse and the fused kernels are there for."""
+    the suffix engine, each on the unfused and on the fused gate route:
+    under each route equal accuracies, and the rates the prefix reuse and
+    the fused kernels are there for; between the routes, the trials read
+    apart (reported)."""
     from repro_torch.core import engine as E, linearize, masks as M
     from repro_torch.kernels import build
     from repro_torch.launch.sweep import make_bcd_evaluator
@@ -1849,9 +1884,7 @@ def run_sited_phase(model, params, batch):
                   for i in (0, 8)]
         accs, row = {}, dict(site=site, prefix_fraction=fractions[site],
                              candidates=16, chunk_size=8)
-        for label, backend, fused in (("batched", "batched", False),
-                                      ("suffix_unfused", "suffix", False),
-                                      ("suffix_fused", "suffix", True)):
+        for label, backend, fused in route_engines(True):
             ev, _, _ = make_bcd_evaluator(
                 backend, model, batch, {"params": params}, chunk_size=8,
                 rt=16, prefetch=0, fused_kernels=fused, device="cuda")
@@ -1876,13 +1909,290 @@ def run_sited_phase(model, params, batch):
                 row[label]["trie"] = dict(hits=ev.trie.hits,
                                           extensions=ev.trie.extensions,
                                           misses=ev.trie.misses)
-        for label, a in accs.items():
-            if not np.array_equal(a, accs["batched"]):
-                fail(f"sited {site}: {label} accuracies {a} differ from "
-                     f"batched {accs['batched']}")
-        row["accs"] = [float(a) for a in accs["batched"]]
+        for route in ("unfused", "fused"):
+            got, want = accs[f"suffix_{route}"], accs[f"batched_{route}"]
+            if not np.array_equal(got, want):
+                fail(f"sited {site}: suffix_{route} accuracies {got} differ "
+                     f"from batched_{route} {want}")
+        row["accs"] = {lab: [float(a) for a in v] for lab, v in accs.items()}
+        row["routes_apart"] = routes_apart(accs)
         out.append(row)
     return dict(model="resnet18", batch=128, timed_passes=reps, rows=out)
+
+
+# ------------------------------------------------------ candidate-parallel
+
+SHARDED_WORLD = 4
+SHARDED_RANK_TIMEOUT_S = 420    # each rank, from its start
+# (label, mesh shape, chunk size): on 4 ranks of a (2, 2) mesh a chunk of 8
+# takes the joint layout (2 candidates a rank, whole eval batch), a chunk
+# of 6 the candidate-only one (3 a rank, each on half the batch:
+# ``engine.chunk_layout``); then the 1-D mesh of 4
+SHARDED_RUNS = (("mesh_2x2_chunk_8", (2, 2), 8),
+                ("mesh_2x2_chunk_6", (2, 2), 6),
+                ("mesh_4_chunk_8", (4,), 8))
+SHARDED_KERNELS = ("masked_act_2d", "masked_act_2d_batched",
+                   "masked_act_conv3x3", "masked_act_conv3x3_batched")
+GPIPE_STAGES, GPIPE_MICRO, GPIPE_ROWS, GPIPE_WIDTH = 4, 8, 256, 1024
+
+
+def sharded_bcd_config(model, chunk: int):
+    """The ``bcd`` line's ``drc=100, rt=16``, 3 steps, no early exit (every
+    trial evaluated and compared), the paper's removal moves."""
+    from repro_torch.core import bcd
+    total = model.relu_count()
+    return bcd.BCDConfig(b_target=total - 100 * BCD_STEPS, drc=100, rt=16,
+                         adt=-100.0, finetune_every_step=False, seed=0,
+                         chunk_size=chunk, moves=("remove",))
+
+
+def recorded_bcd(model, evaluator, eval_acc, cfg):
+    """``run_bcd`` with every trial's reading kept, in sampling order."""
+    from repro_torch.core import bcd, linearize, masks as M
+    trials = []
+    inner = evaluator.evaluate_staged
+
+    def recording(staged):
+        accs = inner(staged)
+        trials.extend(float(a) for a in accs)
+        return accs
+    evaluator.evaluate_staged = recording
+    masks0 = linearize.init_masks(model.mask_sites())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = bcd.run_bcd(masks0, cfg, eval_acc, evaluator=evaluator)
+    torch.cuda.synchronize()
+    return dict(fingerprint=M.fingerprint(res.masks),
+                steps=[[h.trials, h.found_early, h.best_drop,
+                        h.budget_before, h.budget_after]
+                       for h in res.history],
+                trials=trials, wall_s=time.perf_counter() - t0)
+
+
+def run_sharded_rank(rank: int, world: int, store: str, out: str) -> None:
+    """One rank of ``sharded_bcd`` (a child process): ResNet18's BCD on
+    the sharded engine over each mesh of ``SHARDED_RUNS``, its layouts,
+    readings and launches written to ``out`` as JSON."""
+    import torch.distributed as dist
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.sweep import make_bcd_evaluator
+    build.load()
+    mesh_lib.init_process_group(
+        "cuda", store=dist.FileStore(store, world), rank=rank, world=world,
+        timeout_s=SHARDED_RANK_TIMEOUT_S)
+    result = dict(rank=rank, backend=dist.get_backend(), runs={})
+    model, params, batch = make_model_and_batch(SEED)
+    for label, shape, chunk in SHARDED_RUNS:
+        mesh = mesh_lib.make_cand_batch_mesh(*shape) if len(shape) == 2 \
+            else mesh_lib.make_candidate_mesh(shape[0])
+        build.reset_launch_counts()
+        ev, eval_acc, _ = make_bcd_evaluator(
+            "sharded", model, batch, {"params": params}, chunk_size=chunk,
+            rt=16, prefetch=0, fused_kernels=True, mesh=mesh)
+        layouts = []
+        choose = ev._chunk_sharding
+
+        def logged(n, choose=choose, layouts=layouts):
+            layouts.append(choose(n))
+            return layouts[-1]
+        ev._chunk_sharding = logged
+        run = recorded_bcd(model, ev, eval_acc,
+                           sharded_bcd_config(model, chunk))
+        run.update(mesh=list(shape), coordinate=list(mesh.get_coordinate()),
+                   chunk_layouts=[list(x) for x in layouts],
+                   launches={k: v for k, v in counts().items() if v})
+        result["runs"][label] = run
+    dist.barrier()
+    mesh_lib.shutdown()
+    with open(out, "w") as f:
+        json.dump(result, f)
+
+
+def same_result(got: dict, want: dict) -> bool:
+    """The reference's ``_assert_same_result`` (``tests/test_bcd_parallel.
+    py``): masks, trials and early exits equal, ``best_drop`` within
+    1e-4, budgets equal."""
+    if got["fingerprint"] != want["fingerprint"] or \
+            len(got["steps"]) != len(want["steps"]):
+        return False
+    return all(g[:2] == w[:2] and abs(g[2] - w[2]) <= 1e-4
+               and g[3:] == w[3:] for g, w in zip(got["steps"],
+                                                  want["steps"]))
+
+
+def run_gpipe_on_card():
+    """``training.pp.gpipe_forward`` on the card, each stage a product and
+    the silu gate (``ops.masked_act``, kernel 1), held against the stages
+    applied in turn; both run the same kernels on the same rows."""
+    from repro_torch.kernels import ops
+    from repro_torch.training.pp import gpipe_forward
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    S, Mi, R, D = GPIPE_STAGES, GPIPE_MICRO, GPIPE_ROWS, GPIPE_WIDTH
+    params = {"w": torch.randn((S, D, D), generator=gen, device="cuda")
+              * D ** -0.5,
+              "m": (torch.rand((S, D), generator=gen, device="cuda") < 0.5)
+              .float()}
+    micro = torch.randn((Mi, R, D), generator=gen, device="cuda")
+
+    def body(p, x):
+        return ops.masked_act(x @ p["w"], p["m"], kind="silu")
+    before = counts()
+    with torch.no_grad():
+        got = gpipe_forward(body, params, micro)
+        want = micro
+        for s_ in range(S):
+            want = torch.stack([body({"w": params["w"][s_],
+                                      "m": params["m"][s_]}, x)
+                                for x in want])
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    launches = counts()["masked_act_2d"] - before["masked_act_2d"]
+    if not torch.isfinite(got).all() or err > 1e-6 or launches == 0:
+        fail(f"gpipe: max |pipeline - stages in turn| {err}, "
+             f"{launches} gate launches")
+    return dict(stages=S, microbatches=Mi, rows=R, width=D,
+                max_abs_err=err, tolerance=1e-6, gate_launches=launches)
+
+
+def run_world_of_one(model, params, batch):
+    """``make_evaluator("sharded")`` in this process, a world of 1 with no
+    launcher: a chunk's accuracies equal to the batched engine's."""
+    from repro_torch.core import linearize, masks as M
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.sweep import make_bcd_evaluator
+    masks0 = linearize.init_masks(model.mask_sites())
+    stacked = M.sample_removal_blocks(np.random.default_rng(SEED), masks0,
+                                      100, 8)
+    accs = {}
+    try:
+        for backend in ("batched", "sharded"):
+            ev, _, _ = make_bcd_evaluator(backend, model, batch,
+                                          {"params": params}, chunk_size=8,
+                                          rt=16, prefetch=0)
+            accs[backend] = ev.evaluate(stacked)
+        info = mesh_lib.process_info()
+        import torch.distributed as dist
+        backend_name = dist.get_backend()
+    finally:
+        mesh_lib.shutdown()
+    if not np.array_equal(accs["sharded"], accs["batched"]):
+        fail(f"sharded_bcd world of 1: {accs['sharded']} differ from "
+             f"batched {accs['batched']}")
+    return dict(process_info=list(info), backend=backend_name,
+                accs=[float(a) for a in accs["sharded"]])
+
+
+def run_sharded_path(by_path):
+    """The ``sharded_bcd`` phase: a one-process batched run, then
+    ``SHARDED_WORLD`` ranks (child processes of this script, a ``gloo``
+    group through a ``FileStore``, sharing the card), each under a
+    timeout; every rank's selections against the batched run's, by the
+    reference's standard, its trials read apart to the bit, its chunks'
+    layouts and its launches; then the world of 1 and ``gpipe_forward``.
+    Any rank that fails or hangs fails the script; nothing falls back."""
+    import shutil
+    from repro_torch.launch.sweep import make_bcd_evaluator
+    t_phase = time.perf_counter()
+    model, params, batch = make_model_and_batch(SEED)
+    want = {}
+    for chunk in sorted({c for _, _, c in SHARDED_RUNS}):
+        ev, eval_acc, _ = make_bcd_evaluator(
+            "batched", model, batch, {"params": params}, chunk_size=chunk,
+            rt=16, prefetch=0, fused_kernels=True)
+        want[chunk] = recorded_bcd(model, ev, eval_acc,
+                                   sharded_bcd_config(model, chunk))
+    build_root = os.path.join(HERE, "build", f"sharded_{os.getpid()}")
+    shutil.rmtree(build_root, ignore_errors=True)
+    os.makedirs(build_root)
+    store = os.path.join(build_root, "store")
+    outs = [os.path.join(build_root, f"rank{r}.json")
+            for r in range(SHARDED_WORLD)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sharded-rank", str(r),
+         "--sharded-world", str(SHARDED_WORLD), "--sharded-store", store,
+         "--sharded-out", outs[r]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(SHARDED_WORLD)]
+    logs, bad = {}, []
+    try:
+        for r, p in enumerate(procs):
+            left = SHARDED_RANK_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                logs[r], _ = p.communicate(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                bad.append(f"rank {r} ran past {SHARDED_RANK_TIMEOUT_S} s")
+                break
+            if p.returncode != 0:
+                bad.append(f"rank {r} exited {p.returncode}")
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.communicate()
+    if bad:
+        for r, text in logs.items():
+            print(f"== sharded rank {r}\n{text[-3000:]}", file=sys.stderr)
+        fail(f"sharded_bcd: {'; '.join(bad)}")
+    ranks_seconds = time.perf_counter() - t0
+    results = []
+    for out in outs:
+        with open(out) as f:
+            results.append(json.load(f))
+    shutil.rmtree(build_root, ignore_errors=True)
+    runs, total = {}, {k: 0 for k in counts()}
+    for label, shape, chunk in SHARDED_RUNS:
+        ref = want[chunk]
+        row = dict(mesh=list(shape), chunk_size=chunk,
+                   batched_fingerprint=ref["fingerprint"][:16],
+                   batched_wall_s=ref["wall_s"], ranks=[])
+        layouts = set()
+        for res in results:
+            run = res["runs"][label]
+            apart = [i for i, (a, b) in enumerate(zip(run["trials"],
+                                                      ref["trials"]))
+                     if a != b]
+            if not same_result(run, ref):
+                emit({"sharded_bcd_failed": dict(label=label, rank=res["rank"],
+                                                 got=run, want=ref)})
+                fail(f"sharded_bcd {label} rank {res['rank']}: selections "
+                     "differ from the batched run's")
+            missing = [k for k in SHARDED_KERNELS
+                       if run["launches"].get(k, 0) == 0]
+            if missing:
+                fail(f"sharded_bcd {label} rank {res['rank']}: no launch of "
+                     f"{missing}")
+            layouts.update(lay for _, lay in run["chunk_layouts"])
+            for k, v in run["launches"].items():
+                total[k] += v
+            row["ranks"].append(dict(
+                rank=res["rank"], coordinate=run["coordinate"],
+                wall_s=run["wall_s"], trials=len(run["trials"]),
+                trials_apart_from_batched=apart,
+                chunk_layouts=run["chunk_layouts"],
+                launches={k: run["launches"].get(k, 0)
+                          for k in SHARDED_KERNELS}))
+        row["layouts"] = sorted(layouts)
+        runs[label] = row
+    seen = set().union(*(set(r["layouts"]) for r in runs.values()))
+    if seen != {"joint", "cand"}:
+        fail(f"sharded_bcd: layouts {sorted(seen)}, not both joint and "
+             "cand")
+    before = counts()
+    one = run_world_of_one(model, params, batch)
+    gpipe = run_gpipe_on_card()
+    for k, v in counts().items():
+        total[k] += v - before[k]
+    by_path["sharded_bcd"] = total
+    del model, params
+    torch.cuda.empty_cache()
+    return dict(model="resnet18", batch=128, relus=557056, drc=100, rt=16,
+                steps=BCD_STEPS, adt=-100.0, world=SHARDED_WORLD,
+                backend=results[0]["backend"], ranks_seconds=ranks_seconds,
+                runs=runs, world_of_one=one, gpipe=gpipe,
+                seconds=time.perf_counter() - t_phase)
 
 
 # ------------------------------------------------------------ training half
@@ -2730,21 +3040,17 @@ LM_PATHS = (
 # published depth (``layers``: the depth of RWKV-6's card-vs-CPU check,
 # and 3 of Zamba2's 9 repeats), to pay in the script's time for serving
 # and sweeping the families in their bfloat16; the bfloat16 serving runs
-# each family at its path's depth too.  DeepSeek keeps all 28 layers: at 14, with the sites moved to
-# fit (``s0.moe@4``, ``s0.moe@10``), the suffix engine's fused forwards
-# read one trial apart from the batched engine's (route B's shared expert
-# rounds otherwise than the gate and cuBLAS, and a route near a tie
-# flips: ROADMAP Queue C 7).  The unfused ones agree there, because every
-# engine runs the layers before a chunk's first differing gate at B rows
-# (``linearize.first_differences``); ``MOE_REPRODUCER`` holds them to it
-# after this path.
+# each family at its path's depth too.  DeepSeek runs 14 of its 28 layers,
+# sited at ``s0.moe@4`` and ``s0.moe@10``: every engine runs one gate route
+# per run, so the suffix engine's fused forwards read every trial as the
+# batched engine's fused forwards do (ROADMAP Queue C 7).
 # DeepSeek-MoE-16B: a dense head block and 27 MoE blocks, 16.2 B parameters,
-# 64.7 GB in float32 — no room for a bfloat16 copy beside them, so no
-# bfloat16 forward on this path (the serve phase runs all 28 layers in
-# bfloat16); exact-length greedy forwards (pad 1: a MoE's capacity
+# 64.7 GB in float32 at all 28 layers (32 GB at the path's 14), no
+# bfloat16 forward on this path (the serve phase runs it in bfloat16 at
+# the path's depth); exact-length greedy forwards (pad 1: a MoE's capacity
 # depends on the length); the card-vs-CPU check runs the head block and
-# the first MoE repeat (3.5 GB on the host); 2.52 M nonlinearities, so a
-# BCD step removes 4096 (0.16 %, StableLM's 256 of 135 k is 0.19 %).
+# the first MoE repeat (3.5 GB on the host); 1.26 M nonlinearities at 14
+# layers, and a BCD step removes 4096, as at 28.
 # Zamba2-2.7B: 9 repeats of five Mamba2 blocks and the shared attention
 # block; the Mamba2 scan needs S % min(64, S) == 0, as the reference does:
 # 128 inputs, greedy forwards padded to multiples of 64; the CPU check runs
@@ -2755,19 +3061,12 @@ LM_PATHS = (
 # of the init's scale, and ``hybrid_forward`` measures both
 # (``rounding_growth``).
 FAMILY_PATHS = (
-    LMPath("deepseek_moe_16b", "moe", 128, 1, True, ("s0.moe@8", "s0.moe@20"),
-           1, bf16=False, drc=4096),
+    LMPath("deepseek_moe_16b", "moe", 128, 1, True, ("s0.moe@4", "s0.moe@10"),
+           1, bf16=False, drc=4096, layers=14),
     LMPath("zamba2_2p7b", "hybrid", 129, 64, False,
            ("s0.mamba@1", "s4.mamba@2"), 2, w_o_scale=1 / 32, drc=512,
            layers=18),
 )
-# The 14-layer DeepSeek-MoE-16B of ROADMAP Queue C 6, after DeepSeek's
-# path (``moe14_sited`` line): its sited candidates through the batched
-# engine and the suffix engine, the unfused suffix forwards held equal to
-# the batched ones on every trial, the fused ones reported beside them.
-MOE_REPRODUCER = dataclasses.replace(
-    FAMILY_PATHS[0], tag="moe14", sited=("s0.moe@4", "s0.moe@10"), layers=14)
-MOE_REPRODUCER_GATED = ("suffix_unfused",)
 FAMILY_SERVE_BATCH, FAMILY_SERVE_PROMPT, FAMILY_SERVE_GEN = 2, 16, 8
 
 
@@ -3135,33 +3434,42 @@ ENGINES = ("sequential", "batched", "pipelined", "suffix")
 
 
 def run_lm_bcd(model, params, batch, steps: int, drc: int, spec,
-               device="cuda", backends=ENGINES, tag=None, cost_model=None):
-    """``bcd.run_bcd`` on the LM through ``backends`` (the four engines):
-    identical selections, and at least one step whose trials did not all
-    tie.  Where the engines part, every trial's accuracy of each engine but
-    the sequential one goes into the ``<tag>_failed`` line.  ``cost_model``
-    replaces the suffix engine's (``SuffixCostModel``), which decides
-    which chunks take the suffix path."""
+               device="cuda", backends=ENGINES, tag=None, cost_model=None,
+               other_route: bool = True):
+    """``bcd.run_bcd`` on the LM through ``backends`` (the four engines)
+    on the path's gate route (fused where the config has the fused route),
+    and, where it has and ``other_route``, the batched and suffix engines
+    on the unfused route as well: under each route identical selections,
+    and at least one step whose trials did not all tie.  Where the engines
+    part, every trial's accuracy of each engine but the sequential one
+    goes into the ``<tag>_failed`` line.  ``cost_model`` replaces the
+    suffix engine's (``SuffixCostModel``), which decides which chunks take
+    the suffix path."""
     from repro_torch.core import bcd, linearize, masks as M
     from repro_torch.launch.sweep import make_bcd_evaluator
     tag = tag or f"{spec.tag}_bcd"
     masks0 = linearize.init_masks(model.mask_sites())
     total = model.relu_count()
     rt = 16
-    prints, runs, trial_accs = {}, [], {}
-    for backend in backends:
+    runs_by_route, prints, trial_accs = {}, {}, {}
+    plan = [(b, spec.fused) for b in backends]
+    if spec.fused and other_route:
+        plan += [(b, False) for b in ("batched", "suffix")]
+    for backend, fused in plan:
+        route = "fused" if fused else "unfused"
         holder = {"params": params}
         evaluator, eval_acc, _ = make_bcd_evaluator(
             backend, model, batch, holder, chunk_size=LM_CHUNK, rt=rt,
-            prefetch=2, fused_kernels=spec.fused, device=device)
+            prefetch=2, fused_kernels=fused, device=device)
         if backend == "suffix" and cost_model is not None:
             evaluator.cost_model = cost_model
+        key = (route, backend)
         if backend != "sequential":
             # record every trial accuracy (rt per step, in order)
             inner = evaluator.evaluate_staged
-            trial_accs[backend] = []
+            trial_accs[key] = []
 
-            def recording(staged, inner=inner, out=trial_accs[backend]):
+            def recording(staged, inner=inner, out=trial_accs[key]):
                 accs = inner(staged)
                 out.extend(float(a) for a in accs)
                 return accs
@@ -3182,11 +3490,11 @@ def run_lm_bcd(model, params, batch, steps: int, drc: int, spec,
         if not all(np.isfinite(a) and 0.0 <= a <= 100.0 for a in accs):
             fail(f"{tag} {backend}: accuracies {accs}")
         trials = sum(h.trials for h in res.history)
-        prints[backend] = M.fingerprint(res.masks)
-        run = dict(backend=backend, steps=len(res.history), trials=trials,
-                   wall_s=wall,
+        prints[key] = M.fingerprint(res.masks)
+        run = dict(backend=backend, route=route, steps=len(res.history),
+                   trials=trials, wall_s=wall,
                    candidates_per_s=(trials + len(res.history)) / wall,
-                   fingerprint=prints[backend][:16],
+                   fingerprint=prints[key][:16],
                    best_drops=[h.best_drop for h in res.history],
                    acc_before=accs,
                    launches={k: v for k, v in launches.items() if v})
@@ -3194,36 +3502,54 @@ def run_lm_bcd(model, params, batch, steps: int, drc: int, spec,
         if trie is not None:
             run["trie"] = dict(hits=trie.hits, extensions=trie.extensions,
                                misses=trie.misses)
-        runs.append(run)
-    if len(set(prints.values())) != 1:
-        emit({f"{tag}_failed": dict(runs=runs, trial_accs=trial_accs)})
-        fail(f"{tag}: engines selected different blocks: {prints}")
-    step_accs = trial_accs["batched"]
+        runs_by_route.setdefault(route, []).append(run)
+    for route in runs_by_route:
+        mine = {k: v for k, v in prints.items() if k[0] == route}
+        if len(set(mine.values())) != 1:
+            emit({f"{tag}_failed": dict(
+                runs=runs_by_route[route],
+                trial_accs={b: v for (r, b), v in trial_accs.items()
+                            if r == route})})
+            fail(f"{tag}: engines selected different blocks on the {route} "
+                 f"route: {mine}")
+    main_route = "fused" if spec.fused else "unfused"
+    step_accs = trial_accs[(main_route, "batched")]
     distinct = [len(set(step_accs[i:i + rt]))
                 for i in range(0, len(step_accs), rt)]
     if not distinct or max(distinct) < 2:
         fail(f"{tag}: every step's trials tied ({distinct} distinct "
              "accuracies per step): the parity would be vacuous")
+    between = None
+    if len(runs_by_route) == 2:
+        a = trial_accs[("fused", "batched")]
+        b = trial_accs[("unfused", "batched")]
+        between = dict(
+            selections_part=prints[("fused", "batched")] !=
+            prints[("unfused", "batched")],
+            first_step_trials_apart=[i for i in range(rt) if a[i] != b[i]])
     return dict(model=model.cfg.name,
                 dtype=str(model.dtype).replace("torch.", ""), batch=LM_BATCH,
                 tokens=spec.seq - 1, drc=drc, rt=rt, chunk_size=LM_CHUNK,
                 adt=-100.0, moves=["remove"], steps=steps,
-                distinct_trial_accs_per_step=distinct, runs=runs)
+                distinct_trial_accs_per_step=distinct,
+                runs=runs_by_route[main_route],
+                runs_other_route=runs_by_route.get("unfused")
+                if spec.fused else None,
+                routes=between)
 
 
 def run_lm_bf16_bcd(spec, steps: int, device="cuda"):
     """BCD at the config's own bfloat16: the model drawn from the path's
     seed in bfloat16, an eval batch of its own greedy continuations
-    (:func:`make_lm_batch`), and ``run_bcd`` through the batched engine
-    (unfused: kernel 2 and cuBLAS's bfloat16 product) and the suffix engine
-    (fused: kernel 4 on route A, ``wgmma``): identical selections, and
-    route A's stacked kernel launched.  A block of ``spec.drc`` = 256
-    random coordinates of 24 x 5632 touches the first repeat's FFN all but
-    always ((23/24)^256 = 2e-5 misses it), and the default cost model sends
-    a chunk cut there (prefix fraction 0) down the unfused full forward; so
-    the suffix engine runs with a cost model that takes every chunk of two
-    or more candidates on the suffix path: the embedding is the prefix,
-    and every FFN of every candidate runs on route A."""
+    (:func:`make_lm_batch`), and ``run_bcd`` through the batched engine and
+    the suffix engine, both on the fused route (kernels 3/4 on route A,
+    ``wgmma``): identical selections, and route A's stacked kernel
+    launched.  A block of ``spec.drc`` = 256 random coordinates of 24 x
+    5632 touches the first repeat's FFN all but always ((23/24)^256 = 2e-5
+    misses it), and the default cost model sends a chunk cut there
+    (prefix fraction 0) down the full forward; so the suffix engine runs
+    with a cost model that takes every chunk of two or more candidates on
+    the suffix path: the embedding is the prefix."""
     t0 = time.perf_counter()
     model, params = make_lm(SEED, spec, device, dtype="bfloat16")
     batch, info = make_lm_batch(model, params, SEED, spec, device)
@@ -3234,7 +3560,8 @@ def run_lm_bf16_bcd(spec, steps: int, device="cuda"):
     out = run_lm_bcd(model, params, batch, steps, spec.drc, spec, device,
                      backends=("batched", "suffix"),
                      tag=f"{spec.tag}_bf16_bcd",
-                     cost_model=SuffixCostModel(min_prefix_fraction=0.0))
+                     cost_model=SuffixCostModel(min_prefix_fraction=0.0),
+                     other_route=False)
     out["suffix_cost_model"] = "SuffixCostModel(min_prefix_fraction=0.0)"
     out["seconds"] = time.perf_counter() - t0
     out["batch_info"] = info
@@ -3250,24 +3577,42 @@ def run_lm_bf16_bcd(spec, steps: int, device="cuda"):
     return out
 
 
+def route_engines(fused_route: bool, backends=("batched", "suffix")):
+    """(label, backend, fused) for each engine under each gate route: the
+    unfused route, and the fused one where the path has it."""
+    routes = (False, True) if fused_route else (False,)
+    return [(f"{b}_{'fused' if f else 'unfused'}", b, f)
+            for f in routes for b in backends]
+
+
+def routes_apart(accs: dict) -> dict:
+    """Between the two routes, per engine: the trials read apart to the
+    bit and the largest difference (reported, not gated)."""
+    out = {}
+    for b in sorted({k.rsplit("_", 1)[0] for k in accs}):
+        a, f = accs.get(f"{b}_unfused"), accs.get(f"{b}_fused")
+        if a is None or f is None:
+            continue
+        out[b] = dict(trials_apart=[int(i) for i in np.flatnonzero(a != f)],
+                      max_abs_diff=float(np.abs(a - f).max()))
+    return out
+
+
 def run_lm_sited(model, params, batch, drc: int, spec, device="cuda",
-                 gated=None, reps: int = LM_SITED_REPS):
+                 reps: int = LM_SITED_REPS):
     """Site-local candidates at mid-scan per-repeat sites through the
-    batched engine and the suffix engine, unfused and (where the config has
-    the fused route) fused: equal accuracies, prefix reuse in the trie,
-    and the rates over ``reps`` timed passes.  ``gated``: the labels held
-    equal to the batched engine (every one by default); the others' trials
-    that differ are reported."""
+    batched engine and the suffix engine under the unfused gate route and,
+    where the config has it, the fused one: under each route the suffix
+    engine's accuracies equal to the bit to the batched engine's, prefix
+    reuse in the trie, and the rates over ``reps`` timed passes; between
+    the routes, the trials read apart (reported)."""
     from repro_torch.core import engine as E, linearize, masks as M
     from repro_torch.launch.sweep import make_bcd_evaluator
     masks0 = linearize.init_masks(model.mask_sites())
     fractions = model.site_prefix_fractions()
     rng = np.random.default_rng(0)
     n_cand, out = 16, []
-    engines = [("batched", "batched", False),
-               ("suffix_unfused", "suffix", False)]
-    if spec.fused:
-        engines.append(("suffix_fused", "suffix", True))
+    engines = route_engines(spec.fused)
     for site in spec.sited:
         idx = M.sample_removal_indices_within(
             rng, masks0, drc, n_cand, [site],
@@ -3308,29 +3653,22 @@ def run_lm_sited(model, params, batch, drc: int, spec, device="cuda",
                          f"computed (trie {row[label]['trie']})")
             if fused and device == "cuda" and \
                     launches["masked_act_matmul_2d_batched"] == 0:
-                fail(f"{spec.tag}_sited {site}: the fused suffix did not "
-                     "launch masked_act_matmul_2d_batched")
-        for label, a in accs.items():
-            if np.array_equal(a, accs["batched"]):
-                continue
-            diag = sited_diagnosis(model, params, batch, masks0, chunks,
-                                   site, a, accs["batched"],
-                                   label == "suffix_fused", device)
-            if gated is None or label in gated:
-                emit({f"{spec.tag}_sited_failed": diag})
-                fail(f"{spec.tag}_sited {site}: {label} accuracies {a} "
-                     f"differ from batched {accs['batched']}")
-            bad = np.flatnonzero(a != accs["batched"])
-            row[label]["not_gated"] = dict(
-                trials_differing=[int(i) for i in bad],
-                accs=[float(a[i]) for i in bad],
-                batched=[float(accs["batched"][i]) for i in bad],
-                diagnosis=diag)
-        row["accs"] = [float(a) for a in accs["batched"]]
+                fail(f"{spec.tag}_sited {site} {label}: the fused route did "
+                     "not launch masked_act_matmul_2d_batched")
+        for route in {lab.rsplit("_", 1)[1] for lab, _, _ in engines}:
+            got, want = accs[f"suffix_{route}"], accs[f"batched_{route}"]
+            if not np.array_equal(got, want):
+                emit({f"{spec.tag}_sited_failed": sited_diagnosis(
+                    model, params, batch, masks0, chunks, site, got, want,
+                    route == "fused", device)})
+                fail(f"{spec.tag}_sited {site}: suffix_{route} accuracies "
+                     f"{got} differ from batched_{route} {want}")
+        row["accs"] = {lab: [float(a) for a in v] for lab, v in accs.items()}
+        row["routes_apart"] = routes_apart(accs)
         row["suffix_vs_batched"] = {
-            lab: row[lab]["candidates_per_s"] /
-            row["batched"]["candidates_per_s"]
-            for lab, _, _ in engines[1:]}
+            lab.split("_", 1)[1]: row[lab]["candidates_per_s"] /
+            row["batched_" + lab.split("_", 1)[1]]["candidates_per_s"]
+            for lab, backend, _ in engines if backend == "suffix"}
         out.append(row)
     return dict(model=model.cfg.name, dtype="float32", batch=LM_BATCH,
                 tokens=spec.seq - 1, timed_passes=reps, rows=out)
@@ -3439,10 +3777,10 @@ def run_family_serve(model, params, spec, device="cuda"):
 
 def sited_diagnosis(model, params, batch, masks0, chunks, site, got, want,
                     fused, device="cuda"):
-    """Why a suffix evaluation disagreed with the batched one: for each
-    chunk holding a disagreeing candidate, the largest logit difference
-    between the suffix forward over the shared prefix and the full stacked
-    forward, the labelled positions whose argmax differs and their top-2
+    """Why a suffix evaluation disagreed with the batched one on one gate
+    route (``fused``): for each chunk holding a disagreeing candidate, the
+    largest logit difference between the suffix forward over the shared
+    prefix and the full stacked forward, the labelled positions whose argmax differs and their top-2
     margins there, and the MoE routes that differ (both forwards with the
     engines' host decision, ``linearize.first_differences``)."""
     from repro_torch.core import linearize, masks as M
@@ -3457,9 +3795,10 @@ def sited_diagnosis(model, params, batch, masks0, chunks, site, got, want,
             ra, rb = record_routes(), record_routes()
             with ra:
                 full = model.forward(
-                    params, st, x, ties=False,
+                    params, st, x, ties=False, fused=fused,
                     differ=linearize.first_differences(chunks[c]))
-            cached = model.forward_prefix(params, base, x, site)
+            cached = model.forward_prefix(params, base, x, site,
+                                          fused=fused, ties=False)
             names = model.suffix_sites(site)
             sub = {k: st[k] for k in names}
             with rb:
@@ -3549,32 +3888,6 @@ def run_lm_path(spec, by_path, device="cuda"):
     # before the next path allocates its own (DeepSeek's take 64.7 GB)
     gc.collect()
     if cuda:
-        torch.cuda.empty_cache()
-
-
-def run_moe_reproducer(by_path, device="cuda"):
-    """ROADMAP Queue C 6's 14-layer DeepSeek-MoE-16B (``MOE_REPRODUCER``),
-    after DeepSeek's path has freed the card: its eval batch, then its
-    sited candidates through the batched and the suffix engine, the
-    unfused suffix forwards held equal to the batched ones on every trial
-    (``moe14_sited`` line).  Its launches count under its own key."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import build
-    spec = MOE_REPRODUCER
-    t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config(spec.arch), n_layers=spec.layers)
-    model, params = make_lm(SEED, spec, device, cfg=cfg)
-    batch, batch_info = make_lm_batch(model, params, SEED, spec, device)
-    build.reset_launch_counts()
-    sited = run_lm_sited(model, params, batch, LM_SITED_DRC, spec, device,
-                         gated=MOE_REPRODUCER_GATED)
-    by_path[f"{spec.arch}_{spec.layers}_layers"] = counts()
-    sited.update(layers=spec.layers, gated=list(MOE_REPRODUCER_GATED),
-                 batch_info=batch_info, seconds=time.perf_counter() - t0)
-    emit({f"{spec.tag}_sited": sited})
-    del model, params
-    gc.collect()
-    if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
 
 
@@ -4333,8 +4646,9 @@ def run_serve_path(by_path, device="cuda"):
     launch counts summed into ``by_path["serve"]``), and the reduced chaos
     drill on the card and on the CPU; then the configs' own bfloat16
     (``by_path["serve_bf16"]``): StableLM-2-1.6B's loop, ``generate`` on
-    RWKV-6 3B, DeepSeek-MoE-16B and Zamba2-2.7B at their LM paths' depths,
-    a tie of bfloat16 logits, and the launcher as a user runs it."""
+    RWKV-6 3B, DeepSeek-MoE-16B and Zamba2-2.7B at their LM paths' depths
+    (``SERVE_BF16_LAYERS`` where not), a tie of bfloat16 logits, and the
+    launcher as a user runs it."""
     t0 = time.perf_counter()
     lm, lm_counts = run_serve_stablelm(device)
     lm["seconds"], t0 = time.perf_counter() - t0, time.perf_counter()
@@ -4354,6 +4668,8 @@ def run_serve_path(by_path, device="cuda"):
     bf16["lines"].append("lm_bf16_serve")
     for spec, (b, p, g) in zip(LM_PATHS[1:] + FAMILY_PATHS,
                                SERVE_BF16_GENERATE):
+        spec = dataclasses.replace(
+            spec, layers=SERVE_BF16_LAYERS.get(spec.arch, spec.layers))
         t1 = time.perf_counter()
         line, launches = run_serve_generate_bf16(spec, b, p, g, device)
         line["seconds"] = time.perf_counter() - t1
@@ -4427,7 +4743,8 @@ FAMILY_SWEEPS = (
     # at the example's learning rates (tuned on the reduced configs),
     # SNL's SGD at 1e-2 turned the full-width model's loss to NaN in its
     # first epoch (10.88 after training; measured on one H100)
-    FamilySweep(FAMILY_PATHS[1], ("suffix",), layers=6, lr_scale=1 / 32,
+    FamilySweep(FAMILY_PATHS[1], ("batched", "suffix"), layers=6,
+                lr_scale=1 / 32,
                 lr_why="at the example's own, the loss after SNL was NaN "
                        "(10.88 after training)", layers_why=_PAYS),
     # the configs' own bfloat16, the same seed's draws rounded, at the
@@ -5698,6 +6015,16 @@ def main() -> None:
                          "full width, the supervisor drill, the train_lm "
                          "example), without the kernel comparison (prints "
                          "no result line)")
+    ap.add_argument("--only-sharded", action="store_true",
+                    help="build the kernels and run the candidate-parallel "
+                         "phase alone (4 gloo ranks on the card), without "
+                         "the kernel comparison (prints no result line)")
+    ap.add_argument("--sharded-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-world", type=int, default=SHARDED_WORLD,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-store", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-out", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--src", default=None,
                     help="with --only-lm, --only-rwkv, --only-moe or "
                          "--only-hybrid: "
@@ -5705,6 +6032,14 @@ def main() -> None:
                          "checkout's src/), to compare two trees with the "
                          "same script")
     args = ap.parse_args()
+    if args.sharded_rank is not None:
+        if not torch.cuda.is_available():
+            fail("no CUDA device: torch.cuda.is_available() is False")
+        import repro_torch
+        repro_torch.use_full_float32()
+        run_sharded_rank(args.sharded_rank, args.sharded_world,
+                         args.sharded_store, args.sharded_out)
+        return
     alone = {"stablelm_1p6b": args.only_lm, "rwkv6_3b": args.only_rwkv,
              "deepseek_moe_16b": args.only_moe,
              "zamba2_2p7b": args.only_hybrid}
@@ -5767,8 +6102,6 @@ def main() -> None:
             emit({f"only_{spec.tag}": {
                 "repro_torch": os.path.dirname(K.__file__)}})
             run_lm_path(spec, by_path)
-            if spec is FAMILY_PATHS[0]:
-                run_moe_reproducer(by_path)
             check_launches(by_path, (spec.arch,))
             return
     if args.only_sweep:
@@ -5776,6 +6109,11 @@ def main() -> None:
         DISK.phase = "resnet18_sweep"
         emit({"sweep": run_sweep_path(by_path)})
         check_launches(by_path, ("resnet18_sweep",))
+        return
+    if args.only_sharded:
+        by_path = {}
+        emit({"sharded_bcd": run_sharded_path(by_path)})
+        check_launches(by_path, ("sharded_bcd",))
         return
     if args.only_serve:
         by_path = {}
@@ -5842,12 +6180,14 @@ def main() -> None:
     sweep_line["seconds"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
+    # ---- path 1's candidate-parallel BCD, 4 ranks, counted on its own
+    DISK.phase = "sharded_bcd"
+    sharded_line = run_sharded_path(by_path)
+
     # ---- paths 2 to 5, StableLM-2-1.6B, RWKV-6 3B, DeepSeek-MoE-16B and
     # Zamba2-2.7B
     for spec in LM_PATHS + FAMILY_PATHS:
         run_lm_path(spec, by_path)
-        if spec is FAMILY_PATHS[0]:
-            run_moe_reproducer(by_path)
 
     # ---- serving StableLM-2-1.6B and RWKV-6 3B, counted on its own
     t0 = time.perf_counter()
@@ -5870,6 +6210,7 @@ def main() -> None:
     for name, line in zip(("train", "snl", "pipeline"), train_lines):
         emit({name: line})
     emit({"sweep": sweep_line})
+    emit({"sharded_bcd": sharded_line})
     emit({"serve": serve_line})
     emit({"disk_writes": DISK.summary()})
     kernels = []

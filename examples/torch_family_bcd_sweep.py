@@ -35,7 +35,11 @@ ran) and timed against the batched engine; the measured
 (the row shape of ``benchmarks/bench_bcd_eval.py``), naming the card.
 
 The reference's flags, without ``--compile-cache`` (the port has no JIT
-to cache) and the ``sharded`` engine (more than one device).  A caller can
+to cache).  ``--engine sharded`` runs candidate-parallel under ``python -m
+torch.distributed.run --nproc-per-node N``: every rank runs the same
+descent and evaluates its share of each chunk, rank 0 alone prints and
+writes files, and each rank's parameters are rank 0's after every
+finetune; one process without the launcher is a world of 1.  A caller can
 hand :func:`main` its own config, initial parameters and device (the
 tests pass converted reference parameters on the CPU; ``chip_smoke.py``
 the published widths on the card).
@@ -61,6 +65,7 @@ from repro_torch.core import masks as M, runner  # noqa: E402
 from repro_torch.core.snl import SNLConfig, finetune, run_snl  # noqa: E402
 from repro_torch.data import MarkovTokens  # noqa: E402
 from repro_torch.launch import coordinator as coord_lib  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.launch import sweep as sweep_lib  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.training import train as train_lib  # noqa: E402
@@ -80,8 +85,8 @@ def parse_args(argv=None):
                          "(rwkv6_3b, zamba2_2p7b), MoE (deepseek_moe_16b, "
                          "mixtral_8x22b), or dense")
     ap.add_argument("--engine", default="suffix",
-                    choices=["sequential", "batched", "pipelined",
-                             "suffix"])
+                    choices=["sequential", "batched", "sharded",
+                             "pipelined", "suffix"])
     ap.add_argument("--chunk-size", type=int, default=4)
     ap.add_argument("--prefetch", default="2",
                     help="staged-ahead chunks (pipelined/suffix), or 'auto'")
@@ -205,7 +210,7 @@ def record_midscan_speedup(args, model, masks, params, eval_b,
         fused_kernels="share" not in args.moves, device=device)
     batched_ev, _, _ = sweep_lib.make_bcd_evaluator(
         "batched", model, eval_b, holder, chunk_size=chunk, rt=rt,
-        device=device)
+        fused_kernels="share" not in args.moves, device=device)
 
     # warmup (trie-populate), then check the plan really routed the chunk
     # through a carry-checkpointed sited evaluation
@@ -308,7 +313,7 @@ def run(args, model, params, *, device="cuda"):
                               device)
         del trained
 
-    holder = {"params": init["params"]}
+    holder = {"params": mesh_lib.broadcast_tree(init["params"])}
     eval_b = {"tokens": mt.batch(args.eval_batch, args.seq,
                                  10**6 + 1)["tokens"]}
     evaluator, eval_acc, set_ctx = sweep_lib.make_bcd_evaluator(
@@ -317,8 +322,8 @@ def run(args, model, params, *, device="cuda"):
         fused_kernels="share" not in args.moves, device=device)
 
     def set_params(p):
-        holder["params"] = p
-        set_ctx(p)
+        holder["params"] = mesh_lib.broadcast_tree(p)
+        set_ctx(holder["params"])
 
     def ft(m):
         set_params(finetune(holder["params"], m, sloss, batches,
@@ -366,6 +371,10 @@ def main(argv=None, *, cfg=None, params=None, device="cuda"):
     """The CLI: ``cfg`` defaults to the family's ``reduced()`` config and
     ``params`` to ``LM(cfg).init`` from seed 0 on ``device``."""
     args = parse_args(argv)
+    if args.engine == "sharded":
+        rank, _ = mesh_lib.join_sharded_run(device)
+        if rank != 0:
+            sys.stdout = open(os.devnull, "w")
     cfg = cfg or get_config(args.arch).reduced()
     model = LM(cfg)
     if params is None:

@@ -4,7 +4,8 @@ Table 3 protocol, synthetic CIFAR), or the resumable budget sweep.
 
     PYTHONPATH=src python examples/torch_resnet18_bcd_pipeline.py \
         [--full] [--image-size 16] [--ref-frac 0.6] [--target-frac 0.4] \
-        [--engine sequential|batched|pipelined|suffix] [--chunk-size 8] \
+        [--engine sequential|batched|sharded|pipelined|suffix] \
+        [--chunk-size 8] \
         [--prefetch 2|auto] \
         [--moves remove,add_back,swap,stage_drop,share] \
         [--proposal uniform|sensitivity] [--device cuda|cpu]
@@ -49,6 +50,15 @@ REPRO_COORD_WORLD / REPRO_COORD_DIR (shared path) / REPRO_COORD_SESSION
 exported (``launch.coordinator.from_env``); rank 0 owns every checkpoint
 and artifact, other ranks follow its lineage and verify they resumed the
 same manifest fingerprint.  Unset, the run is plain single-process.
+
+Candidate-parallel (``--engine sharded``): launch one process per rank
+with ``python -m torch.distributed.run --nproc-per-node N
+examples/torch_resnet18_bcd_pipeline.py --engine sharded ...``.  Every rank
+runs the same descent and evaluates its share of each chunk
+(``core.engine.ShardedEvaluator`` over ``launch.mesh.make_candidate_mesh``);
+rank 0 alone prints and writes files (the coordinator's variables are
+exported from the process group), and each rank's parameters are rank 0's
+after every finetune.  One process without the launcher is a world of 1.
 """
 import argparse
 import os
@@ -67,6 +77,7 @@ from repro_torch.core.snl import SNLConfig, finetune, run_snl  # noqa: E402
 from repro_torch.data import ImageDatasetCfg, SyntheticImages  # noqa: E402
 from repro_torch.core import runner  # noqa: E402
 from repro_torch.launch import coordinator as coord_lib  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.launch import sweep as sweep_lib  # noqa: E402
 from repro_torch.models.resnet import CNN, CNNConfig  # noqa: E402
 from repro_torch.training import optimizer as opt_lib  # noqa: E402
@@ -79,8 +90,8 @@ def parse_args(argv=None):
     ap.add_argument("--target-frac", type=float, default=0.4)
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--engine", default="batched",
-                    choices=["sequential", "batched", "pipelined",
-                             "suffix"])
+                    choices=["sequential", "batched", "sharded",
+                             "pipelined", "suffix"])
     ap.add_argument("--chunk-size", type=int, default=8)
     ap.add_argument("--moves", default="remove",
                     help="comma-separated move kinds the descent samples "
@@ -225,14 +236,14 @@ def run_sweep_mode(args):
                        SNLConfig(b_target=b_ref, **SNL_CFG), verbose=True,
                        device=dev).stage_init()
 
-    holder = {"params": init["params"]}
+    holder = {"params": mesh_lib.broadcast_tree(init["params"])}
     eval_b = data.train_eval_set(128)
     evaluator, eval_acc, set_ctx = make_bcd_evaluator(
         args, model, eval_b, holder, args.chunk_size, rt=6)
 
     def set_params(p):
-        holder["params"] = p
-        set_ctx(p)
+        holder["params"] = mesh_lib.broadcast_tree(p)
+        set_ctx(holder["params"])
 
     def ft(m):
         set_params(finetune(holder["params"], m, sloss, batches, steps=12,
@@ -311,7 +322,7 @@ def run_head_to_head(args):
 
     print(f"== BCD from B_ref to B_target (ours, engine={args.engine})")
     eval_b = data.train_eval_set(128)
-    holder = {"params": res_ref.params}
+    holder = {"params": mesh_lib.broadcast_tree(res_ref.params)}
     bcd_cfg = bcd.BCDConfig(
         b_target=b_target, drc=max(1, (b_ref - b_target) // 5), rt=6,
         adt=0.3, chunk_size=args.chunk_size,
@@ -320,8 +331,9 @@ def run_head_to_head(args):
         args, model, eval_b, holder, bcd_cfg.chunk_size, bcd_cfg.rt)
 
     def ft(m):
-        holder["params"] = finetune(holder["params"], m, sloss, batches,
-                                    steps=12, lr=1e-2, device=dev)
+        holder["params"] = mesh_lib.broadcast_tree(finetune(
+            holder["params"], m, sloss, batches, steps=12, lr=1e-2,
+            device=dev))
         set_ctx(holder["params"])
 
     res_bcd = bcd.run_bcd(res_ref.masks, bcd_cfg, eval_acc, finetune=ft,
@@ -342,6 +354,10 @@ def run_head_to_head(args):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.engine == "sharded":
+        rank, _ = mesh_lib.join_sharded_run(args.device)
+        if rank != 0:
+            sys.stdout = open(os.devnull, "w")
     if args.sweep is not None:
         run_sweep_mode(args)
     else:

@@ -36,9 +36,18 @@ accuracies`` — and are interchangeable from ``run_bcd``'s point of view:
     (``analysis.roofline.SuffixCostModel``) falls shallow-cut chunks back to
     the inner full-forward backend.
 
-The reference's ``ShardedEvaluator`` lays the candidate axis across several
-devices; the port is single-device so far, does not have it yet, and
-``make_evaluator("sharded")`` says so.
+``ShardedEvaluator``
+    Batched placement over the ranks of a ``torch.distributed`` device mesh
+    (``launch.mesh``).  SPMD: every rank runs ``run_bcd`` with the same seed
+    and so samples the same chunks; each evaluates its own share and one
+    ``all_reduce`` of a zero-filled ``(n,)`` vector gives every rank every
+    accuracy, so every rank selects the same block.  On a 2-D
+    ``("cand", "batch")`` mesh the layout is chosen per call as the
+    reference chooses it (:func:`chunk_layout`): a joint layout over all
+    ranks, or a candidate-only one in which the ranks of a ``"batch"``
+    group each run the same candidates on their slice of the eval batch
+    (``core.spmd``).  :class:`PipelinedEvaluator` and
+    :class:`SuffixEvaluator` take ``mesh=`` as well.
 
 Backends must rank candidates identically: ``run_bcd`` breaks ties by first
 occurrence, and all backends evaluate candidates in sampling order, so for a
@@ -52,6 +61,16 @@ at B rows in every backend, as the suffix backend's cached prefix does.  A
 product on the card may round a row otherwise at another row count, so
 this keeps a candidate's rows up to its chunk's first differing gate the
 same bits in every backend.
+
+**One gate route per run.**  Every eval closure takes ``fused=`` and every
+backend passes its run's ``fused_kernels`` to every call it makes — the
+batched and pipelined forwards, the suffix backend's prefixes, suffixes and
+full-forward fallbacks, and the sequential backend through its
+``eval_acc`` (``make_eval_acc(fused=)``).  The fused kernels sum in their
+own order, so a candidate evaluated on two routes may read two accuracies;
+under one route every backend runs the same kernels at the same shapes.  A
+chunk that carries share ties runs unfused in every backend (the fused
+kernels do not implement the tie override).
 """
 from __future__ import annotations
 
@@ -67,33 +86,43 @@ import torch
 
 import repro_torch
 from repro_torch.convert import to_device
-from . import linearize
+from . import linearize, spmd
 from . import masks as M
 
 # eval_fn: (device mask tree, one or N stacked) -> accuracy tensor [%],
 # 0-d or (N,); takes ``ties=`` (see linearize.has_share_ties) and, where it
-# names the keyword, ``differ=`` (linearize.first_differences): the models'
+# names the keywords, ``differ=`` (linearize.first_differences: the models'
 # closures then run every layer before a chunk's first differing gate at B
-# rows.
+# rows) and ``fused=`` (the run's gate route).
 EvalFn = Callable[..., torch.Tensor]
 
 
-def takes_differ(fn) -> bool:
-    """Whether an eval closure takes the host decision ``differ=``."""
+def takes_keyword(fn, name: str) -> bool:
+    """Whether a closure takes the keyword ``name`` (or any keyword)."""
     try:
         params = inspect.signature(fn).parameters
     except (TypeError, ValueError):
         return False
-    return "differ" in params or any(
+    return name in params or any(
         p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values())
 
 
-def host_decisions(stacked: M.MaskTree, with_differ: bool) -> dict:
+def takes_differ(fn) -> bool:
+    """Whether an eval closure takes the host decision ``differ=``."""
+    return takes_keyword(fn, "differ")
+
+
+def host_decisions(stacked: M.MaskTree, with_differ: bool,
+                   fused: Optional[bool] = None) -> dict:
     """The keywords a stacked chunk's forward takes, decided on the host:
-    ``ties=`` and, for a closure that takes it, ``differ=``."""
+    ``ties=``; for a closure that takes it, ``differ=``; and where
+    ``fused`` is given (the closure takes it), ``fused=``: the run's route,
+    unfused for a chunk that carries share ties."""
     kw = {"ties": linearize.has_share_ties(stacked)}
     if with_differ:
         kw["differ"] = linearize.first_differences(stacked)
+    if fused is not None:
+        kw["fused"] = bool(fused) and not kw["ties"]
     return kw
 
 
@@ -240,7 +269,9 @@ def evaluate_prefetched(evaluator, chunks: Iterable[M.MaskTree]
 
 
 class SequentialEvaluator:
-    """Reference backend: unstack and evaluate one candidate at a time."""
+    """Reference backend: unstack and evaluate one candidate at a time.
+    Its route is the one its ``eval_acc`` was built with
+    (``make_eval_acc(fused=)``)."""
 
     name = "sequential"
     # One candidate per chunk: evaluating a whole chunk before checking the
@@ -267,7 +298,7 @@ class BatchedEvaluator:
     _async_copy = False
 
     def __init__(self, eval_fn: EvalFn, *, pad_to: Optional[int] = None,
-                 context=None, device="cuda"):
+                 context=None, fused_kernels: bool = True, device="cuda"):
         """eval_fn: accuracy of one mask tree or of N stacked ones (device
         tensors in/out, no synchronisation).
         pad_to: pad ragged candidate axes up to this size (use the BCD
@@ -275,6 +306,8 @@ class BatchedEvaluator:
         context: optional tree (e.g. model params) passed to eval_fn as a
         second argument, shared by the candidates.  Callers that finetune
         params between outer steps update it via :meth:`set_context`.
+        fused_kernels: the run's gate route, passed as ``fused=`` to an
+        eval_fn that takes it.
         device: where chunks are evaluated; the context is moved there
         once."""
         repro_torch.use_full_float32()
@@ -284,6 +317,9 @@ class BatchedEvaluator:
             to_device(context, self.device)
         self._eval_fn = eval_fn
         self._with_differ = takes_differ(eval_fn)
+        self.fused_kernels = bool(fused_kernels)
+        self._fused = self.fused_kernels \
+            if takes_keyword(eval_fn, "fused") else None
         self._pad_to = pad_to
 
     def set_context(self, context) -> None:
@@ -317,7 +353,7 @@ class BatchedEvaluator:
         n = M.stacked_len(stacked)
         if self._pad_to is not None and n < self._pad_to:
             stacked = M.pad_stacked(stacked, self._pad_to)
-        kw = host_decisions(stacked, self._with_differ)
+        kw = host_decisions(stacked, self._with_differ, self._fused)
         batch = self._device_batch(stacked)
         with torch.no_grad():
             accs = self._eval_fn(batch, self.context, **kw) \
@@ -342,16 +378,209 @@ def effective_chunk(evaluator, chunk_size: int) -> int:
                getattr(evaluator, "preferred_chunk", None) or chunk_size)
 
 
-class PipelinedEvaluator(BatchedEvaluator):
-    """Double-buffered candidate staging on one device.
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def context_batch_specs(context: dict, *, batch_key: str = "batch",
+                        axis: str = "batch") -> dict:
+    """Spec tree for an evaluator context dict: leaves under
+    ``context[batch_key]`` split their leading axis over mesh axis ``axis``
+    (the axis size must divide their leading dim, e.g. batch 16 over 2
+    ranks); every other leaf replicates (``None``).  Feed the result to
+    ``ShardedEvaluator(context_specs=...)``."""
+    return {k: _tree_map(lambda _: axis if k == batch_key else None, v)
+            for k, v in context.items()}
+
+
+def _split_leaves(tree, specs, axis: str, index: int, parts: int):
+    """The rank's slice of every leaf whose spec names ``axis``: part
+    ``index`` of ``parts`` equal slices of its leading dim."""
+    if isinstance(tree, dict):
+        return {k: _split_leaves(v, specs[k], axis, index, parts)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_split_leaves(v, sp, axis, index, parts)
+                          for v, sp in zip(tree, specs))
+    if specs != axis:
+        return tree
+    b = tree.shape[0]
+    if b % parts:
+        raise ValueError(f"a batch of {b} does not split over {parts} "
+                         f"ranks of {axis!r}")
+    step = b // parts
+    return tree[index * step:(index + 1) * step].contiguous()
+
+
+def chunk_layout(n: int, n_dev: int, cand: int) -> Tuple[int, str]:
+    """Per-call layout of a chunk of ``n`` candidates over a mesh of
+    ``n_dev`` ranks, ``cand`` of them along the candidate axes: (padded
+    candidate count, ``"joint"`` or ``"cand"``).
+
+    The reference's rule, to the bit: the joint layout costs
+    ceil(n / n_dev) candidate-forwards per rank, the candidate-only layout
+    ceil(n / cand) forwards over 1/(n_dev / cand) of the eval batch each;
+    ties prefer joint (no reduction across ranks inside a forward)."""
+    batch_ax = n_dev // cand
+    joint_cost = -(-n // n_dev)
+    split_cost = -(-n // cand) / batch_ax
+    if joint_cost <= split_cost:
+        return n + (-n % n_dev), "joint"
+    return n + (-n % cand), "cand"
+
+
+class ShardedEvaluator(BatchedEvaluator):
+    """Batched backend with the candidate axis laid across a device mesh.
+
+    SPMD over the ranks of ``mesh`` (a ``DeviceMesh`` of
+    ``launch.mesh``, covering the whole process group): every rank calls
+    :meth:`evaluate` with the same chunk, evaluates its own share, writes
+    its slots of a zero ``(n,)`` vector and one ``all_reduce`` sums the
+    vectors — adding zeros is exact, so every rank reads every accuracy
+    bit for bit.  ``all_reduce`` and ``broadcast`` are what ``gloo`` offers
+    for CUDA tensors; nothing here gathers.
+
+    1-D mesh (``make_candidate_mesh``): every axis is a candidate axis,
+    counts pad up to the rank count.  2-D ``("cand", "batch")`` mesh
+    (``make_cand_batch_mesh``): the layout is chosen per call
+    (:func:`chunk_layout`) — chunks big enough to give every rank a
+    candidate shard jointly over both axes, each candidate on the whole
+    eval batch; smaller chunks over ``"cand"`` only, where the ranks of a
+    ``"batch"`` group run the same candidates, each on its slice of a
+    ``context_specs``-split eval batch, their BatchNorm moments and hit
+    counts summed over the group (``core.spmd``).  Every keyword the forward
+    takes is decided on the whole chunk, as the batched backend decides it.
+    """
+
+    name = "sharded"
+
+    def __init__(self, eval_fn: EvalFn, mesh, *, pad_to: Optional[int] = None,
+                 context=None, context_specs=None,
+                 fused_kernels: bool = True, device="cuda", prepare=None):
+        """``prepare``: optional ``context -> context`` applied to the
+        whole context and, under the batch split, to the rank's slice
+        (the suffix backend's head fold, ``SplitEval.pre``)."""
+        super().__init__(eval_fn, pad_to=pad_to, context=None,
+                         fused_kernels=fused_kernels, device=device)
+        import torch.distributed as dist
+        self._mesh = mesh
+        axes = tuple(mesh.mesh_dim_names)
+        ranks = mesh.mesh
+        self._n_dev = int(ranks.numel())
+        if self._n_dev != dist.get_world_size():
+            raise ValueError(
+                f"the mesh holds {self._n_dev} ranks and the process group "
+                f"{dist.get_world_size()}: a sharded evaluator needs a mesh "
+                "over the whole group")
+        coord = mesh.get_coordinate()
+        shape = dict(zip(axes, ranks.shape))
+        cand_axes = tuple(a for a in axes if a != "batch") or axes
+        self._cand = int(np.prod([shape[a] for a in cand_axes]))
+        self._batch = self._n_dev // self._cand
+        pos = dict(zip(axes, coord))
+        self._joint_index = int(np.ravel_multi_index(
+            tuple(coord), tuple(ranks.shape)))
+        self._cand_index = int(np.ravel_multi_index(
+            tuple(pos[a] for a in cand_axes),
+            tuple(shape[a] for a in cand_axes)))
+        self._batch_index = int(pos.get("batch", 0))
+        self._batch_group = mesh.get_group("batch") \
+            if "batch" in axes and self._batch > 1 else None
+        self._specs = context_specs
+        self._prepare = prepare
+        if context_specs is not None and context is None:
+            raise ValueError("context_specs given without a context")
+        self._has_ctx = context is not None
+        self._split_ctx = None
+        if context is not None:
+            self._place(context)
+
+    def _place(self, context) -> None:
+        ctx = to_device(context, self.device)
+        full = ctx if self._prepare is None else self._prepare(ctx)
+        self.context = full
+        self._split_ctx = None
+        if self._specs is not None and self._batch_group is not None:
+            part = _split_leaves(ctx, self._specs, "batch",
+                                 self._batch_index, self._batch)
+            if self._prepare is not None:
+                with spmd.batch_split(self._batch_group, self._batch):
+                    part = self._prepare(part)
+            self._split_ctx = part
+
+    def set_context(self, context) -> None:
+        if not self._has_ctx:
+            raise ValueError("evaluator was built without a context")
+        self._place(context)
+
+    def _chunk_sharding(self, n: int) -> Tuple[int, str]:
+        """Per-call layout: (padded candidate count, ``"joint"`` |
+        ``"cand"``), as :func:`chunk_layout`."""
+        return chunk_layout(n, self._n_dev, self._cand)
+
+    def _cand_context(self):
+        """(context, batch group) of a candidate-only shard: the rank's
+        batch slice under its group where the context splits, else the
+        whole context and no group."""
+        if self._split_ctx is not None:
+            return self._split_ctx, self._batch_group
+        return self.context, None
+
+    def _shard_bounds(self, n_pad: int, layout: str) -> Tuple[int, int, bool]:
+        """This rank's candidates [lo, hi) and whether it writes them: in
+        the candidate-only layout the ranks of a batch group hold the same
+        shard, and the first of them writes it."""
+        if layout == "joint":
+            per = n_pad // self._n_dev
+            return per * self._joint_index, per * (self._joint_index + 1), \
+                True
+        per = n_pad // self._cand
+        return per * self._cand_index, per * (self._cand_index + 1), \
+            self._batch_index == 0
+
+    def _combine(self, accs: torch.Tensor, n_pad: int, lo: int, hi: int,
+                 write: bool) -> torch.Tensor:
+        """Every rank's shards as one (n_pad,) vector on every rank."""
+        full = torch.zeros((n_pad,), dtype=torch.float32, device=self.device)
+        if write:
+            full[lo:hi] = accs.reshape(-1).to(torch.float32)
+        if self._n_dev > 1:
+            import torch.distributed as dist
+            dist.all_reduce(full)
+        return full
+
+    def stage(self, stacked: M.MaskTree) -> StagedChunk:
+        """Pad, lay out, evaluate this rank's share, combine."""
+        n = M.stacked_len(stacked)
+        n_pad, layout = self._chunk_sharding(max(n, self._pad_to or 0))
+        stacked = M.pad_stacked(stacked, n_pad)
+        kw = host_decisions(stacked, self._with_differ, self._fused)
+        lo, hi, write = self._shard_bounds(n_pad, layout)
+        batch = self._device_batch(M.slice_stacked(stacked, lo, hi))
+        ctx, group = (self.context, None) if layout == "joint" \
+            else self._cand_context()
+        with torch.no_grad(), spmd.batch_split(group, self._batch):
+            accs = self._eval_fn(batch, ctx, **kw) if self._has_ctx \
+                else self._eval_fn(batch, **kw)
+            return StagedChunk(n, self._combine(accs, n_pad, lo, hi, write))
+
+
+class PipelinedEvaluator(ShardedEvaluator):
+    """Double-buffered candidate staging (batched or sharded placement).
 
     ``prefetch`` chunks beyond the one being consumed stay staged: padded,
     transferred, and *launched*.  CUDA's asynchronous launches then overlap
     chunk k+1's host materialization + H2D transfer with chunk k's device
     compute, which is the wall-clock the chunk-serial BatchedEvaluator
-    leaves on the table.  Selection is unchanged versus every other
-    backend: chunks are consumed in sampling order and the ADT early exit
-    checks chunk k's results before chunk k+1+prefetch is committed.
+    leaves on the table.  ``mesh=None`` keeps one-device placement; a mesh
+    layers the pipeline over :class:`ShardedEvaluator`'s layouts.
+    Selection is unchanged versus every other backend: chunks are consumed
+    in sampling order and the ADT early exit checks chunk k's results
+    before chunk k+1+prefetch is committed.
 
     ``prefetch="auto"`` defers the depth to a :class:`PrefetchAutoTuner`:
     the run's first chunks execute in strict alternation while producer and
@@ -363,9 +592,10 @@ class PipelinedEvaluator(BatchedEvaluator):
     _async_copy = True
 
     def __init__(self, eval_fn: EvalFn, *, pad_to: Optional[int] = None,
-                 context=None, prefetch: Union[int, str] = 1,
-                 auto_probe_chunks: int = 2, auto_max_prefetch: int = 4,
-                 device="cuda"):
+                 context=None, prefetch: Union[int, str] = 1, mesh=None,
+                 context_specs=None, auto_probe_chunks: int = 2,
+                 auto_max_prefetch: int = 4, fused_kernels: bool = True,
+                 device="cuda", prepare=None):
         if prefetch == "auto":
             self.auto_tuner = PrefetchAutoTuner(
                 n_probe=auto_probe_chunks, max_depth=auto_max_prefetch)
@@ -378,9 +608,36 @@ class PipelinedEvaluator(BatchedEvaluator):
         else:
             self.auto_tuner = None
         self.auto_report: Optional[dict] = None
-        super().__init__(eval_fn, pad_to=pad_to, context=context,
-                         device=device)
+        if mesh is None:
+            if context_specs is not None:
+                raise ValueError("context_specs requires a mesh")
+            if prepare is not None and context is not None:
+                context = prepare(to_device(context, torch.device(device)))
+            BatchedEvaluator.__init__(self, eval_fn, pad_to=pad_to,
+                                      context=context,
+                                      fused_kernels=fused_kernels,
+                                      device=device)
+            self._mesh = None
+            self._prepare = prepare
+        else:
+            ShardedEvaluator.__init__(self, eval_fn, mesh, pad_to=pad_to,
+                                      context=context,
+                                      context_specs=context_specs,
+                                      fused_kernels=fused_kernels,
+                                      device=device, prepare=prepare)
         self.prefetch_depth = int(prefetch)
+
+    def set_context(self, context) -> None:
+        if self._mesh is not None:
+            return ShardedEvaluator.set_context(self, context)
+        if self._prepare is not None:
+            context = self._prepare(to_device(context, self.device))
+        BatchedEvaluator.set_context(self, context)
+
+    def stage(self, stacked: M.MaskTree) -> StagedChunk:
+        if self._mesh is None:
+            return BatchedEvaluator.stage(self, stacked)
+        return ShardedEvaluator.stage(self, stacked)
 
 
 # ----------------------------------------------------- prefix-reuse backend
@@ -392,8 +649,9 @@ class SplitEval(NamedTuple):
     ``prefix(site, masks, ctx) -> cached`` and
     ``suffix(site, masks, cached, ctx) -> acc[%]`` satisfy
     ``suffix(site, m, prefix(site, m, x)) == full(m)`` for every site (the
-    same operations on the same values).  ``suffix`` takes stacked masks and
-    ``fused=`` / ``ties=``; ``prefix`` and ``full`` take ``ties=``.
+    same operations on the same values).  ``suffix`` takes stacked masks;
+    every closure takes ``fused=`` (the run's one gate route), and all but
+    ``pre`` take ``ties=``.
 
     ``prefix_ext(from_site, to_site, masks, cached, ctx) -> cached`` extends
     an already-computed prefix by only the segments between the two cuts,
@@ -578,11 +836,19 @@ class SuffixEvaluator:
     context and shipped as ``ctx["pre"]``, so even fallback candidates skip
     the head recompute: the depth-0 analogue of the prefix trie.
 
-    ``fused_kernels`` runs the suffix forwards with ``fused=True``: every
-    hard-mask ``relu → 3x3 conv`` pair (CNN) or FFN gate → down-projection
-    (LM) becomes one launch of the fused gate→conv or gate→matmul kernel.
-    Chunks that carry share ties run unfused (the fused kernels do not
-    implement the tie override).
+    ``fused_kernels`` is the run's one gate route: the prefixes, their
+    extensions, the suffixes and the fallbacks all run with
+    ``fused=fused_kernels``, so every hard-mask ``relu → 3x3 conv`` pair
+    (CNN) or FFN gate → down-projection (LM) of every forward becomes one
+    launch of the fused gate→conv or gate→matmul kernel, or none does.
+    Chunks (and base trees) that carry share ties run unfused (the fused
+    kernels do not implement the tie override).
+
+    ``mesh=`` lays sited chunks over the mesh's candidate axes, each rank
+    its shard, as :class:`ShardedEvaluator`'s candidate-only layout does;
+    with ``context_specs`` every prefix is computed and kept on the rank's
+    slice of the eval batch (``core.spmd``), so the trie never gathers.
+    Fallbacks go through the inner pipeline on the same mesh.
     """
 
     name = "suffix"
@@ -592,7 +858,8 @@ class SuffixEvaluator:
     def __init__(self, split: SplitEval, *, pad_to: Optional[int] = None,
                  context=None, prefetch: Union[int, str] = 0,
                  cost_model=None, trie_budget_bytes: Optional[int] = None,
-                 fused_kernels: bool = True, device="cuda"):
+                 fused_kernels: bool = True, mesh=None, context_specs=None,
+                 device="cuda"):
         if not isinstance(context, dict) or "params" not in context \
                 or "batch" not in context:
             raise ValueError(
@@ -609,14 +876,16 @@ class SuffixEvaluator:
         self.fused_kernels = bool(fused_kernels)
         self._pad_to = pad_to
         self.device = torch.device(device)
+        self._mesh = mesh
         # prefetch passes straight through (including "auto": the inner
         # pipeline owns the PrefetchAutoTuner; this evaluator mirrors its
         # prefetch_depth/auto_report so evaluate_prefetched's probe loop
         # drives the tuner through the suffix staging protocol)
         self._inner = PipelinedEvaluator(
-            split.full, pad_to=pad_to,
-            context=self._with_pre(to_device(context, self.device)),
-            prefetch=prefetch, device=self.device)
+            split.full, pad_to=pad_to, context=context, prefetch=prefetch,
+            mesh=mesh, context_specs=context_specs,
+            fused_kernels=fused_kernels, device=self.device,
+            prepare=self._with_pre)
         # one representative site per segment: sites cutting at the same
         # segment share the prefix cache entry
         self._segment_site: Dict[int, str] = {}
@@ -634,7 +903,7 @@ class SuffixEvaluator:
         if self._split.pre is None:
             return context
         with torch.no_grad():
-            pre = self._split.pre(context)
+            pre = self._split.pre(context, fused=self.fused_kernels)
         return {**context, "pre": pre}
 
     # the inner pipeline owns the staging depth and (for prefetch="auto")
@@ -669,8 +938,16 @@ class SuffixEvaluator:
         """Swap params/batch context; cached prefixes are invalidated (they
         were computed from the old params/batch) and the mask-independent
         head fold is recomputed from the new context."""
-        self._inner.context = self._with_pre(to_device(context, self.device))
+        self._inner.set_context(context)
         self.trie.clear()
+
+    def _sited_context(self):
+        """(context, batch group) the prefixes and suffixes read: on a
+        mesh the rank's batch slice under its group, as a candidate-only
+        shard reads it."""
+        if self._mesh is None:
+            return self.context, None
+        return self._inner._cand_context()
 
     def begin_step(self, base_masks: M.MaskTree) -> None:
         """Fix the outer step's base mask tree (what prefixes are computed
@@ -749,37 +1026,50 @@ class SuffixEvaluator:
             self.trie.hits += 1
             return hit[1]
         base = self._base_masks_dev()
-        with torch.no_grad():
+        ctx, group = self._sited_context()
+        kw = dict(ties=self._base_ties,
+                  fused=self.fused_kernels and not self._base_ties)
+        with torch.no_grad(), spmd.batch_split(group, self._batch_ranks()):
             if hit is not None and self._split.prefix_ext is not None:
                 # deepest-ancestor extension: fold only [hit_depth, seg)
                 from_seg, ancestor = hit
                 cached = self._split.prefix_ext(
                     self._segment_site[from_seg], self._segment_site[seg],
-                    base, ancestor, self.context, ties=self._base_ties)
+                    base, ancestor, ctx, **kw)
                 self.trie.extensions += 1
             else:
                 cached = self._split.prefix(
-                    self._segment_site[seg], base, self.context,
-                    ties=self._base_ties)
+                    self._segment_site[seg], base, ctx, **kw)
                 self.trie.misses += 1
         self.trie.insert(seg, cached)
         return cached
+
+    def _batch_ranks(self) -> int:
+        return 1 if self._mesh is None else self._inner._batch
 
     def _stage_sited(self, site: str, stacked: M.MaskTree) -> StagedChunk:
         n = M.stacked_len(stacked)
         # ship only the masks the suffix consumes (sites at/after the cut)
         sub = {k: stacked[k] for k in self._split.suffix_sites(site)}
         n_pad = max(n, self._pad_to or 0)
+        if self._mesh is not None:
+            n_pad += -n_pad % self._inner._cand
         if n_pad > n:
             sub = M.pad_stacked(sub, n_pad)
-        kw = host_decisions(sub, self._suffix_differ)
+        kw = host_decisions(sub, self._suffix_differ, self.fused_kernels)
+        lo, hi, write = 0, n_pad, True
+        if self._mesh is not None:
+            lo, hi, write = self._inner._shard_bounds(n_pad, "cand")
+            sub = M.slice_stacked(sub, lo, hi)
         batch = self._inner._device_batch(sub)
         cached = self._prefix_for(site)
         seg = self._split.site_segment[site]
-        with torch.no_grad():
+        ctx, group = self._sited_context()
+        with torch.no_grad(), spmd.batch_split(group, self._batch_ranks()):
             accs = self._split.suffix(
-                self._segment_site[seg], batch, cached, self.context,
-                fused=self.fused_kernels and not kw["ties"], **kw)
+                self._segment_site[seg], batch, cached, ctx, **kw)
+            if self._mesh is not None:
+                accs = self._inner._combine(accs, n_pad, lo, hi, write)
         return StagedChunk(n, accs)
 
     # ------------------------------------------------------------- protocol
@@ -885,8 +1175,10 @@ def make_evaluator(
     *,
     eval_acc: Optional[Callable[[M.MaskTree], float]] = None,
     eval_fn: Optional[EvalFn] = None,
+    mesh=None,
     pad_to: Optional[int] = None,
     context=None,
+    context_specs=None,
     prefetch: Union[int, str] = 1,
     split: Optional[SplitEval] = None,
     cost_model=None,
@@ -894,19 +1186,24 @@ def make_evaluator(
     fused_kernels: bool = True,
     device="cuda",
 ) -> CandidateEvaluator:
-    """Factory: ``backend`` in {'sequential','batched','pipelined',
-    'suffix'}; 'sharded' (several devices) is not ported yet.
+    """Factory: ``backend`` in {'sequential','batched','sharded',
+    'pipelined','suffix'}.
 
-    sequential needs ``eval_acc`` (host callable); batched/pipelined need
+    sequential needs ``eval_acc`` (host callable, built with the run's
+    route: ``make_eval_acc(fused=)``); batched/sharded/pipelined need
     ``eval_fn`` (device closure over one or N stacked mask trees); suffix
     needs ``split`` (the model's ``make_suffix_eval_fns()`` bundle) plus a
-    ``context`` carrying params AND the eval batch.  ``prefetch`` is a depth
-    or ``"auto"`` (measured-rate tuning; pipelined and suffix).
-    ``cost_model`` overrides the suffix backend's per-site fallback policy;
-    ``trie_budget_bytes`` bounds its prefix-trie residency and
-    ``fused_kernels`` gates the fused gate→conv and gate→matmul kernels
-    (both suffix-only).
-    ``device`` defaults to the card.
+    ``context`` carrying params AND the eval batch.  sharded defaults to a
+    candidate mesh over the process group (``launch.mesh``; a world of 1
+    in a plain run) when ``mesh`` is None; pipelined/suffix keep one-device
+    placement unless a mesh is passed.  ``context_specs`` (see
+    :func:`context_batch_specs`) splits the context's eval batch over the
+    mesh's ``"batch"`` axis.  ``prefetch`` is a depth or ``"auto"``
+    (measured-rate tuning; pipelined and suffix).  ``cost_model`` overrides
+    the suffix backend's per-site fallback policy and ``trie_budget_bytes``
+    bounds its prefix-trie residency.  ``fused_kernels`` is the run's gate
+    route, for every backend but the sequential one, whose ``eval_acc``
+    carries it.  ``device`` defaults to the card.
     """
     if backend not in ("pipelined", "suffix") and prefetch == "auto":
         raise ValueError(
@@ -924,22 +1221,26 @@ def make_evaluator(
         return SuffixEvaluator(split, pad_to=pad_to, context=context,
                                prefetch=prefetch, cost_model=cost_model,
                                trie_budget_bytes=trie_budget_bytes,
-                               fused_kernels=fused_kernels, device=device)
-    if backend == "sharded":
-        raise NotImplementedError(
-            "the 'sharded' backend lays the candidate axis across several "
-            "devices; it arrives with the multi-device part of the port "
-            "(ShardedEvaluator, context_batch_specs, a mesh-backed "
-            "PipelinedEvaluator)")
-    if backend in ("batched", "pipelined"):
+                               fused_kernels=fused_kernels, mesh=mesh,
+                               context_specs=context_specs, device=device)
+    if backend in ("batched", "sharded", "pipelined"):
         if eval_fn is None:
             raise ValueError(f"{backend} backend needs a device eval_fn")
     if backend == "batched":
         return BatchedEvaluator(eval_fn, pad_to=pad_to, context=context,
-                                device=device)
+                                fused_kernels=fused_kernels, device=device)
+    if backend == "sharded":
+        if mesh is None:
+            from repro_torch.launch import mesh as mesh_lib
+            mesh = mesh_lib.make_candidate_mesh(device=device)
+        return ShardedEvaluator(eval_fn, mesh, pad_to=pad_to,
+                                context=context, context_specs=context_specs,
+                                fused_kernels=fused_kernels, device=device)
     if backend == "pipelined":
         return PipelinedEvaluator(eval_fn, pad_to=pad_to, context=context,
-                                  prefetch=prefetch, device=device)
+                                  prefetch=prefetch, mesh=mesh,
+                                  context_specs=context_specs,
+                                  fused_kernels=fused_kernels, device=device)
     raise ValueError(f"unknown evaluator backend {backend!r}; expected "
                      "'sequential' | 'batched' | 'sharded' | 'pipelined' | "
                      "'suffix'")

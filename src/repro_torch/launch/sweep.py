@@ -72,24 +72,31 @@ from repro_torch.training.train import deterministic
 
 def make_bcd_evaluator(engine_name: str, model, eval_b, holder, *,
                        chunk_size: int, rt: int, prefetch=2,
-                       fused_kernels: bool = True, device="cuda"):
+                       fused_kernels: bool = True, device="cuda",
+                       mesh=None):
     """Build the BCD candidate engine for any model family.
 
     Model-agnostic: works for every model exposing the shared eval-closure
-    contract (``make_param_eval_fn`` / ``make_suffix_eval_fns`` /
-    ``make_eval_acc``).  Params are evaluator *context* because finetuning
-    rewrites them between outer steps; ``holder`` is the live
-    ``{"params": ...}`` box the caller mutates (its params are moved to
-    ``device`` in place here, as is a copy of the eval batch).
+    contract (``make_param_eval_fn`` / ``make_joint_eval_fn`` /
+    ``make_suffix_eval_fns`` / ``make_eval_acc``).  Params are evaluator
+    *context* because finetuning rewrites them between outer steps;
+    ``holder`` is the live ``{"params": ...}`` box the caller mutates (its
+    params are moved to ``device`` in place here, as is a copy of the eval
+    batch).
 
     Returns ``(evaluator, eval_acc, set_ctx)``: call ``set_ctx(params)``
     after every finetune — engines differ in context shape (the suffix
     engine carries the eval batch alongside params), so callers never
-    touch ``set_context`` directly.  ``fused_kernels=False`` keeps the
-    activation gate un-fused on the suffix backend; pass
+    touch ``set_context`` directly.  ``fused_kernels`` is the run's one
+    gate route, for every engine and for ``eval_acc`` (the sequential
+    engine and the base accuracy of every step); pass
     ``fused_kernels="share" not in moves`` when the move set can produce
     share ties (chunks that carry ties run unfused in any case — see
-    ``linearize._apply_share_ties``).  ``device`` defaults to the card.
+    ``linearize._apply_share_ties``).  ``mesh`` (``launch.mesh``): the
+    sharded engine's mesh (default: a candidate mesh over the process
+    group), or a mesh for the pipelined and suffix engines; a mesh with a
+    ``"batch"`` axis splits the eval batch over it.  ``device`` defaults to
+    the card.
     """
     eval_b = to_device(dict(eval_b), device)
     holder["params"] = to_device(holder["params"], device)
@@ -99,23 +106,36 @@ def make_bcd_evaluator(engine_name: str, model, eval_b, holder, *,
         ties = linearize.has_share_ties(m)            # host decision
         with torch.no_grad():
             return float(eval_fn_p(M.as_device(m, device), holder["params"],
-                                   ties=ties))
+                                   ties=ties,
+                                   fused=fused_kernels and not ties))
     if engine_name == "sequential":
         return engine.make_evaluator("sequential", eval_acc=eval_acc), \
             eval_acc, lambda p: None
     # don't let ragged-chunk padding exceed RT
     pad = min(chunk_size, rt)
-    if engine_name == "suffix":
+    if engine_name == "sharded" and mesh is None:
+        from repro_torch.launch import mesh as mesh_lib
+        mesh = mesh_lib.make_candidate_mesh(device=device)
+    joint = engine_name == "suffix" or (
+        mesh is not None and "batch" in mesh.mesh_dim_names)
+    if joint:
+        # the eval batch rides in the context, split over "batch" on a mesh
+        ctx = {"params": holder["params"], "batch": eval_b}
+        specs = engine.context_batch_specs(ctx) \
+            if mesh is not None and "batch" in mesh.mesh_dim_names else None
+        kw = dict(split=model.make_suffix_eval_fns()) \
+            if engine_name == "suffix" else \
+            dict(eval_fn=model.make_joint_eval_fn())
         evaluator = engine.make_evaluator(
-            "suffix", split=model.make_suffix_eval_fns(),
-            context={"params": holder["params"], "batch": eval_b},
+            engine_name, context=ctx, context_specs=specs, mesh=mesh,
             pad_to=pad, prefetch=prefetch, fused_kernels=fused_kernels,
-            device=device)
+            device=device, **kw)
         return evaluator, eval_acc, lambda p: evaluator.set_context(
             {"params": p, "batch": eval_b})
     evaluator = engine.make_evaluator(
         engine_name, eval_fn=eval_fn_p, pad_to=pad,
-        context=holder["params"], prefetch=prefetch, device=device)
+        context=holder["params"], prefetch=prefetch, mesh=mesh,
+        fused_kernels=fused_kernels, device=device)
     return evaluator, eval_acc, evaluator.set_context
 
 

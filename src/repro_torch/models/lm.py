@@ -53,7 +53,7 @@ import torch
 import repro_torch
 from repro_torch.configs.base import ArchConfig, Block
 from repro_torch.convert import to_device
-from repro_torch.core import linearize, masks as M
+from repro_torch.core import linearize, masks as M, spmd
 from . import layers, moe as moe_lib, ssm
 
 
@@ -110,9 +110,13 @@ def token_accuracy(logits, labels):
     """Next-token accuracy in percent: a 0-d tensor for (B, S, V) logits, an
     (N,) tensor for stacked (N, B, S, V) ones.  The hit count is divided by
     the position count once, as the reference's mean is, so the value is
-    the same float32 number.  Stays on the device."""
+    the same float32 number.  Stays on the device.  Under a batch split
+    (``core.spmd``) the hit count is summed over the ranks and divided once
+    by the global position count."""
     hit = (logits.argmax(-1) == labels).to(torch.float32)
-    return hit.sum(dim=(-2, -1)) / float(labels.numel()) * 100.0
+    # under a batch split (core.spmd) the count is summed over the ranks
+    return spmd.batch_sum(hit.sum(dim=(-2, -1))) / float(
+        labels.numel() * spmd.batch_ranks()) * 100.0
 
 
 class LM:
@@ -582,32 +586,33 @@ class LM:
     # tokens[:, 1:]).
 
     def make_param_eval_fn(self, batch, device="cuda"):
-        """``(mask_tree, params, ties=True, differ=None) -> accuracy[%]`` on
-        ``device``, params as evaluator context (they change between BCD
-        steps when a run finetunes)."""
+        """``(mask_tree, params, ties=True, differ=None, fused=False) ->
+        accuracy[%]`` on ``device``, params as evaluator context (they
+        change between BCD steps when a run finetunes)."""
         tokens = to_device(batch["tokens"], device)
 
-        def eval_fn(masks, params, ties=True, differ=None):
+        def eval_fn(masks, params, ties=True, differ=None, fused=False):
             logits = self.forward(params, masks, tokens[:, :-1], ties=ties,
-                                  differ=differ)
+                                  differ=differ, fused=fused)
             return linearize.per_candidate(
                 token_accuracy(logits, tokens[:, 1:]), masks, differ)
         return eval_fn
 
     def make_eval_fn(self, params, batch, device="cuda"):
         fn = self.make_param_eval_fn(batch, device)
-        return lambda masks, ties=True, differ=None: fn(
-            masks, params, ties=ties, differ=differ)
+        return lambda masks, ties=True, differ=None, fused=False: fn(
+            masks, params, ties=ties, differ=differ, fused=fused)
 
     def make_joint_eval_fn(self):
-        """``(mask_tree, ctx, ties=True, differ=None) -> accuracy[%]`` with
-        ``ctx = {"params": ..., "batch": ...}``; ``ctx["pre"]`` (optional)
-        is the embedding, computed once per context by the evaluator."""
-        def eval_fn(masks, ctx, ties=True, differ=None):
+        """``(mask_tree, ctx, ties=True, differ=None, fused=False) ->
+        accuracy[%]`` with ``ctx = {"params": ..., "batch": ...}``;
+        ``ctx["pre"]`` (optional) is the embedding, computed once per
+        context by the evaluator."""
+        def eval_fn(masks, ctx, ties=True, differ=None, fused=False):
             tokens = ctx["batch"]["tokens"]
             logits = self.forward(ctx["params"], masks, tokens[:, :-1],
                                   pre=ctx.get("pre"), ties=ties,
-                                  differ=differ)
+                                  differ=differ, fused=fused)
             return linearize.per_candidate(
                 token_accuracy(logits, tokens[:, 1:]), masks, differ)
         return eval_fn
@@ -615,19 +620,22 @@ class LM:
     def make_suffix_eval_fns(self):
         """Split-forward closure bundle for ``engine.SuffixEvaluator`` —
         the contract of ``CNN.make_suffix_eval_fns``, with the per-repeat
-        stack cuts described by ``site_repeats``."""
+        stack cuts described by ``site_repeats``.  Every closure takes
+        ``fused=``, the run's one route (``pre``, the embedding, has no
+        gate)."""
         from repro_torch.core import engine
 
-        def prefix_fn(site, masks, ctx, ties=True):
+        def prefix_fn(site, masks, ctx, ties=True, fused=False):
             return self.forward_prefix(ctx["params"], masks,
                                        ctx["batch"]["tokens"][:, :-1], site,
-                                       ties=ties)
+                                       ties=ties, fused=fused)
 
-        def prefix_ext_fn(from_site, site, masks, cached, ctx, ties=True):
+        def prefix_ext_fn(from_site, site, masks, cached, ctx, ties=True,
+                          fused=False):
             return self.forward_prefix(ctx["params"], masks,
                                        ctx["batch"]["tokens"][:, :-1], site,
                                        from_site=from_site, cached=cached,
-                                       ties=ties)
+                                       ties=ties, fused=fused)
 
         def suffix_fn(site, masks, cached, ctx, fused=False, ties=True,
                       differ=None):
@@ -638,7 +646,7 @@ class LM:
                 token_accuracy(logits, ctx["batch"]["tokens"][:, 1:]), masks,
                 differ)
 
-        def pre_fn(ctx):
+        def pre_fn(ctx, fused=False):
             return self.forward_pre(ctx["params"],
                                     ctx["batch"]["tokens"][:, :-1])
 
@@ -653,15 +661,17 @@ class LM:
             pre=pre_fn,
             site_repeats=self.site_repeats())
 
-    def make_eval_acc(self, params, batch, device="cuda"):
+    def make_eval_acc(self, params, batch, device="cuda", fused=False):
         """Host callable ``mask_tree -> float`` (one candidate); reads the
-        result back, so it synchronises once per call."""
+        result back, so it synchronises once per call.  ``fused``: the
+        run's route; a tree that carries share ties runs unfused."""
         fn = self.make_eval_fn(params, batch, device)
 
         def eval_acc(masks):
             ties = linearize.has_share_ties(masks)
             with torch.no_grad():
-                return float(fn(M.as_device(masks, device), ties=ties))
+                return float(fn(M.as_device(masks, device), ties=ties,
+                                fused=fused and not ties))
         return eval_acc
 
 

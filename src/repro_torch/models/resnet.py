@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 import repro_torch
-from repro_torch.core import linearize, masks as M
+from repro_torch.core import linearize, masks as M, spmd
 from repro_torch.convert import to_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import conv_same_nhwc
@@ -57,17 +57,22 @@ def _bn_init(c, device):
 
 def _bn(p, x, eps=1e-5):
     # (B, H, W) are dims -4..-2 with or without a leading candidate axis:
-    # statistics are per candidate
-    var, mean = torch.var_mean(x, dim=(-4, -3, -2), unbiased=False,
-                               keepdim=True)
+    # statistics are per candidate, and global over a batch split
+    # (core.spmd)
+    var, mean = spmd.batch_moments(x, (-4, -3, -2))
     return (x - mean) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
 
 
 def accuracy(logits, labels):
     """Top-1 accuracy in percent: a 0-d tensor for (B, classes) logits, an
-    (N,) tensor for stacked (N, B, classes) logits.  Stays on the device."""
+    (N,) tensor for stacked (N, B, classes) logits.  Stays on the device.
+    Under a batch split (``core.spmd``) the hit count is summed over the
+    ranks and divided once by the global batch."""
     hit = (logits.argmax(-1) == labels).to(torch.float32)
-    return hit.mean(-1) * 100.0
+    if spmd.batch_ranks() == 1:
+        return hit.mean(-1) * 100.0
+    return spmd.batch_sum(hit.sum(-1)) / float(
+        hit.shape[-1] * spmd.batch_ranks()) * 100.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -417,17 +422,17 @@ class CNN:
     # synchronise; the evaluator decides when to read.
 
     def make_param_eval_fn(self, batch, device="cuda"):
-        """``(mask_tree, params, ties=True, differ=None) -> accuracy[%]`` on
-        ``device``
+        """``(mask_tree, params, ties=True, differ=None, fused=False) ->
+        accuracy[%]`` on ``device``
         — for evaluator backends whose params change between BCD outer
         steps (finetuning): params ride as evaluator context.  Stacked
         masks give an (N,) tensor."""
         images = to_device(batch["images"], device)
         labels = to_device(batch["labels"], device)
 
-        def eval_fn(masks, params, ties=True, differ=None):
+        def eval_fn(masks, params, ties=True, differ=None, fused=False):
             logits = self.forward(params, masks, images, ties=ties,
-                                  differ=differ)
+                                  differ=differ, fused=fused)
             return linearize.per_candidate(accuracy(logits, labels), masks,
                                            differ)
         return eval_fn
@@ -436,20 +441,20 @@ class CNN:
         """``mask_tree -> accuracy[%]`` closure over a fixed
         (params, batch)."""
         fn = self.make_param_eval_fn(batch, device)
-        return lambda masks, ties=True, differ=None: fn(
-            masks, params, ties=ties, differ=differ)
+        return lambda masks, ties=True, differ=None, fused=False: fn(
+            masks, params, ties=ties, differ=differ, fused=fused)
 
     def make_joint_eval_fn(self):
-        """``(mask_tree, ctx, ties=True, differ=None) -> accuracy[%]`` with
-        ``ctx = {"params": ..., "batch": ...}`` — params AND the eval batch
-        ride as evaluator context.  ``ctx["pre"]`` (optional) is the
-        mask-independent stem fold, computed once per context by the
-        evaluator (SplitEval.pre)."""
-        def eval_fn(masks, ctx, ties=True, differ=None):
+        """``(mask_tree, ctx, ties=True, differ=None, fused=False) ->
+        accuracy[%]`` with ``ctx = {"params": ..., "batch": ...}`` — params
+        AND the eval batch ride as evaluator context.  ``ctx["pre"]``
+        (optional) is the mask-independent stem fold, computed once per
+        context by the evaluator (SplitEval.pre)."""
+        def eval_fn(masks, ctx, ties=True, differ=None, fused=False):
             batch = ctx["batch"]
             logits = self.forward(ctx["params"], masks, batch["images"],
                                   pre=ctx.get("pre"), ties=ties,
-                                  differ=differ)
+                                  differ=differ, fused=fused)
             return linearize.per_candidate(
                 accuracy(logits, batch["labels"]), masks, differ)
         return eval_fn
@@ -462,20 +467,23 @@ class CNN:
         acc[%]`` takes the stacked suffix-site masks of a chunk —
         per-candidate work shrinks to the layers at/after the mutated site.
         ``ctx = {"params", "batch"}`` rides as evaluator context exactly
-        like :meth:`make_joint_eval_fn`.
+        like :meth:`make_joint_eval_fn`.  Every closure takes ``fused=``,
+        the run's one route; ``pre`` has no gate, and takes it to keep the
+        contract uniform.
         """
         from repro_torch.core import engine
 
-        def prefix_fn(site, masks, ctx, ties=True):
+        def prefix_fn(site, masks, ctx, ties=True, fused=False):
             return self.forward_prefix(ctx["params"], masks,
                                        ctx["batch"]["images"], site,
-                                       ties=ties)
+                                       ties=ties, fused=fused)
 
-        def prefix_ext_fn(from_site, site, masks, cached, ctx, ties=True):
+        def prefix_ext_fn(from_site, site, masks, cached, ctx, ties=True,
+                          fused=False):
             return self.forward_prefix(ctx["params"], masks,
                                        ctx["batch"]["images"], site,
                                        from_site=from_site, cached=cached,
-                                       ties=ties)
+                                       ties=ties, fused=fused)
 
         def suffix_fn(site, masks, cached, ctx, fused=False, ties=True,
                       differ=None):
@@ -485,7 +493,7 @@ class CNN:
             return linearize.per_candidate(
                 accuracy(logits, ctx["batch"]["labels"]), masks, differ)
 
-        def pre_fn(ctx):
+        def pre_fn(ctx, fused=False):
             return self.forward_pre(ctx["params"], ctx["batch"]["images"])
 
         return engine.SplitEval(
@@ -498,14 +506,16 @@ class CNN:
             prefix_ext=prefix_ext_fn,
             pre=pre_fn)
 
-    def make_eval_acc(self, params, batch, device="cuda"):
+    def make_eval_acc(self, params, batch, device="cuda", fused=False):
         """Host callable ``mask_tree -> float`` (single-candidate path) —
         what ``run_bcd``'s eval_acc argument expects.  Reads the result
-        back, so it synchronises once per call."""
+        back, so it synchronises once per call.  ``fused``: the run's
+        route; a tree that carries share ties runs unfused."""
         fn = self.make_eval_fn(params, batch, device)
 
         def eval_acc(masks):
             ties = linearize.has_share_ties(masks)
-            return float(fn(M.as_device(masks, device), ties=ties))
+            with torch.no_grad():
+                return float(fn(M.as_device(masks, device), ties=ties,
+                                fused=fused and not ties))
         return eval_acc
-

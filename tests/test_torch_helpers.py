@@ -102,6 +102,62 @@ def random_masks(sites, seed, density=0.6):
             for k, s in sites.items()}
 
 
+def _rank_main(fn, rank, world, store_path, args, queue):
+    """One spawned rank: a ``FileStore`` process group on the CPU, then
+    ``fn(rank, world, *args)``; its result or its error goes on
+    ``queue``."""
+    import traceback
+    import torch
+    torch.set_num_threads(1)
+    try:
+        import torch.distributed as dist
+        from repro_torch.launch import mesh
+        mesh.init_process_group("cpu", store=dist.FileStore(store_path,
+                                                            world),
+                                rank=rank, world=world, timeout_s=120)
+        try:
+            queue.put((rank, "ok", fn(rank, world, *args)))
+        finally:
+            mesh.shutdown()
+    except BaseException:
+        queue.put((rank, "error", traceback.format_exc()))
+
+
+def run_ranks(fn, world, tmp_path, *args, timeout=120):
+    """``fn(rank, world, *args)`` on ``world`` spawned ranks of one
+    ``gloo`` process group on the CPU (a ``FileStore`` under ``tmp_path``,
+    no port); returns the ranks' results in rank order.  ``fn`` lives at a
+    test module's top level and returns something picklable.  A rank that
+    fails or does not answer within ``timeout`` seconds fails the test,
+    and every rank is ended."""
+    import queue as queue_lib
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    store = os.path.join(str(tmp_path), "store")
+    procs = [ctx.Process(target=_rank_main,
+                         args=(fn, r, world, store, args, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    out = {}
+    try:
+        for _ in procs:
+            try:
+                rank, status, value = results.get(timeout=timeout)
+            except queue_lib.Empty:
+                raise AssertionError(f"a rank gave no answer in {timeout} s")
+            assert status == "ok", f"rank {rank}:\n{value}"
+            out[rank] = value
+    finally:
+        for p in procs:
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [out[r] for r in range(world)]
+
+
 # ------------------------------------------------------------ import hygiene
 
 
@@ -170,9 +226,12 @@ def test_package_init_imports_nothing_eagerly():
 
 
 def test_sharded_backend_says_it_is_not_ported_yet():
+    """The sharded backend is ported now (``tests/test_torch_sharded.py``
+    runs it): the factory checks its arguments before it touches a process
+    group, and still refuses an unknown backend."""
     from repro_torch.core import engine
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        engine.make_evaluator("sharded", eval_fn=lambda m: None)
+    with pytest.raises(ValueError, match="needs a device eval_fn"):
+        engine.make_evaluator("sharded")
     with pytest.raises(ValueError, match="unknown evaluator backend"):
         engine.make_evaluator("nope")
 

@@ -442,8 +442,9 @@ def test_params_from_reference_carries_lists_and_bfloat16():
 
 def test_unported_parts_raise_and_name_the_queue():
     """Every architecture builds (the MoE and hybrid blocks came with
-    Queue A9); what still raises is the multi-device part (Queue A11): the
-    sharded candidate engine and sharded serving."""
+    Queue A9); what still raises is the rest of the multi-device part
+    (Queue A11): sharded serving.  The sharded candidate engine is ported
+    (``tests/test_torch_sharded.py``): its factory checks its arguments."""
     from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.configs.base import Block
     from repro_torch.core import engine
@@ -451,8 +452,8 @@ def test_unported_parts_raise_and_name_the_queue():
     from repro_torch.models.lm import LM
     for arch in ARCH_IDS:
         assert LM(get_config(arch).reduced()).relu_count() > 0
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        engine.make_evaluator("sharded", eval_fn=lambda m: None)
+    with pytest.raises(ValueError, match="needs a device eval_fn"):
+        engine.make_evaluator("sharded")
     m = LM(get_config("stablelm_1p6b").reduced())
     params = m.init(torch.Generator().manual_seed(0), "cpu")
     store = serve_loop.threshold_mask_sets(m, [1.0], device="cpu")

@@ -345,12 +345,14 @@ def test_example_head_to_head_on_cpu_ends_budget_exact(capsys):
 
 
 def test_example_refuses_what_is_not_ported(capsys):
-    """The sweep mode is ported (``tests/test_torch_sweep.py``); what is
-    still JAX-only — the ``sharded`` engine, ``--compile-cache`` — sweep
-    flags without ``--sweep``, and ``--drc``, which the reference's example
-    does not have either, are refused by the parser (status 2)."""
+    """The sweep mode is ported (``tests/test_torch_sweep.py``), and so is
+    the ``sharded`` engine (``tests/test_torch_sharded.py``); what is still
+    JAX-only — ``--compile-cache`` — sweep flags without ``--sweep``, and
+    ``--drc``, which the reference's example does not have either, are
+    refused by the parser (status 2)."""
     ex = _load_example()
-    for argv in (["--engine", "sharded"], ["--compile-cache", "x"],
+    assert ex.parse_args(["--engine", "sharded"]).engine == "sharded"
+    for argv in (["--compile-cache", "x"],
                  ["--overlap"], ["--drc", "4"], ["--sweep", "0.5"],
                  ["--prefetch", "auto"]):
         with pytest.raises(SystemExit) as e:
