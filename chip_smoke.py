@@ -113,7 +113,24 @@ of 4; every rank must select the blocks of a one-process batched run,
 by the reference's standard, and launch kernels 1, 2, 5 and 6; then
 ``make_evaluator("sharded")`` in this process at a world of 1, and
 ``training.pp.gpipe_forward`` on the card with stages through the gate,
-against the stages applied in turn.
+against the stages applied in turn.  Then sharded serving and training
+(``sharded_serve`` and ``sharded_train`` lines, ``--only-sharded-serve`` /
+``--only-sharded-train`` alone), on one spawn of 4 ``gloo`` ranks sharing
+the card, the models tensor-parallel over ``"model"`` and data-parallel
+(ZeRO-3 in training) over ``"data"``: StableLM-2-1.6B at full width and
+all 24 layers, float32, through ``ServeLoop(mesh=)`` on ``(1, 4)`` and
+``(2, 2)``, and RWKV-6 3B at full width on 8 of 32 repeats on ``(1, 4)``,
+each rank's decisions and tokens against the one-process loop's (run by
+this process meanwhile), its served tokens against the sharded uncached
+argmax, its logits within 1e-3 of the sharded and of the one-process
+uncached forward, each decode tick timed with its collectives; then
+StableLM-2-1.6B in bfloat16, 2 of 24 layers: the first step's loss and
+gradients on ``(2, 2)`` against one process's by the bfloat16 rule, a
+float32 step against one process's within 1e-4, ``launch.train.run
+--mesh 2,2`` under the supervisor with a failure against the
+uninterrupted run to the bit, and its checkpoint restored onto ``(4, 1)``
+and onto this process to the bit.  A rank that exits non-zero fails the
+run; each phase fails on its own gates.
 
 Every phase line carries its ``seconds``; a ``disk_writes`` line sums the
 bytes of the checkpoints this process wrote (the machine allows 45 GiB of
@@ -372,6 +389,12 @@ PATH_KERNELS = {
     # the batched engine (kernel 2)
     "lm_train": ("masked_act_2d", "masked_act_2d_bwd",
                  "masked_act_2d_batched"),
+    # sharded serving (every rank of every mesh; StableLM-2-1.6B's FFN gate
+    # and RWKV-6's channel-mix gate at their F / model shards, RWKV-6's
+    # scan on its H / model heads) and sharded training (the gate and its
+    # backward on the F shard of the bfloat16 step)
+    "sharded_serve": ("masked_act_2d", "rwkv6_scan"),
+    "sharded_train": ("masked_act_2d", "masked_act_2d_bwd"),
 }
 # kernels with no TPU counterpart
 PORT_ONLY = {"masked_act_2d_bwd": "the gradient of kernel 1 (the reference "
@@ -400,6 +423,7 @@ PATH_ROUTES = {
     "family_sweep": ("rwkv6_scan:tf32x3", "rwkv6_scan_bwd:tf32x3",
                      "masked_act_matmul_2d_batched:fma"),
     "family_sweep_bf16": ("rwkv6_scan:tf32x3", "rwkv6_scan_bwd:tf32x3"),
+    "sharded_serve": ("rwkv6_scan:tf32x3",),
 }
 # (rows, K, N_out) of the LM paths' fused products: every bfloat16 case at
 # one of these must take route A (StableLM-2-1.6B's eval batch; DeepSeek's
@@ -510,8 +534,10 @@ SERVE_BF16_GENERATE = ((RWKV_SERVE_BATCH, RWKV_SERVE_PROMPT, RWKV_SERVE_GEN),
 # every stacked leaf is drawn with its repeat axis) routes 2 (token, k)
 # pairs of its first MoE layer otherwise cached and uncached in bfloat16
 # (positions 0 and 2; one NVIDIA H100 80GB HBM3), which ``route_gate``
-# refuses
-SERVE_BF16_LAYERS = {"deepseek_moe_16b": 0}
+# refuses.  StableLM-2-1.6B serves 12 of its 24 layers in bfloat16 (all 24
+# before, 20.7 s of the phase on one H100; the float32 ``serve`` line and
+# ``sharded_serve`` keep all 24): the script's time
+SERVE_BF16_LAYERS = {"deepseek_moe_16b": 0, "stablelm_1p6b": 12}
 SERVE_BF16_TOKENS = 0.95
 SERVE_BF16_RATIO, SERVE_BF16_ABS = 2.0, 1e-3
 # the serve launcher as a user runs it on the card (no --reduced, no
@@ -1468,6 +1494,23 @@ def run_kernel_cases():
                                poly=False, shared_x=False, primary=False,
                                seed=300 + i, timed=True))
 
+    # the sharded phases' gates at their shard shapes (d_ff / model
+    # columns): StableLM-2-1.6B's silu at a decode tick of every slot and a
+    # B=1 prefill of the longest bucket on (1, 4), and a tick of a data
+    # rank's 2 slots on (2, 2); RWKV-6 3B's sqrelu at a tick and at the
+    # longest exact-length prefill on (1, 4); the bfloat16 train step's
+    # silu on (2, 2) (a data rank's 4 x 128 tokens)
+    for i, (dt, kind, rows, cols) in enumerate((
+            (f32, "silu", SERVE_SLOTS, 5632 // 4),
+            (f32, "silu", SERVE_PREFILL_LENS[-1], 5632 // 4),
+            (f32, "silu", SERVE_SLOTS // 2, 5632 // 2),
+            (f32, "sqrelu", SERVE_SLOTS, 8960 // 4),
+            (f32, "sqrelu", max(RWKV_LOOP_PROMPTS), 8960 // 4),
+            (bf16, "silu", 4 * 128, 5632 // 2))):
+        cases.append(gate_case(g2, dt, kind, n=1, rows=rows, cols=cols,
+                               poly=False, shared_x=False, primary=False,
+                               seed=340 + i, timed=True))
+
     # ---- masked_act_2d_bwd: every ResNet18 site shape of the train step
     # at batch 32 (the stem and stage 0, then stages 1-3), relu with the
     # identity, and relu with poly2 and its gradient; ragged small shapes
@@ -1520,6 +1563,12 @@ def run_kernel_cases():
             ("silu", train_moe_rows, 64 * 1408))):
         cases.append(gate_bwd_case(kind, rows, cols, False, primary=False,
                                    seed=320 + i, timed=True, dtype=bf16))
+
+    # ... and the sharded train step's F shard: StableLM-2-1.6B's silu on
+    # (2, 2), a data rank's 4 x 128 tokens of 5632 / 2 columns
+    cases.append(gate_bwd_case("silu", 4 * 128, 5632 // 2, False,
+                               primary=False, seed=330, timed=True,
+                               dtype=bf16))
 
     # ---- masked_act_2d_batched: a chunk of 8 candidates
     g2b = "masked_act_2d_batched"
@@ -1696,6 +1745,13 @@ def run_kernel_cases():
     # finite there, route C is held to the float64 token loop and route S
     cases.append(scan_case(LM_BATCH * H3, T3, 64, 64, 32, H3, True,
                            primary=False, seed=137, strong=True))
+    # sharded serving on (1, 4): a rank's 40 / 4 heads of a B=1 prefill,
+    # from the cache's state, at the longest exact-length prompt and at one
+    # of 20 tokens (one chunk of 20)
+    for i, T in enumerate((max(RWKV_LOOP_PROMPTS), 20)):
+        cases.append(scan_case(H3 // 4, T, 64, 64, min(32, T), H3 // 4,
+                               False, primary=False, seed=400 + i,
+                               timed=True))
     # the serving prefill of one request: 20 tokens, not a multiple of
     # route C's 16-token chunk, from a random state per row (the cache's),
     # with the (H, K) table
@@ -1969,18 +2025,14 @@ def recorded_bcd(model, evaluator, eval_acc, cfg):
                 trials=trials, wall_s=time.perf_counter() - t0)
 
 
-def run_sharded_rank(rank: int, world: int, store: str, out: str) -> None:
-    """One rank of ``sharded_bcd`` (a child process): ResNet18's BCD on
-    the sharded engine over each mesh of ``SHARDED_RUNS``, its layouts,
-    readings and launches written to ``out`` as JSON."""
+def run_sharded_bcd_rank(rank, world, root, device="cuda", small=False):
+    """One rank of ``sharded_bcd``: ResNet18's BCD on the sharded engine
+    over each mesh of ``SHARDED_RUNS``, its layouts, readings and launches
+    (each run's counts set to 0 just before it)."""
     import torch.distributed as dist
     from repro_torch.kernels import build
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch.sweep import make_bcd_evaluator
-    build.load()
-    mesh_lib.init_process_group(
-        "cuda", store=dist.FileStore(store, world), rank=rank, world=world,
-        timeout_s=SHARDED_RANK_TIMEOUT_S)
     result = dict(rank=rank, backend=dist.get_backend(), runs={})
     model, params, batch = make_model_and_batch(SEED)
     for label, shape, chunk in SHARDED_RUNS:
@@ -2003,10 +2055,10 @@ def run_sharded_rank(rank: int, world: int, store: str, out: str) -> None:
                    chunk_layouts=[list(x) for x in layouts],
                    launches={k: v for k, v in counts().items() if v})
         result["runs"][label] = run
-    dist.barrier()
-    mesh_lib.shutdown()
-    with open(out, "w") as f:
-        json.dump(result, f)
+    del model, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
 
 
 def same_result(got: dict, want: dict) -> bool:
@@ -2083,17 +2135,12 @@ def run_world_of_one(model, params, batch):
                 accs=[float(a) for a in accs["sharded"]])
 
 
-def run_sharded_path(by_path):
-    """The ``sharded_bcd`` phase: a one-process batched run, then
-    ``SHARDED_WORLD`` ranks (child processes of this script, a ``gloo``
-    group through a ``FileStore``, sharing the card), each under a
-    timeout; every rank's selections against the batched run's, by the
-    reference's standard, its trials read apart to the bit, its chunks'
-    layouts and its launches; then the world of 1 and ``gpipe_forward``.
-    Any rank that fails or hangs fails the script; nothing falls back."""
-    import shutil
+def sharded_bcd_want():
+    """This process's side of ``sharded_bcd``, done before the ranks start
+    their timed work: ResNet18's BCD on the batched engine for each chunk
+    size of ``SHARDED_RUNS``, the runs the ranks are held to."""
     from repro_torch.launch.sweep import make_bcd_evaluator
-    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
     model, params, batch = make_model_and_batch(SEED)
     want = {}
     for chunk in sorted({c for _, _, c in SHARDED_RUNS}):
@@ -2102,46 +2149,20 @@ def run_sharded_path(by_path):
             rt=16, prefetch=0, fused_kernels=True)
         want[chunk] = recorded_bcd(model, ev, eval_acc,
                                    sharded_bcd_config(model, chunk))
-    build_root = os.path.join(HERE, "build", f"sharded_{os.getpid()}")
-    shutil.rmtree(build_root, ignore_errors=True)
-    os.makedirs(build_root)
-    store = os.path.join(build_root, "store")
-    outs = [os.path.join(build_root, f"rank{r}.json")
-            for r in range(SHARDED_WORLD)]
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--sharded-rank", str(r),
-         "--sharded-world", str(SHARDED_WORLD), "--sharded-store", store,
-         "--sharded-out", outs[r]],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(SHARDED_WORLD)]
-    logs, bad = {}, []
-    try:
-        for r, p in enumerate(procs):
-            left = SHARDED_RANK_TIMEOUT_S - (time.perf_counter() - t0)
-            try:
-                logs[r], _ = p.communicate(timeout=max(left, 1.0))
-            except subprocess.TimeoutExpired:
-                bad.append(f"rank {r} ran past {SHARDED_RANK_TIMEOUT_S} s")
-                break
-            if p.returncode != 0:
-                bad.append(f"rank {r} exited {p.returncode}")
-                break
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.communicate()
-    if bad:
-        for r, text in logs.items():
-            print(f"== sharded rank {r}\n{text[-3000:]}", file=sys.stderr)
-        fail(f"sharded_bcd: {'; '.join(bad)}")
-    ranks_seconds = time.perf_counter() - t0
-    results = []
-    for out in outs:
-        with open(out) as f:
-            results.append(json.load(f))
-    shutil.rmtree(build_root, ignore_errors=True)
+    return dict(model=model, params=params, batch=batch, want=want,
+                seconds=time.perf_counter() - t0)
+
+
+def judge_sharded_bcd(results, ctx, by_path):
+    """Gates of ``sharded_bcd``: every rank's selections against the
+    batched run's (``ctx``, :func:`sharded_bcd_want`), by the reference's
+    standard, its trials read apart to the bit, its chunks' layouts (both
+    the joint and the candidate-only one seen) and its launches; then the
+    world of 1 and ``gpipe_forward`` in this process.  Nothing falls
+    back."""
+    model, params, batch, want = (ctx[k] for k in ("model", "params",
+                                                   "batch", "want"))
+    t_phase = time.perf_counter()
     runs, total = {}, {k: 0 for k in counts()}
     for label, shape, chunk in SHARDED_RUNS:
         ref = want[chunk]
@@ -2188,11 +2209,835 @@ def run_sharded_path(by_path):
     by_path["sharded_bcd"] = total
     del model, params
     torch.cuda.empty_cache()
+    ranks_seconds = max(r["rank_s"] for r in results)
     return dict(model="resnet18", batch=128, relus=557056, drc=100, rt=16,
                 steps=BCD_STEPS, adt=-100.0, world=SHARDED_WORLD,
                 backend=results[0]["backend"], ranks_seconds=ranks_seconds,
                 runs=runs, world_of_one=one, gpipe=gpipe,
-                seconds=time.perf_counter() - t_phase)
+                batched_s=ctx["seconds"],
+                seconds=ctx["seconds"] + ranks_seconds +
+                time.perf_counter() - t_phase)
+
+
+# ---------------------------------------------- sharded serving and training
+#
+# Two phases on 4 ranks of one ``gloo`` group sharing the card, each rank a
+# child process of this script (``--sharded-phase serve,train``), the same
+# spawn that runs ``sharded_bcd`` first: the models tensor-parallel over
+# "model" and data-parallel (ZeRO-3 in training) over "data"
+# (``models.lm.LM`` on a mesh).  4 ranks share one card, so these are
+# correctness runs, not a speed-up.  The ranks start their work once this
+# process has done its own side of every phase (the batched BCD runs, the
+# one-process loops and forwards, the one-process first step), so that no
+# rank's timing shares the card with it; only the one-process restore of
+# the final checkpoint overlaps the ranks' last two parts (the
+# uninterrupted run and the (4, 1) restore).
+
+# serving: StableLM-2-1.6B at full width and all 24 layers, float32, a
+# ``ServeLoop`` of the ``serve`` line's two budgets, 4 slots of 1024 tokens,
+# 16 requests of 4-100 tokens bucketed to 16, 4 new tokens each (the
+# ``serve`` line's 16 cut to 4 for the script's time: a tick costs 0.2-1 s
+# with 51 ``gloo`` reductions of 2-6 ms each across 4 processes), on each
+# mesh; RWKV-6 3B at full width on its LM path's 8 of 32 repeats, an
+# exact-length loop of the ``serve`` line's prompts, on (1, 4).  Each
+# decode tick of the drive is timed (synchronised around it) with the
+# collectives it makes.
+SHARDED_SERVE_MESHES = ((1, 4), (2, 2))
+SHARDED_SERVE_MAX_LEN = 1024
+SHARDED_SERVE_MAX_NEW = 4
+SHARDED_RWKV_MESH = (1, 4)
+# training: StableLM-2-1.6B at full width in its own bfloat16, 2 of 24
+# layers (the checkpoints: 1.84 GB each; at 4 layers, 2.46 GB each, the
+# phase took 126 s on one H100, over its budget), the launcher on (2, 2)
+# for 4 steps of 8 x 128 tokens under the supervisor, a failure injected at
+# step 2 (restart from the step-2 checkpoint); the uninterrupted run on
+# the same mesh; then the final checkpoint restored onto (4, 1) and onto
+# one process
+SHARDED_TRAIN_LAYERS = 2
+SHARDED_TRAIN_FLAGS = ("--arch", "stablelm_1p6b", "--steps", "4",
+                       "--global-batch", "8", "--seq", "128", "--mesh", "2,2",
+                       "--ckpt-every", "2")
+SHARDED_TRAIN_FAIL_AT = 2
+SHARDED_F32_TOL = 1e-4          # float32 (2, 2) step vs one process
+# ... an SGD step at learning rate 1 (clip 1.0): at the launcher's lr an
+# entry of a full-width leaf moves by less than 1e-4, so the leaves' gate
+# alone could not see a wrong gradient; here each leaf's update must also
+# be within 2 % of one process's (its largest entries, as
+# tests/test_torch_sharded_train.py holds the CPU's), every leaf must move,
+# and the grad norm that sets the clip must agree
+SHARDED_F32_LR = 1.0
+SHARDED_F32_UPDATE_REL = 0.02
+
+
+class WholeLogits:
+    """A model on a mesh whose ``forward`` returns whole logits on every
+    rank (the vocabulary blocks gathered), for the serve phase's checks of
+    one sequence at a time."""
+
+    def __init__(self, model):
+        self.model, self.cfg = model, model.cfg
+
+    def forward(self, params, masks, tokens, **kw):
+        from repro_torch.training import serve as serve_lib
+        return serve_lib.gather_logits(
+            self.model.forward(params, masks, tokens, **kw), self.model,
+            tokens.shape[0])
+
+
+def sharded_stablelm_cfg(small: bool):
+    from repro_torch.configs import get_config
+    cfg = get_config("stablelm_1p6b")
+    return cfg.reduced() if small else cfg
+
+
+def sharded_rwkv_cfg(small: bool):
+    from repro_torch.configs import get_config
+    cfg = get_config("rwkv6_3b")
+    return cfg.reduced() if small else dataclasses.replace(
+        cfg, n_layers=LM_PATHS[1].layers)
+
+
+def sharded_serve_loop(model, params, store, kind, mesh, device):
+    """The serve phase's loop of ``kind`` ("stablelm" or "rwkv") on
+    ``mesh`` (None: one process), driven; returns (loop, requests)."""
+    from repro_torch.launch import serve_loop
+    classes = [serve_loop.SLOClass(
+        f"c{i}", n, SHARDED_SERVE_MAX_NEW if kind == "stablelm" else 4)
+        for i, n in enumerate(store.names)]
+    if kind == "stablelm":
+        loop = serve_loop.ServeLoop(
+            model, params, store, classes, slots=SERVE_SLOTS,
+            max_len=SHARDED_SERVE_MAX_LEN, prompt_bucket=16, mesh=mesh,
+            device=device, keep_logits=True)
+        prompts = serve_prompts(SEED, SERVE_REQUESTS, 4, 100,
+                                model.cfg.vocab)
+    else:
+        loop = serve_loop.ServeLoop(
+            model, params, store, classes, slots=SERVE_SLOTS,
+            max_len=RWKV_LOOP_MAX_LEN, prompt_bucket=None, mesh=mesh,
+            device=device, keep_logits=True)
+        prompts = [np.random.default_rng(SEED + 2 + i).integers(
+            0, model.cfg.vocab, n) for i, n in enumerate(RWKV_LOOP_PROMPTS)]
+    ticks = timed_ticks(loop, device) if mesh is not None else None
+    reqs = drive_loop(loop, prompts, [c.name for c in classes])
+    if [r.state for r in reqs] != ["served"] * len(reqs):
+        fail(f"sharded_serve: {kind} states {[r.state for r in reqs]}")
+    return loop, reqs, ticks
+
+
+def timed_ticks(loop, device):
+    """Wrap the loop's decode step: each tick's wall-clock (synchronised
+    before and after) and ``all_reduce`` calls and bytes on this rank,
+    with the slots live at it; returns the list it fills."""
+    from repro_torch.core import spmd
+    inner, out = loop._decode, []
+
+    def decode(params, masks, tok, cache, cache_len, ties=True):
+        sync(device)
+        before = spmd.collective_counts()
+        t0 = time.perf_counter()
+        got = inner(params, masks, tok, cache, cache_len, ties=ties)
+        sync(device)
+        after = spmd.collective_counts()
+        out.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                        live=int(sum(ln.live.sum()
+                                     for ln in loop.lanes.values()
+                                     if ln.cache is cache)),
+                        calls=after["calls"] - before["calls"],
+                        bytes=after["bytes"] - before["bytes"]))
+        return got
+    loop._decode = decode
+    return out
+
+
+def tick_summary(ticks, slots):
+    """The drive's decode ticks with every slot live: wall-clock and the
+    collectives a tick makes (the same each tick)."""
+    full = [t for t in ticks if t["live"] == slots] or ticks
+    ms = [t["ms"] for t in full]
+    return dict(slots_live=slots if full is not ticks else None,
+                ticks=len(full), of=len(ticks), ms_mean=float(np.mean(ms)),
+                ms_median=float(np.median(ms)), ms_min=float(np.min(ms)),
+                ms_max=float(np.max(ms)),
+                all_reduce_per_tick=sorted({t["calls"] for t in full}),
+                all_reduce_bytes_per_tick=sorted({t["bytes"] for t in full}))
+
+
+def uncached_served(model, params, store, reqs, pad, device):
+    """The uncached forward's logits at every served position of every
+    request (as :func:`served_consistency` takes them), in request order:
+    one batched forward per mask set, each sequence zero-padded at its end
+    to the set's longest (a multiple of ``pad``; exact, the models are
+    causal)."""
+    rows = {}
+    with torch.no_grad():
+        for name in sorted({r.mask_set for r in reqs}):
+            mine = [r for r in reqs if r.mask_set == name]
+            seqs = [np.concatenate([r.prompt, r.tokens[:-1]]).astype(np.int64)
+                    for r in mine]
+            width = -(-max(len(s) for s in seqs) // pad) * pad
+            toks = np.zeros((len(seqs), width), np.int64)
+            for i, s in enumerate(seqs):
+                toks[i, :len(s)] = s
+            out = model.forward(params, store.select(name),
+                                torch.from_numpy(toks).to(device), ties=False)
+            for i, (r, s) in enumerate(zip(mine, seqs)):
+                rows[r.rid] = out[i, len(r.prompt) - 1:len(s)].float().cpu()
+    return torch.cat([rows[r.rid] for r in reqs])
+
+
+def served_check(model, params, store, reqs, pad, device):
+    """Every served token against the uncached forward's argmax where its
+    top-2 margin exceeds ``SERVE_MARGIN`` and every kept logit within
+    ``LM_LOGIT_TOL`` of that forward (:func:`judge_served`), the uncached
+    forward batched (:func:`uncached_served`)."""
+    full = uncached_served(model, params, store, reqs, pad, device)
+    kept = torch.cat([torch.stack(r.logits).float().cpu() for r in reqs])
+    toks = torch.tensor([t for r in reqs for t in r.tokens])
+    worst, checked, matched, near = judge_served(kept, full, toks)
+    if matched != checked or not worst <= LM_LOGIT_TOL:
+        fail(f"sharded_serve: {checked - matched} of {checked} served "
+             f"tokens are not the uncached argmax, or cached vs uncached "
+             f"logits differ by {worst} > {LM_LOGIT_TOL}")
+    return dict(max_abs_diff_cached_vs_uncached=worst, logit_tol=LM_LOGIT_TOL,
+                margin=SERVE_MARGIN, tokens_checked=checked,
+                tokens_matched=matched, tokens_within_margin=near)
+
+
+def sharded_one_process(kind, root, device="cuda", small=False):
+    """The one-process side of a served model: its loop's decisions
+    fingerprint and tokens (JSON) and the one-process uncached forward's
+    logits at the served positions (``.npy``), for the ranks to read."""
+    from repro_torch.launch import serve_loop
+    spec = LM_PATHS[0] if kind == "stablelm" else LM_PATHS[1]
+    cfg = sharded_stablelm_cfg(small) if kind == "stablelm" \
+        else sharded_rwkv_cfg(small)
+    model, params = make_lm(SEED, spec, device, cfg=cfg)
+    store = serve_loop.threshold_mask_sets(model, SERVE_FRACS, seed=SEED,
+                                           device=device)
+    loop, reqs, _ = sharded_serve_loop(model, params, store, kind, None,
+                                       device)
+    full = uncached_served(model, params, store, reqs, spec.pad, device)
+    np.save(os.path.join(root, f"{kind}_uncached.npy"), full.numpy())
+    # the JSON last, and whole: the ranks read both once it appears
+    tmp = os.path.join(root, f"{kind}_one.tmp")
+    with open(tmp, "w") as f:
+        json.dump(dict(fingerprint=loop.stats()["decisions_sha256"],
+                       tokens=[list(map(int, r.tokens)) for r in reqs]), f)
+    os.rename(tmp, os.path.join(root, f"{kind}_one.json"))
+    del model, params, store, loop, reqs
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def sharded_serve_case(kind, shape, root, device, small):
+    """One served model on one mesh, on this rank: the loop with counts set
+    to 0 just before the drive and read just after, its decisions
+    fingerprint and tokens against the one-process loop's, every served
+    token against the sharded uncached forward's argmax and its logits
+    against that forward (:func:`served_consistency`), and against the
+    one-process uncached forward on the card within ``LM_LOGIT_TOL``."""
+    from repro_torch.core import spmd
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as mesh_lib, serve_loop
+    from repro_torch.training import serve as serve_lib
+    spec = LM_PATHS[0] if kind == "stablelm" else LM_PATHS[1]
+    cfg = sharded_stablelm_cfg(small) if kind == "stablelm" \
+        else sharded_rwkv_cfg(small)
+    mesh = mesh_lib.make_host_mesh(*shape, device=device)
+    model, full = make_lm(SEED, spec, device, cfg=cfg)
+    params = serve_lib.shard_params(full, model, mesh)
+    del full
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    store = serve_loop.threshold_mask_sets(model, SERVE_FRACS, seed=SEED,
+                                           device=device)
+    build.reset_launch_counts()
+    spmd.reset_collective_counts()
+    t0 = time.perf_counter()
+    loop, reqs, ticks = sharded_serve_loop(model, params, store, kind, mesh,
+                                           device)
+    sync(device)
+    drive_s = time.perf_counter() - t0
+    launches = counts()
+    coll = spmd.collective_counts()
+    # written by the parent before the ranks began
+    with open(os.path.join(root, f"{kind}_one.json")) as f:
+        one = json.load(f)
+    fp = loop.stats()["decisions_sha256"]
+    toks = [list(map(int, r.tokens)) for r in reqs]
+    tpm = WholeLogits(model.on_mesh(mesh))
+    check = served_check(tpm, params, store, reqs, spec.pad, device)
+    want = torch.from_numpy(np.load(os.path.join(root,
+                                                  f"{kind}_uncached.npy")))
+    kept = torch.cat([torch.stack(r.logits).float().cpu() for r in reqs])
+    vs_one = float((kept - want).abs().max()) if kept.shape == want.shape \
+        else float("inf")
+    tick = tick_summary(ticks, loop.slots)
+    return dict(
+        mesh=list(shape), model=model.cfg.name, layers=model.cfg.n_layers,
+        slots=loop.slots, max_len=loop.max_len, requests=len(reqs),
+        drive_s=drive_s, decisions_sha256=fp,
+        decisions_equal_one_process=fp == one["fingerprint"],
+        tokens_equal_one_process=toks == one["tokens"],
+        vs_one_process_uncached=dict(max_abs_diff=vs_one, tol=LM_LOGIT_TOL),
+        vs_sharded_uncached=check, decode_tick=tick,
+        all_reduce_calls_in_drive=coll["calls"],
+        launches={k: v for k, v in launches.items() if v},
+        peak_bytes=torch.cuda.max_memory_allocated()
+        if torch.device(device).type == "cuda" else None)
+
+
+def run_sharded_serve_rank(rank, world, root, device="cuda", small=False):
+    """One rank of ``sharded_serve``: StableLM-2-1.6B on each mesh of
+    ``SHARDED_SERVE_MESHES``, RWKV-6 3B on ``SHARDED_RWKV_MESH``."""
+    out = dict(rank=rank, cases=[])
+    for shape in SHARDED_SERVE_MESHES:
+        out["cases"].append(sharded_serve_case("stablelm", shape, root,
+                                               device, small))
+    out["cases"].append(sharded_serve_case("rwkv", SHARDED_RWKV_MESH, root,
+                                           device, small))
+    return out
+
+
+def sharded_grads(model, opt, mesh, state, batch, masks):
+    """The loss and the whole-leaf gradients of one sharded step's
+    backward (what ``jit_train_step`` computes before its update, ZeRO-3
+    on), the same on every rank: ``(loss, [gradients in tree_leaves
+    order])``."""
+    from repro_torch.core import spmd
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.lm import LM
+    from repro_torch.training import optimizer as opt_lib, train
+    data, m = (mesh_lib.axis(mesh, n).size for n in ("data", "model"))
+    tpm = LM(model.cfg, mesh)
+    held = train.held_state_specs(tpm, opt, data, m)
+    if data > 1:
+        tpm.fsdp_specs = held["params"]
+    lo, hi = tpm.data_axis.span(batch["tokens"].shape[0])
+    loss_fn = train.make_loss_fn(tpm, train.TrainStepCfg(remat=True))
+    with train.deterministic():
+        loss, g = train.loss_and_grads(loss_fn, state["params"], masks,
+                                       {k: v[lo:hi] for k, v in
+                                        batch.items()})
+    specs = train._spec_leaves(held["params"])
+    g = train._sum_over_data(opt_lib.tree_leaves(g), specs, tpm.data_axis)
+    whole = mesh_lib.gather_tree(opt_lib.tree_unflatten(state["params"], g),
+                                 held["params"], mesh)
+    return float(spmd.all_reduce_sum(loss, tpm.data_axis)), \
+        [t.cpu() for t in opt_lib.tree_leaves(whole)]
+
+
+def one_process_grads(model, params, batch, masks, device):
+    """One process's loss and gradients of the same step (the card's)."""
+    from repro_torch.training import optimizer as opt_lib, train
+    loss_fn = train.make_loss_fn(model, train.TrainStepCfg(remat=True))
+    with train.deterministic():
+        loss, g = train.loss_and_grads(loss_fn, params, masks, batch)
+    return float(loss), [t.cpu() for t in opt_lib.tree_leaves(g)]
+
+
+def sharded_train_setup(root, device="cuda", small=False):
+    """What the ranks of ``sharded_train`` and this process's side of its
+    first step share: the launcher's arguments, the config cut to
+    ``SHARDED_TRAIN_LAYERS``, the model, AdamW as the launcher builds it,
+    full masks, ``batch(i)`` and ``fresh(model, opt)``."""
+    import types
+    from repro_torch.core import linearize, masks as M
+    from repro_torch.data import MarkovTokens
+    from repro_torch.launch import train as launch
+    from repro_torch.models.lm import LM
+    from repro_torch.training import optimizer as opt_lib, train
+    args = launch.parse_args(list(SHARDED_TRAIN_FLAGS) + [
+        "--ckpt-dir", os.path.join(root, "ck"), "--device", device])
+    cfg = launch.make_config(args)
+    cfg = dataclasses.replace(cfg.reduced(), dtype="bfloat16") if small \
+        else dataclasses.replace(cfg, n_layers=SHARDED_TRAIN_LAYERS)
+    model = LM(cfg)
+    mt = MarkovTokens(cfg.vocab, seed=0)
+
+    def batch(i):
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in mt.batch(args.global_batch, args.seq, i).items()}
+
+    def fresh(m, o):
+        gen = torch.Generator(device=device).manual_seed(0)
+        return train.make_state(m, o, gen, device)
+    return types.SimpleNamespace(
+        args=args, cfg=cfg, model=model,
+        opt=opt_lib.adamw(lr=args.lr, grad_clip=1.0,
+                          schedule=opt_lib.cosine(args.lr, args.steps)),
+        masks=M.as_device(linearize.init_masks(model.mask_sites()), device),
+        batch=batch, fresh=fresh)
+
+
+def sharded_first_step_one_process(root, device="cuda", small=False):
+    """This process's side of ``sharded_train``'s first step, done before
+    the ranks start their timed work: one process's loss and gradients on
+    the card, in the model's bfloat16 and in float32 from the same
+    parameters upcast, saved under ``root`` for rank 0 to hold its sharded
+    gradients to (``bf16_grad_rule``)."""
+    from repro_torch.models.lm import LM
+    from repro_torch.training import optimizer as opt_lib
+    s = sharded_train_setup(root, device, small)
+    params = s.fresh(s.model, s.opt)["params"]
+    names = opt_lib.tree_leaves(_leaf_names(params))
+    loss, g_1 = one_process_grads(s.model, params, s.batch(0), s.masks,
+                                  device)
+    m32 = LM(dataclasses.replace(s.cfg, dtype="float32"))
+    p32 = opt_lib.tree_map(lambda t: t.float(), params)
+    del params
+    _, g_32 = one_process_grads(m32, p32, s.batch(0), s.masks, device)
+    del p32
+    tmp = os.path.join(root, "first_step_one.tmp")
+    torch.save(dict(loss=loss, names=names, g_1=g_1, g_32=g_32), tmp)
+    os.rename(tmp, os.path.join(root, "first_step_one.pt"))
+    del g_1, g_32
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def run_sharded_train_rank(rank, world, root, device="cuda", small=False):
+    """One rank of ``sharded_train`` (see the constants above): the first
+    step's loss and gradients on (2, 2) against one process's (computed
+    by the parent, :func:`sharded_first_step_one_process`), a float32 SGD
+    step on (2, 2) against one process's (rank 0 computes that), the
+    launcher under the supervisor with a failure against the
+    uninterrupted run, and the final checkpoint restored onto (4, 1)."""
+    import torch.distributed as dist
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as mesh_lib, train as launch
+    from repro_torch.models.lm import LM
+    from repro_torch.training import checkpoint, ft, optimizer as opt_lib
+    from repro_torch.training import train
+    s = sharded_train_setup(root, device, small)
+    args, cfg, model, opt = s.args, s.cfg, s.model, s.opt
+    masks, batch, fresh = s.masks, s.batch, s.fresh
+    mesh = launch.make_mesh(args, device)
+    held = train.held_state_specs(model, opt, 2, 2)
+    out = dict(rank=rank, mesh=[2, 2], model=cfg.name, dtype=cfg.dtype,
+               layers=cfg.n_layers, flags=list(SHARDED_TRAIN_FLAGS))
+    laps = {}
+
+    # ---- the first step's loss and gradients against one process's
+    t0 = time.perf_counter()
+    state = train.shard_state(fresh(model, opt), model, opt, mesh)
+    loss_s, g_s = sharded_grads(model, opt, mesh, state, batch(0), masks)
+    del state
+    if rank == 0:
+        one = torch.load(os.path.join(root, "first_step_one.pt"))
+        rule, ok = bf16_grad_rule(one["names"], g_s, one["g_1"],
+                                  one["g_32"])
+        loss_rel = abs(loss_s - one["loss"]) / abs(one["loss"])
+        out["first_step"] = dict(
+            loss_sharded=loss_s, loss_one_process=one["loss"],
+            loss_rel=loss_rel, loss_tol=LM_TRAIN_BF16_LOSS_REL, grads=rule,
+            grads_ok=ok,
+            yardstick="the one-process float32 gradient on the card of the "
+                      "same parameters, upcast; the one-process bfloat16 "
+                      "gradient in the rule's place of the CPU's")
+        del one
+    del g_s
+    laps["first_step"] = time.perf_counter() - t0
+    dist.barrier()
+
+    # ---- a float32 SGD step on (2, 2) against one process's: at
+    # SHARDED_F32_LR every leaf's update is far above its rounding, so a
+    # gradient zeroed, halved, doubled or clipped by a wrong norm shows
+    t0 = time.perf_counter()
+    m32 = LM(dataclasses.replace(cfg, dtype="float32"))
+    sgd = opt_lib.sgd(lr=SHARDED_F32_LR, momentum=0.9, grad_clip=1.0)
+    tcfg = train.TrainStepCfg(remat=True)
+    state = train.shard_state(fresh(m32, sgd), m32, sgd, mesh)
+    state, met = train.jit_train_step(m32, sgd, mesh, tcfg)(state, batch(0),
+                                                           masks)
+    whole = mesh_lib.gather_tree(
+        state["params"], train.held_state_specs(m32, sgd, 2, 2)["params"],
+        mesh)
+    del state
+    if rank == 0:
+        start = fresh(m32, sgd)
+        p0 = opt_lib.tree_leaves(start["params"])   # the step replaces them
+        one, m1 = train.make_train_step(m32, sgd, tcfg)(start, batch(0),
+                                                        masks)
+        errs, rel, moved = [], [], []
+        for a, b, z in zip(opt_lib.tree_leaves(whole),
+                           opt_lib.tree_leaves(one["params"]), p0):
+            errs.append(float((a - b).abs().max()))
+            moved.append(float((b - z).abs().max()))
+            rel.append(float(((a - z) - (b - z)).abs().max()) /
+                       max(moved[-1], 1e-30))
+        names = opt_lib.tree_leaves(_leaf_names(one["params"]))
+        out["float32_step"] = dict(
+            optimizer="sgd", lr=SHARDED_F32_LR,
+            loss_sharded=float(met["loss"]),
+            loss_one_process=float(m1["loss"]),
+            grad_norm_sharded=float(met["grad_norm"]),
+            grad_norm_one_process=float(m1["grad_norm"]),
+            max_abs_leaf_diff=max(errs), tol=SHARDED_F32_TOL,
+            max_abs_update=max(moved),
+            least_leaf_max_update=min(moved),
+            least_moved_leaf=names[int(np.argmin(moved))],
+            max_update_rel_diff=max(rel),
+            update_rel_tol=SHARDED_F32_UPDATE_REL,
+            worst_update_leaf=names[int(np.argmax(rel))])
+        del one, start, p0
+    del whole
+    laps["float32_step"] = time.perf_counter() - t0
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- the launcher under the supervisor, a failure injected; counts
+    # set to 0 just before, read just after
+    import io
+    DISK.phase = "sharded_train"
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        got = launch.run(args, cfg, device, injector=ft.FailureInjector(
+            fail_at_steps=(SHARDED_TRAIN_FAIL_AT,)))
+    sync(device)
+    laps["launcher_run"] = time.perf_counter() - t0
+    out["launches"] = {k: v for k, v in counts().items() if v}
+    final = mesh_lib.gather_tree(got["result"]["state"], held, mesh)
+
+    # ---- the uninterrupted run on the same mesh (no checkpoints)
+    t0 = time.perf_counter()
+    step = train.jit_train_step(model, opt, mesh, train.TrainStepCfg(
+        remat=True, dp_axes=("data",)))
+    state = train.shard_state(fresh(model, opt), model, opt, mesh)
+    losses = []
+    for i in range(args.steps):
+        state, met = step(state, batch(i), masks)
+        losses.append(float(met["loss"]))
+    plain = mesh_lib.gather_tree(state, held, mesh)
+    del state
+    laps["uninterrupted"] = time.perf_counter() - t0
+    a, b = _state_leaves(final), _state_leaves(plain)
+    out["interrupted"] = dict(
+        restarts=got["result"]["restarts"], losses=got["losses"],
+        uninterrupted_losses=losses, step_ms=got["step_ms"],
+        losses_finite=bool(np.isfinite(got["losses"]).all()),
+        losses_equal=got["losses"] == losses,
+        state_equal_bits=len(a) == len(b) and all(
+            ka == kb and _same_bits(x, y) for (ka, x), (kb, y) in zip(a, b)))
+    del plain
+
+    # ---- the final checkpoint restored onto (4, 1)
+    t0 = time.perf_counter()
+    mesh41 = mesh_lib.make_host_mesh(4, 1, device=device)
+    held41 = train.held_state_specs(model, opt, 4, 1)
+    # no sha256 pass here: every restored leaf is held to the saved one
+    # bit for bit (the one-process restore below verifies the files)
+    restored, at = checkpoint.restore(
+        got["result"]["state"], args.ckpt_dir, device=device, verify=False,
+        shardings=mesh_lib.Shardings(mesh41, held41))
+    back = _state_leaves(mesh_lib.gather_tree(restored, held41, mesh41))
+    out["restore_4x1"] = dict(step=at, equal_bits=len(back) == len(a) and all(
+        ka == kb and _same_bits(x, y) for (ka, x), (kb, y) in zip(back, a)))
+    laps["restore_4x1"] = time.perf_counter() - t0
+    if rank == 0:
+        out["digests"] = {k: _digest(t) for k, t in a}
+        out["checkpoint_bytes"] = sum(DISK.by_phase.values())
+    out["seconds"] = laps
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() \
+        if torch.device(device).type == "cuda" else None
+    out["last_lines"] = printed.getvalue().splitlines()[-2:]
+    return out
+
+
+def _digest(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().contiguous().reshape(-1)
+                          .view(torch.uint8).numpy().tobytes()).hexdigest()
+
+
+SHARDED_PHASES = ("bcd", "serve", "train")
+# each phase's share of the spawn's time limit
+SHARDED_TIMEOUT_S = {"bcd": 180, "serve": 420, "train": 480}
+
+
+def run_rank_phase(phases, rank, world, store, out, root, device="cuda",
+                   small=False):
+    """A child rank of the sharded phases (``phases``: some of
+    ``SHARDED_PHASES``, comma-separated, run in that order): the process
+    group through ``store``, a wait until the parent has done its side of
+    every phase (``parent_ready`` under ``root``), then each phase's rank
+    function; the results written to ``out`` as JSON, by phase."""
+    import torch.distributed as dist
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as mesh_lib
+    if torch.device(device).type == "cuda":
+        build.load()
+    mesh_lib.init_process_group(
+        device, store=dist.FileStore(store, world), rank=rank, world=world,
+        timeout_s=SHARDED_RANK_TIMEOUT_S)
+    DISK.install()
+    wait_for_file(os.path.join(root, "parent_ready"), None,
+                  SHARDED_RANK_TIMEOUT_S)
+    fns = {"bcd": run_sharded_bcd_rank, "serve": run_sharded_serve_rank,
+           "train": run_sharded_train_rank}
+    result = {}
+    for phase in phases.split(","):
+        t0 = time.perf_counter()
+        result[phase] = fns[phase](rank, world, root, device, small)
+        result[phase]["rank_s"] = time.perf_counter() - t0
+    dist.barrier()
+    mesh_lib.shutdown()
+    with open(out, "w") as f:
+        json.dump(result, f)
+
+
+def wait_for_file(path, procs, timeout):
+    """Block until ``path`` exists; fail if a rank of ``procs`` (None in
+    a rank) ended badly or ``timeout`` seconds pass first."""
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if procs and any(p.poll() not in (None, 0) for p in procs):
+            return False
+        if time.perf_counter() - t0 > timeout:
+            fail(f"sharded: {path} did not appear within {timeout} s")
+        time.sleep(0.2)
+    return True
+
+
+def start_ranks(phases, root, device="cuda", small=False):
+    """``SHARDED_WORLD`` child ranks of this script for ``phases``, a
+    ``FileStore`` under ``root``; returns the processes and their result
+    files (:func:`finish_ranks` collects them)."""
+    store = os.path.join(root, "store")
+    outs = [os.path.join(root, f"rank{r}.json")
+            for r in range(SHARDED_WORLD)]
+    extra = (["--sharded-device", device] if device != "cuda" else []) + \
+        (["--sharded-small"] if small else [])
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sharded-phase",
+         ",".join(phases), "--sharded-rank", str(r), "--sharded-world",
+         str(SHARDED_WORLD), "--sharded-store", store, "--sharded-out",
+         outs[r], "--sharded-root", root] + extra,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(SHARDED_WORLD)]
+    return procs, outs, time.perf_counter()
+
+
+def finish_ranks(started, timeout, what):
+    """Wait for the ranks of :func:`start_ranks`, each under ``timeout``
+    seconds from the start; any rank that fails or hangs fails the run
+    (its log printed), every child is ended.  Returns the ranks' results,
+    in rank order."""
+    procs, outs, t0 = started
+    logs, bad = {}, []
+    try:
+        for r, p in enumerate(procs):
+            left = timeout - (time.perf_counter() - t0)
+            try:
+                logs[r], _ = p.communicate(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                bad.append(f"rank {r} ran past {timeout} s")
+                break
+            if p.returncode != 0:
+                bad.append(f"rank {r} exited {p.returncode}")
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.communicate()
+    if bad:
+        for r, text in logs.items():
+            print(f"== {what} rank {r}\n{text[-3000:]}", file=sys.stderr)
+        fail(f"{what}: {'; '.join(bad)}")
+    results = []
+    for out in outs:
+        with open(out) as f:
+            results.append(json.load(f))
+    return results
+
+
+def sum_launches(parts, by_path, path):
+    total = {k: 0 for k in counts()}
+    for part in parts:
+        for case in part.get("cases", [part]):
+            for k, v in case["launches"].items():
+                total[k] += v
+    by_path[path] = total
+
+
+def run_sharded_phases(by_path, phases=SHARDED_PHASES, device="cuda",
+                       small=False):
+    """The ``sharded_bcd``, ``sharded_serve`` and ``sharded_train`` phases
+    (those of ``phases``) on one spawn of 4 ranks (:func:`run_rank_phase`).
+    While the ranks start, this process does its side of each phase: the
+    batched BCD runs, the one-process loops and uncached forwards the
+    serving ranks are held to, and the one-process first step; then it
+    lets the ranks go, and restores the training ranks' final checkpoint
+    onto one process.  Returns each phase's line
+    (:func:`judge_sharded_bcd`, :func:`judge_sharded_serve`,
+    :func:`judge_sharded_train`); each phase fails on its own."""
+    import shutil
+    root = os.path.join(HERE, "build", f"sharded_{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_all = time.perf_counter()
+    started = start_ranks(phases, root, device, small)
+    t0 = time.perf_counter()
+    bcd = sharded_bcd_want() if "bcd" in phases else None
+    if "serve" in phases:
+        for kind in ("stablelm", "rwkv"):
+            sharded_one_process(kind, root, device, small)
+    if "train" in phases:
+        sharded_first_step_one_process(root, device, small)
+    parent_s = time.perf_counter() - t0
+    with open(os.path.join(root, "parent_ready"), "w"):
+        pass
+    restore = sharded_restore_one_process(root, started[0], device, small) \
+        if "train" in phases else None
+    results = finish_ranks(started, sum(SHARDED_TIMEOUT_S[p]
+                                        for p in phases), "sharded")
+    ranks_s = time.perf_counter() - t_all
+    shutil.rmtree(root, ignore_errors=True)
+    lines = {}
+    if "bcd" in phases:
+        lines["sharded_bcd"] = judge_sharded_bcd(
+            [r["bcd"] for r in results], bcd, by_path)
+    if "serve" in phases:
+        lines["sharded_serve"] = judge_sharded_serve(
+            [r["serve"] for r in results], by_path, device)
+    if "train" in phases:
+        lines["sharded_train"] = judge_sharded_train(
+            [r["train"] for r in results], by_path, device, restore)
+    for line in lines.values():
+        line["parent_before_ranks_s"] = parent_s
+        line["ranks_spawn_to_end_s"] = ranks_s
+    return lines
+
+
+def judge_sharded_serve(parts, by_path, device):
+    """Gates of ``sharded_serve``: every rank's decisions fingerprint and
+    tokens equal to the one-process loop's, every served token the sharded
+    uncached argmax (where the top-2 margin exceeds ``SERVE_MARGIN``) and
+    every served logit within ``LM_LOGIT_TOL`` of the sharded and of the
+    one-process uncached forward (checked in the ranks), and each rank
+    launching the path's kernels."""
+    for res in parts:
+        for case in res["cases"]:
+            where = f"sharded_serve {case['model']} {case['mesh']} " \
+                f"rank {res['rank']}"
+            if not (case["decisions_equal_one_process"] and
+                    case["tokens_equal_one_process"]):
+                fail(f"{where}: decisions or tokens differ from the "
+                     "one-process loop's")
+            if not case["vs_one_process_uncached"]["max_abs_diff"] <= \
+                    LM_LOGIT_TOL:
+                fail(f"{where}: served logits vs the one-process uncached "
+                     f"forward: {case['vs_one_process_uncached']}")
+            missing = [k for k in PATH_KERNELS["sharded_serve"]
+                       if case["launches"].get(k, 0) == 0 and
+                       not (k == "rwkv6_scan" and
+                            case["model"].startswith("stablelm"))]
+            if missing and torch.device(device).type == "cuda":
+                fail(f"{where}: no launch of {missing}")
+    sum_launches(parts, by_path, "sharded_serve")
+    return dict(world=SHARDED_WORLD, backend="gloo",
+                note="4 ranks share one card: correctness runs, not a "
+                     "speed-up",
+                seconds=max(r["rank_s"] for r in parts),
+                ranks=[dict(rank=r["rank"], cases=r["cases"])
+                       for r in parts])
+
+
+def sharded_restore_one_process(root, procs, device, small):
+    """Once the training ranks' launcher has written its final checkpoint,
+    that checkpoint restored onto this one process (files verified
+    against their sha256), each leaf's raw bytes digested."""
+    from repro_torch.training import checkpoint
+    ck = os.path.join(root, "ck")
+    steps = int(SHARDED_TRAIN_FLAGS[SHARDED_TRAIN_FLAGS.index("--steps") + 1])
+    if not wait_for_file(os.path.join(ck, f"step_{steps:08d}"), procs,
+                         sum(SHARDED_TIMEOUT_S.values())):
+        return None
+    t0 = time.perf_counter()
+    tree, step = checkpoint.restore(sharded_train_template(small), ck,
+                                    steps, device=device)
+    digests = {k: _digest(t) for k, t in _state_leaves(tree)}
+    del tree
+    return dict(step=step, digests=digests, seconds=time.perf_counter() - t0)
+
+
+def judge_sharded_train(parts, by_path, device, restore):
+    """Gates of ``sharded_train``: the first step's loss and gradients by
+    the bfloat16 rule, the float32 step's leaves within ``SHARDED_F32_TOL``
+    and its loss and grad norm within it relatively, every leaf moved by
+    it and each leaf's update within ``SHARDED_F32_UPDATE_REL`` of one
+    process's (its largest entries), finite
+    losses, the interrupted run equal to the uninterrupted one to the bit,
+    every restored leaf equal to the saved one to the bit, on (4, 1) and
+    on one process."""
+    r0 = parts[0]
+    first, f32 = r0["first_step"], r0["float32_step"]
+    if not (first["grads_ok"] and first["loss_rel"] <= first["loss_tol"]):
+        fail(f"sharded_train: first step vs one process: {first}")
+    if not (f32["max_abs_leaf_diff"] <= SHARDED_F32_TOL and
+            abs(f32["loss_sharded"] - f32["loss_one_process"]) <=
+            SHARDED_F32_TOL * abs(f32["loss_one_process"]) and
+            abs(f32["grad_norm_sharded"] - f32["grad_norm_one_process"]) <=
+            SHARDED_F32_TOL * abs(f32["grad_norm_one_process"]) and
+            f32["max_update_rel_diff"] <= SHARDED_F32_UPDATE_REL and
+            f32["least_leaf_max_update"] > 0):
+        fail(f"sharded_train: float32 step vs one process: {f32}")
+    for res in parts:
+        it = res["interrupted"]
+        if not (it["losses_finite"] and it["losses_equal"] and
+                it["state_equal_bits"] and it["restarts"] == 1):
+            fail(f"sharded_train rank {res['rank']}: interrupted vs "
+                 f"uninterrupted: {it}")
+        if not res["restore_4x1"]["equal_bits"]:
+            fail(f"sharded_train rank {res['rank']}: the (4, 1) restore "
+                 "differs from the saved state")
+        missing = [k for k in PATH_KERNELS["sharded_train"]
+                   if res["launches"].get(k, 0) == 0]
+        if missing and torch.device(device).type == "cuda":
+            fail(f"sharded_train rank {res['rank']}: no launch of {missing}")
+    if restore is None or restore["digests"] != r0["digests"]:
+        fail("sharded_train: the one-process restore differs from the saved "
+             "state")
+    DISK.by_phase["sharded_train"] = DISK.by_phase.get(
+        "sharded_train", 0) + r0["checkpoint_bytes"]
+    sum_launches(parts, by_path, "sharded_train")
+    return dict(world=SHARDED_WORLD, backend="gloo",
+                note="4 ranks share one card: correctness runs, not a "
+                     "speed-up",
+                rank0={k: v for k, v in r0.items() if k != "digests"},
+                ranks=[dict(rank=r["rank"], seconds=r["seconds"],
+                            peak_bytes=r["peak_bytes"],
+                            interrupted=r["interrupted"]["state_equal_bits"],
+                            restore_4x1=r["restore_4x1"])
+                       for r in parts],
+                restore_one_process=dict(step=restore["step"],
+                                         equal_bits=True,
+                                         seconds=restore["seconds"]),
+                checkpoint_bytes=r0["checkpoint_bytes"],
+                seconds=max(r["rank_s"] for r in parts))
+
+
+def sharded_train_template(small: bool):
+    """The phase's train state as a template (shapes on ``"meta"``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    from repro_torch.training import optimizer as opt_lib
+    cfg = get_config("stablelm_1p6b")
+    cfg = dataclasses.replace(cfg.reduced(), dtype="bfloat16") if small \
+        else dataclasses.replace(cfg, n_layers=SHARDED_TRAIN_LAYERS)
+    shapes = LM(cfg).param_shapes()
+    moments = opt_lib.adamw().init(shapes)
+    return {"params": shapes,
+            "opt": opt_lib.OptState(0, moments.mu, moments.nu), "step": 0}
 
 
 # ------------------------------------------------------------ training half
@@ -3019,9 +3864,12 @@ class LMPath:
 
 LM_PATHS = (
     # StableLM also runs BCD at its own bfloat16 (``lm_bf16_bcd``): the
-    # suffix engine's fused forwards on route A (kernels 3/4, wgmma)
-    LMPath("stablelm_1p6b", "lm", 128, 1, True, ("s0.ffn@8", "s0.ffn@20"),
-           0, bf16_bcd=True),
+    # suffix engine's fused forwards on route A (kernels 3/4, wgmma).  12 of
+    # its 24 layers, sited at the same shares of the depth as at 24 (@8,
+    # @20): the script's time (the path took 47 s at 24 on one H100; the
+    # float32 ``serve`` line and ``sharded_serve`` keep all 24)
+    LMPath("stablelm_1p6b", "lm", 128, 1, True, ("s0.ffn@4", "s0.ffn@10"),
+           0, bf16_bcd=True, layers=12),
     # the RWKV time-mix scan needs S % min(32, S) == 0, as the reference
     # does: 128 inputs, and greedy forwards padded to multiples of 32; the
     # card-vs-CPU check runs the first 8 of 32 repeats (3.6 GB on the host).
@@ -4141,9 +4989,10 @@ def run_chaos_drill(device="cuda"):
     return out
 
 
-def run_serve_stablelm(device="cuda", dtype="float32"):
+def run_serve_stablelm(device="cuda", dtype="float32", layers=0):
     """StableLM-2-1.6B at full width, in ``dtype`` (float32, or the
-    config's own bfloat16 from the same seed's draws rounded): a
+    config's own bfloat16 from the same seed's draws rounded), on its
+    first ``layers`` layers (0: all of them): a
     ``ServeLoop`` of two synthetic budgets, 4 slots of 128 tokens, prompts
     bucketed to 16, ``SERVE_REQUESTS`` requests of 4-100 tokens and 16 new
     tokens each, alternating between the classes; counts set to 0 just
@@ -4153,8 +5002,12 @@ def run_serve_stablelm(device="cuda", dtype="float32"):
     memory."""
     from repro_torch.kernels import build
     from repro_torch.launch import serve_loop
+    from repro_torch.configs import get_config
     resident = _reset_peak(device)
-    model, params = make_lm(SEED, LM_PATHS[0], device, dtype=dtype)
+    cfg = get_config(LM_PATHS[0].arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=min(layers, cfg.n_layers))
+    model, params = make_lm(SEED, LM_PATHS[0], device, cfg=cfg, dtype=dtype)
     store = serve_loop.threshold_mask_sets(model, SERVE_FRACS, seed=SEED,
                                            device=device)
     classes = [serve_loop.SLOClass(f"c{i}", n, SERVE_MAX_NEW)
@@ -4176,7 +5029,8 @@ def run_serve_stablelm(device="cuda", dtype="float32"):
     stats = loop.stats()
     consistency = served_consistency if dtype == "float32" else \
         served_consistency_bf16
-    out = dict(model=model.cfg.name, dtype=dtype, slots=SERVE_SLOTS,
+    out = dict(model=model.cfg.name, layers=model.cfg.n_layers,
+               dtype=dtype, slots=SERVE_SLOTS,
                max_len=SERVE_MAX_LEN, prompt_bucket=16,
                requests=len(reqs), max_new=SERVE_MAX_NEW,
                prompt_lens=[len(p) for p in prompts],
@@ -4662,7 +5516,9 @@ def run_serve_path(by_path, device="cuda"):
     t0 = time.perf_counter()
     bf16 = {"argmax_ties": argmax_ties(device), "lines": []}
     t1 = time.perf_counter()
-    line, total = run_serve_stablelm(device, dtype="bfloat16")
+    line, total = run_serve_stablelm(
+        device, dtype="bfloat16",
+        layers=SERVE_BF16_LAYERS.get(LM_PATHS[0].arch, 0))
     line["seconds"] = time.perf_counter() - t1
     emit({"lm_bf16_serve": line})
     bf16["lines"].append("lm_bf16_serve")
@@ -5424,9 +6280,13 @@ def run_family_path(by_path, device="cuda", only=None):
 # ------------------------------------------------------- training an LM
 
 
-# the launcher at StableLM-2-1.6B's published widths, float32: 8 steps of
-# 8 x 128 tokens, one checkpoint (the final one: 17.3 GB of parameters and
-# AdamW's two moments)
+# the launcher at StableLM-2-1.6B's published widths, in its own
+# bfloat16: 8 steps of 8 x 128 tokens, one checkpoint (the final one:
+# parameters and AdamW's two moments), on 12 of its 24 layers
+# (``LM_TRAIN_LAYERS``; all 24 before, 8.63 GB a checkpoint, the phase
+# 81.6 s on one H100): the script's time, with the sharded phases added,
+# had come to 879 s of its 1,200
+LM_TRAIN_LAYERS = 12
 LM_TRAIN_FLAGS = ("--arch", "stablelm_1p6b", "--steps", "8",
                   "--global-batch", "8", "--seq", "128", "--mesh", "1,1",
                   "--ckpt-every", "8")
@@ -5805,9 +6665,11 @@ def run_lm_train_path(by_path, device="cuda", cfg=None):
     t_all = time.perf_counter()
     args = launch.parse_args(list(LM_TRAIN_FLAGS) + [
         "--ckpt-dir", os.path.join(root, "full"), "--device", device])
-    # the config as published, in its own dtype (bfloat16); no width is cut
-    full = launch.make_config(args) if cfg is None else \
-        dataclasses.replace(cfg, remat_group=args.remat_group)
+    # the config as published, in its own dtype (bfloat16); no width is
+    # cut, the depth to LM_TRAIN_LAYERS
+    full = dataclasses.replace(launch.make_config(args),
+                               n_layers=LM_TRAIN_LAYERS) if cfg is None \
+        else dataclasses.replace(cfg, remat_group=args.remat_group)
     try:
         build.reset_launch_counts()
         before = _reset_peak(device)
@@ -5890,7 +6752,8 @@ def run_lm_train_path(by_path, device="cuda", cfg=None):
         model=full.name, d_model=full.d_model, layers=full.n_layers,
         vocab=full.vocab, params=n_params, state_bytes=state_bytes,
         dtype=full.dtype, state_dtypes=dtypes, flags=list(LM_TRAIN_FLAGS),
-        cuts=["random weights from seed 0, Markov tokens", "8 steps"],
+        cuts=["random weights from seed 0, Markov tokens", "8 steps",
+              f"{full.n_layers} of the config's layers"],
         losses=losses, step_ms=step_ms,
         step_ms_median_2_8=float(np.median(step_ms[1:])),
         run_launches={k: v for k, v in run_counts.items() if v},
@@ -6019,7 +6882,23 @@ def main() -> None:
                     help="build the kernels and run the candidate-parallel "
                          "phase alone (4 gloo ranks on the card), without "
                          "the kernel comparison (prints no result line)")
+    ap.add_argument("--only-sharded-serve", action="store_true",
+                    help="build the kernels and run the sharded serving "
+                         "phase alone (4 gloo ranks on the card), without "
+                         "the kernel comparison (prints no result line)")
+    ap.add_argument("--only-sharded-train", action="store_true",
+                    help="build the kernels and run the sharded training "
+                         "phase alone (4 gloo ranks on the card), without "
+                         "the kernel comparison (prints no result line)")
     ap.add_argument("--sharded-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-phase", default=",".join(SHARDED_PHASES),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-root", default=None, help=argparse.SUPPRESS)
+    # a rehearsal of a rank on the CPU at reduced size
+    ap.add_argument("--sharded-device", default="cuda",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-small", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--sharded-world", type=int, default=SHARDED_WORLD,
                     help=argparse.SUPPRESS)
@@ -6033,12 +6912,14 @@ def main() -> None:
                          "same script")
     args = ap.parse_args()
     if args.sharded_rank is not None:
-        if not torch.cuda.is_available():
+        if args.sharded_device == "cuda" and not torch.cuda.is_available():
             fail("no CUDA device: torch.cuda.is_available() is False")
         import repro_torch
         repro_torch.use_full_float32()
-        run_sharded_rank(args.sharded_rank, args.sharded_world,
-                         args.sharded_store, args.sharded_out)
+        run_rank_phase(args.sharded_phase, args.sharded_rank,
+                       args.sharded_world, args.sharded_store,
+                       args.sharded_out, args.sharded_root,
+                       args.sharded_device, args.sharded_small)
         return
     alone = {"stablelm_1p6b": args.only_lm, "rwkv6_3b": args.only_rwkv,
              "deepseek_moe_16b": args.only_moe,
@@ -6110,10 +6991,16 @@ def main() -> None:
         emit({"sweep": run_sweep_path(by_path)})
         check_launches(by_path, ("resnet18_sweep",))
         return
-    if args.only_sharded:
+    if args.only_sharded or args.only_sharded_serve or \
+            args.only_sharded_train:
         by_path = {}
-        emit({"sharded_bcd": run_sharded_path(by_path)})
-        check_launches(by_path, ("sharded_bcd",))
+        phases = tuple(p for p, on in zip(SHARDED_PHASES, (
+            args.only_sharded, args.only_sharded_serve,
+            args.only_sharded_train)) if on)
+        for name, line in run_sharded_phases(by_path, phases).items():
+            emit({name: line})
+        check_launches(by_path, tuple(f"sharded_{p}" for p in phases))
+        emit({"disk_writes": DISK.summary()})
         return
     if args.only_serve:
         by_path = {}
@@ -6180,9 +7067,10 @@ def main() -> None:
     sweep_line["seconds"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
-    # ---- path 1's candidate-parallel BCD, 4 ranks, counted on its own
-    DISK.phase = "sharded_bcd"
-    sharded_line = run_sharded_path(by_path)
+    # ---- path 1's candidate-parallel BCD, then sharded serving and
+    # training, on one spawn of 4 ranks, each phase counted on its own
+    DISK.phase = "sharded"
+    sharded_lines = run_sharded_phases(by_path)
 
     # ---- paths 2 to 5, StableLM-2-1.6B, RWKV-6 3B, DeepSeek-MoE-16B and
     # Zamba2-2.7B
@@ -6210,7 +7098,8 @@ def main() -> None:
     for name, line in zip(("train", "snl", "pipeline"), train_lines):
         emit({name: line})
     emit({"sweep": sweep_line})
-    emit({"sharded_bcd": sharded_line})
+    for name, line in sharded_lines.items():
+        emit({name: line})
     emit({"serve": serve_line})
     emit({"disk_writes": DISK.summary()})
     kernels = []

@@ -51,14 +51,22 @@ def _reference_leaf(value, device, dtype) -> torch.Tensor:
     return t
 
 
-def params_from_reference(tree, device="cuda", dtype=torch.float32):
+def params_from_reference(tree, device="cuda", dtype=torch.float32, *,
+                          specs=None, mesh=None):
     """The reference's parameter pytree, leaves as numpy arrays (e.g.
     ``jax.tree.map(np.asarray, params)``), as the port's parameter tree on
     ``device``: the same nested dicts, lists and tuples.
 
     ``dtype``: every floating leaf is cast to it (float32 by default);
     ``None`` keeps each leaf's own type, so a bfloat16 model keeps its
-    bfloat16 weights beside its float32 norm scales."""
+    bfloat16 weights beside its float32 norm scales.
+
+    ``specs`` (a placement tree, e.g. ``models.lm.held_param_specs``) with
+    ``mesh``: each leaf is cut to this rank's shard on the host
+    (``launch.mesh.shard_tree``) before it is placed on ``device``."""
+    if specs is not None:
+        from repro_torch.launch import mesh as mesh_lib
+        tree = mesh_lib.shard_tree(_to_numpy(tree), specs, mesh)
     if isinstance(tree, dict):
         return {k: params_from_reference(v, device, dtype)
                 for k, v in tree.items()}
@@ -73,3 +81,16 @@ def masks_from_reference(masks, device="cuda"):
     float32 tensors on ``device``."""
     return {k: leaf_to_device(v, device, np.float32)
             for k, v in masks.items()}
+
+
+def _to_numpy(tree):
+    """Leaves as numpy arrays (a tensor copied to the host, as its
+    bits)."""
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_numpy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu()
+        return t if t.dtype == torch.bfloat16 else t.numpy()
+    return np.asarray(tree)

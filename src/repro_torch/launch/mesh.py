@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import datetime
 import os
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -93,8 +93,15 @@ def init_process_group(device="cuda", *, store=None, rank: Optional[int] = None,
 def shutdown() -> None:
     """Tear the default process group down (no-op if it is not up)."""
     import torch.distributed as dist
+    _MESHES.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+# meshes made over a process group, by the group, device type, shape and
+# axis names: each new mesh makes process groups for its axes, which every
+# rank must make alike, so a shape asked for again is served from here
+_MESHES = {}
 
 
 def _mesh(device, shape: Tuple[int, ...], names: Tuple[str, ...]):
@@ -102,13 +109,24 @@ def _mesh(device, shape: Tuple[int, ...], names: Tuple[str, ...]):
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
-    init_process_group(device)
     n = int(np.prod(shape))
+    # checked before a group comes up: a mesh larger than the world is
+    # refused, never shrunk
+    have = dist.get_world_size() if dist.is_initialized() \
+        else int(os.environ.get("WORLD_SIZE", 1))
+    if n > have:
+        raise ValueError(f"need {n} ranks, have {have}")
+    init_process_group(device)
     have = dist.get_world_size()
     if n > have:
         raise ValueError(f"need {n} ranks, have {have}")
-    return DeviceMesh(torch.device(device).type,
-                      torch.arange(n).reshape(shape), mesh_dim_names=names)
+    world = dist.group.WORLD
+    key = (id(world), torch.device(device).type, tuple(shape), tuple(names))
+    if key not in _MESHES:
+        # the group is kept with its mesh, so that its id is not reused
+        _MESHES[key] = (world, DeviceMesh(
+            key[1], torch.arange(n).reshape(shape), mesh_dim_names=names))
+    return _MESHES[key][1]
 
 
 def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
@@ -226,3 +244,107 @@ def broadcast_tree(tree, src: int = 0):
     elif isinstance(tree, torch.Tensor):
         dist.broadcast(tree, src=src)
     return tree
+
+
+# --------------------------------------------------- placements over a mesh
+#
+# A placement tree mirrors a parameter (or cache, or train-state) tree: each
+# leaf is a ``spmd.Spec``, a tuple with one entry per dimension of the leaf,
+# a mesh axis name, a tuple of names, or None (whole along that dimension);
+# ``Spec()`` is a leaf every rank holds whole.  ``shard_tree`` cuts whole
+# tensors to this rank's pieces, ``gather_tree`` puts the pieces back.
+
+
+class Shardings(NamedTuple):
+    """A placement tree over a mesh: what the reference's trees of
+    ``NamedSharding`` say (``training.checkpoint.save`` / ``restore``
+    ``shardings=``, ``training.ft.run_supervised(state_shardings=)``)."""
+
+    mesh: object
+    specs: object
+
+
+def axis(mesh, name: str):
+    """Mesh axis ``name`` as this rank sees it (``spmd.Axis``): its group,
+    size and this rank's coordinate.  An axis the mesh lacks, or no mesh,
+    is an axis of one rank."""
+    from repro_torch.core import spmd
+    if mesh is None or name not in (mesh.mesh_dim_names or ()):
+        return spmd.Axis(name, None, 1, 0)
+    size = int(mesh.size(mesh.mesh_dim_names.index(name)))
+    index = int(mesh.get_local_rank(name))
+    group = mesh.get_group(name) if size > 1 else None
+    return spmd.Axis(name, group, size, index)
+
+
+def axis_group(mesh, name: str):
+    """The process group of mesh axis ``name`` (None for one rank); this
+    rank's coordinate and range along it are ``axis(mesh, name).index`` and
+    ``.span(n)``."""
+    return axis(mesh, name).group
+
+
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def _walk(tree, specs, leaf_fn):
+    from repro_torch.core import spmd
+    if isinstance(specs, spmd.Spec):
+        return None if tree is None else leaf_fn(tree, specs)
+    if isinstance(tree, dict):
+        return {k: _walk(v, specs[k], leaf_fn) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(type(tree), "_fields"):
+        return type(tree)(*(_walk(v, s, leaf_fn)
+                            for v, s in zip(tree, specs)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_walk(v, s, leaf_fn) for v, s in zip(tree, specs))
+    raise TypeError(f"placement tree does not match the tree at "
+                    f"{type(tree).__name__}")
+
+
+def shard_tree(tree, specs, mesh):
+    """Each leaf of ``tree`` (whole tensors) cut to this rank's piece of
+    its placement in ``specs`` (a tree of ``spmd.Spec``, the same
+    structure; a None leaf stays None).  Leaves are tensors or numpy
+    arrays (cut before they reach a device); slices are copies."""
+    import torch
+
+    def cut(t, spec):
+        if not isinstance(t, (torch.Tensor, np.ndarray)):
+            return t
+        for dim, entry in enumerate(spec):
+            # a tuple of axes splits in mesh order: the first named axis
+            # is the slowest
+            for name in _entry_axes(entry):
+                ax = axis(mesh, name)
+                if ax.size > 1:
+                    lo, hi = ax.span(t.shape[dim])
+                    index = [slice(None)] * t.ndim
+                    index[dim] = slice(lo, hi)
+                    t = t[tuple(index)]
+        if isinstance(t, np.ndarray):
+            return np.array(t, order="C")
+        return t.contiguous().clone()
+    return _walk(tree, specs, cut)
+
+
+def gather_tree(tree, specs, mesh):
+    """The inverse of :func:`shard_tree`: every leaf whole on every rank
+    (an ``all_reduce`` of zero-filled tensors per sharded axis)."""
+    import torch
+    from repro_torch.core import spmd
+
+    def whole(t, spec):
+        if not isinstance(t, torch.Tensor):
+            return t
+        t = t.detach()
+        for dim, entry in enumerate(spec):
+            for name in reversed(_entry_axes(entry)):
+                t = spmd.all_gather_dim(t, dim, axis(mesh, name))
+        return t
+    return _walk(tree, specs, whole)
+
+

@@ -1,12 +1,17 @@
-"""Serving launcher: batched prefill + greedy decode on one device.
+"""Serving launcher: batched prefill + greedy decode, on one device or
+over a ``("data", "model")`` mesh of ranks.
 
 Counterpart of ``repro/launch/serve.py``::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b \
         --reduced --batch 4 --prompt-len 16 --gen 8 --device cpu
 
-``--mesh`` takes ``1,1`` only (a mesh waits for ``ROADMAP.md`` Queue A11);
-``--device`` defaults to the card.
+``--mesh d,m`` other than ``1,1`` serves sharded
+(``training.serve.jit_prefill`` / ``jit_decode_step``) on the first d·m
+ranks of the process group (``python -m torch.distributed.run
+--nproc_per_node d·m``, or a group the caller brought up); every rank runs
+this with the same flags and rank 0 prints.  ``--device`` defaults to the
+card.
 """
 from __future__ import annotations
 
@@ -28,7 +33,8 @@ def _sync(device) -> None:
 
 
 def generate(model: LM, params, masks, prompts: torch.Tensor, gen: int, *,
-             ties: bool = True, keep_logits: bool = False) -> dict:
+             ties: bool = True, keep_logits: bool = False,
+             mesh=None) -> dict:
     """Greedy continuation of a (B, P) prompt batch by ``gen`` tokens: one
     batched prefill into a fresh (B, P + gen) cache, then ``gen - 1``
     single-token decode steps at a shared ``cache_len``.
@@ -36,23 +42,30 @@ def generate(model: LM, params, masks, prompts: torch.Tensor, gen: int, *,
     Returns ``tokens`` (B, gen) int32, ``prefill_ms`` and ``decode_ms`` (a
     list, one wall-clock time per step, the device synchronised around
     each), and with ``keep_logits`` the last-position logits of the prefill
-    and of every step (``logits``, gen tensors of (B, V))."""
+    and of every step (``logits``, gen tensors of (B, V)).
+
+    ``mesh``: every rank of it calls this with the same prompts and its
+    held ``params`` (``training.serve.shard_params``); the tokens (and
+    kept logits) are the whole batch's on every rank."""
     device = prompts.device
     B, P = prompts.shape
-    prefill = serve_lib.make_prefill(model)
-    decode = serve_lib.make_decode_step(model)
+    tpm = model.on_mesh(mesh)
+    scfg = serve_lib.ServeCfg(max_len=P + gen, batch=B)
+    prefill = serve_lib.jit_prefill(model, mesh, scfg)
+    decode = serve_lib.jit_decode_step(model, mesh, scfg)
+
     out = {"logits": [] if keep_logits else None, "decode_ms": []}
     with torch.no_grad():
-        cache = model.init_cache(B, P + gen, device)
+        cache = tpm.init_cache(B, P + gen, device)
         _sync(device)
         t0 = time.perf_counter()
         last, cache = prefill(params, masks, prompts, cache, ties=ties)
-        tok = last.argmax(-1)[:, None].to(torch.int32)
+        tok = serve_lib.greedy_tokens(last, tpm, B)
         _sync(device)
         out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
         toks = [tok]
         if keep_logits:
-            out["logits"].append(last)
+            out["logits"].append(serve_lib.gather_logits(last, tpm, B))
         for t in range(gen - 1):
             t0 = time.perf_counter()
             tok, cache, logits = decode(params, masks, tok, cache, P + t,
@@ -61,7 +74,7 @@ def generate(model: LM, params, masks, prompts: torch.Tensor, gen: int, *,
             out["decode_ms"].append((time.perf_counter() - t0) * 1e3)
             toks.append(tok)
             if keep_logits:
-                out["logits"].append(logits)
+                out["logits"].append(serve_lib.gather_logits(logits, tpm, B))
     out["tokens"] = torch.cat(toks, dim=1)
     return out
 
@@ -74,9 +87,7 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=8)
-    ap.add_argument("--mesh", default="1,1",
-                    help="data,model mesh shape; only 1,1 until sharded "
-                         "serving is ported")
+    ap.add_argument("--mesh", default="1,1", help="data,model mesh shape")
     ap.add_argument("--keep-frac", type=float, default=1.0,
                     help="fraction of nonlinearities kept (random "
                          "thresholding — synthetic; prefer --masks-from)")
@@ -89,10 +100,12 @@ def main(argv=None):
                          "default: the first/highest budget)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if tuple(int(x) for x in args.mesh.split(",")) != (1, 1):
-        raise SystemExit(f"error: --mesh {args.mesh}: only 1,1 (one "
-                         "device) is ported; sharded serving is ROADMAP.md "
-                         "Queue A11")
+    d, m = (int(x) for x in args.mesh.split(","))
+    mesh = None
+    if (d, m) != (1, 1):
+        from repro_torch.launch import mesh as mesh_lib
+        mesh = mesh_lib.make_host_mesh(d, m, args.device)
+    loud = mesh is None or mesh.get_rank() == 0
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -100,8 +113,12 @@ def main(argv=None):
     model = LM(cfg)
     gen = torch.Generator(device=args.device).manual_seed(0)
     params = model.init(gen, args.device)
-    print(f"model {cfg.name}: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, dtype={cfg.dtype}, device={args.device}")
+    if mesh is not None:
+        params = serve_lib.shard_params(params, model, mesh)
+    if loud:
+        print(f"model {cfg.name}: {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, dtype={cfg.dtype}, device={args.device}, "
+              f"mesh={d},{m}")
     if args.masks_from:
         shapes = {k: s.shape for k, s in model.mask_sites().items()}
         try:
@@ -114,9 +131,10 @@ def main(argv=None):
         except serve_lib.MaskSetError as e:
             raise SystemExit(f"error: {e}")
         info = store.info(name)
-        print(f"serving mask set {name!r} from {info.source} "
-              f"(relu_cost={info.relu_cost}, "
-              f"fingerprint={info.fingerprint[:12]})")
+        if loud:
+            print(f"serving mask set {name!r} from {info.source} "
+                  f"(relu_cost={info.relu_cost}, "
+                  f"fingerprint={info.fingerprint[:12]})")
         masks0 = store.host(name)
     else:
         masks0 = linearize.init_masks(model.mask_sites())
@@ -134,11 +152,12 @@ def main(argv=None):
                                .astype(np.int32)).to(args.device)
     t0 = time.perf_counter()
     out = generate(model, params, mdev, prompts, G,
-                   ties=linearize.has_share_ties(masks0))
+                   ties=linearize.has_share_ties(masks0), mesh=mesh)
     dt = time.perf_counter() - t0
-    print("generated:", out["tokens"].cpu().numpy()[:, :12])
-    print(f"{B} seqs x ({P} prefill + {G} decode) in {dt:.2f}s "
-          f"({B * G / dt:.1f} tok/s decode-equivalent)")
+    if loud:
+        print("generated:", out["tokens"].cpu().numpy()[:, :12])
+        print(f"{B} seqs x ({P} prefill + {G} decode) in {dt:.2f}s "
+              f"({B * G / dt:.1f} tok/s decode-equivalent)")
     return 0
 
 

@@ -1,7 +1,7 @@
 """Continuous-batching serve loop with per-request ReLU-budget SLOs.
 
-Counterpart of ``repro/launch/serve_loop.py`` on one device (a ``mesh``
-waits for ``ROADMAP.md`` Queue A11).
+Counterpart of ``repro/launch/serve_loop.py``, on one device or over a
+``("data", "model")`` mesh of ranks (``ServeLoop(mesh=)``).
 
 The deployment story of the paper: ReLU count ≈ Private-Inference latency,
 so a served request's *price* is set by the mask set it runs under.  This
@@ -65,7 +65,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core import linearize, masks as M, pi_cost
+from repro_torch.core import linearize, masks as M, pi_cost, spmd
 from repro_torch.launch import faults as faults_lib
 from repro_torch.models.lm import LM
 from repro_torch.training import serve as serve_lib
@@ -268,13 +268,20 @@ class ServeLoop:
     recurrent-state models — any ``mamba``/``rwkv`` block — carry their
     state *through* pad positions, so bucketing corrupts it: construction
     fails loudly unless ``prompt_bucket=None`` — exact-length prefill).
-    ``mesh``: ``None`` only here (a mesh waits for ``ROADMAP.md`` Queue
-    A11).  ``device``: where the caches live and the steps run (the card
-    unless the caller asks for the CPU); the parameters and the store must
-    live there too.  ``keep_logits``:
+    ``mesh``: optional, a ``("data", "model")`` mesh
+    (``launch.mesh.make_host_mesh``); every rank of it runs this loop on
+    the same requests and makes the same host decisions.  ``params`` are
+    then the rank's held shards (``training.serve.shard_params``), each
+    lane's slots split over ``"data"`` where they divide, the model
+    tensor-parallel over ``"model"``; the B=1 prefill runs on every data
+    rank alike and only the rank that holds the slot keeps its cache, and
+    each decode tick gathers the lane's tokens over ``"data"``
+    (``training.serve.jit_decode_step``).  ``device``: where the caches
+    live and the steps run (the card unless the caller asks for the CPU);
+    the parameters and the store must live there too.  ``keep_logits``:
     every request keeps the last-position logits of its prefill and of each
-    decode tick (``Request.logits``, on ``device``) — for checking the
-    cached path against an uncached forward.
+    decode tick (``Request.logits``, on ``device``; whole logits on a
+    mesh) — for checking the cached path against an uncached forward.
 
     Overload/fault knobs (all default to the fair-weather behavior):
 
@@ -306,10 +313,6 @@ class ServeLoop:
                  proto: pi_cost.PIProtocol = pi_cost.PIProtocol(),
                  device="cuda", keep_logits: bool = False):
         """Build lanes (one resident decode cache per SLO class)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "ServeLoop(mesh=...): sharded serving is not ported yet "
-                "(ROADMAP.md Queue A11); pass mesh=None")
         if not classes:
             raise ValueError("ServeLoop needs at least one SLO class")
         for c in classes:
@@ -346,15 +349,23 @@ class ServeLoop:
             self.retries.update(retries)
         self.device = torch.device(device)
         self.keep_logits = keep_logits
-        self._prefill = _make_last_logit_prefill(model)
+        self.mesh = mesh
+        tpm = model.on_mesh(mesh)
+        self._tpm = tpm
+        self._prefill = _make_last_logit_prefill(tpm)
         self._insert = serve_lib.make_insert_slot(model)
-        self._decode = serve_lib.make_decode_step(model)
+        self._decode = serve_lib.jit_decode_step(
+            model, mesh, serve_lib.ServeCfg(max_len=max_len, batch=slots))
+        # the slots this rank's lane caches hold: [lo, hi)
+        dax = tpm.data_axis
+        self._slot_span = dax.span(slots) \
+            if dax.size > 1 and slots % dax.size == 0 else (0, slots)
         # one B=1 prefill cache, zeroed before every prefill (a recurrent
         # state must start from zeros) and only ever copied from
-        self._small = model.init_cache(1, max_len, self.device)
+        self._small = tpm.init_cache(1, max_len, self.device)
         # lanes never share a cache tensor
         self.lanes: Dict[str, _Lane] = {
-            c.name: _Lane(c, model.init_cache(slots, max_len, self.device),
+            c.name: _Lane(c, tpm.init_cache(slots, max_len, self.device),
                           slots)
             for c in classes}
         # host-side: which sets carry share ties (binary ones skip the
@@ -631,10 +642,12 @@ class ServeLoop:
             nxt, small, last = self._prefill(
                 self.params, masks, torch.from_numpy(toks).to(self.device),
                 small, L - 1, ties=self._ties[name])
-            lane.cache = self._insert(lane.cache, small, slot)
+            lo, hi = self._slot_span
+            if lo <= slot < hi:
+                lane.cache = self._insert(lane.cache, small, slot - lo)
             first = int(nxt[0, 0])
             if self.keep_logits:
-                req.logits = [last[0]]
+                req.logits = [serve_lib.gather_logits(last, self._tpm, 1)[0]]
             self._elapse(self._virtual_tok_s[lane.slo.mask_set] * L)
             req.t_first = self._now()
             self.latency.observe_prefill(lane.slo.mask_set,
@@ -669,6 +682,8 @@ class ServeLoop:
             self.params, masks, tok, lane.cache, lane.cache_len,
             ties=self._ties[name])
         nxt = nxt.cpu().numpy().reshape(-1)
+        if self.keep_logits:
+            logits = serve_lib.gather_logits(logits, self._tpm, self.slots)
         self._elapse(self._virtual_tok_s[lane.slo.mask_set])
         for slot in np.flatnonzero(lane.live):
             req = lane.reqs[slot]
@@ -821,13 +836,15 @@ def _make_last_logit_prefill(model: LM):
 
     Prompts arrive right-padded to a bucket length; ``last_idx`` picks the
     real final position.  Returns ``(next token (B, 1) int32, cache, the
-    logits there (B, V))``.
+    logits there (B, V))``; on a mesh the logits are the rank's block of
+    the vocabulary.
     """
     def prefill(params, masks, tokens, cache, last_idx, ties=True):
         logits, cache = model.forward(params, masks, tokens, cache=cache,
                                       cache_len=0, ties=ties)
         last = logits[:, int(last_idx)]
-        nxt = last.argmax(-1).to(torch.int32)[:, None]
+        # on a mesh: the rank's vocabulary block, argmax over the axis
+        nxt = spmd.argmax(last, model.model_axis).to(torch.int32)[:, None]
         return nxt, cache, last
     return prefill
 

@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import linearize
+from repro_torch.core import linearize, spmd
 from repro_torch.kernels import ops
 
 # ---------------------------------------------------------------- init
@@ -26,7 +26,10 @@ from repro_torch.kernels import ops
 
 def normal(gen: torch.Generator, shape, scale: float, dtype, device):
     """N(0, 1)·scale in float32 from ``gen``, rounded to ``dtype`` and
-    placed on ``device`` (the reference draws in float32 and casts too)."""
+    placed on ``device`` (the reference draws in float32 and casts too).
+    On the ``"meta"`` device nothing is drawn (shapes and dtypes only)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     w = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
     return (w * scale).to(dtype).to(device)
@@ -127,8 +130,26 @@ def _attend(q, k, v, *, causal_offset=0, window, scale):
     return out.reshape(B, Sq, H, hd)
 
 
+def _local_heads(p, c: AttnCfg, tp):
+    """Under tensor parallelism (``tp``, the ``"model"`` axis): the
+    rank's query heads are a contiguous block of ``n_heads / size`` (the
+    ``_COL`` leaves ``wq``, ``wk``, ``wv`` are split on their output).  KV
+    heads that divide the axis are split alike, so the local q heads group
+    onto the local kv heads as they do globally; otherwise ``wk`` and
+    ``wv`` are held whole and ``kv_index`` picks, for each local q head,
+    its kv head.  Returns ``(h_loc, kv_loc, kv_index or None)``."""
+    hd = c.head_dim
+    h_loc = p["wq"].shape[-1] // hd
+    kv_loc = p["wk"].shape[-1] // hd
+    if kv_loc * tp.size == c.n_kv_heads:
+        return h_loc, kv_loc, None
+    rep = c.n_heads // c.n_kv_heads
+    q = torch.arange(h_loc) + tp.index * h_loc
+    return h_loc, h_loc, q // rep
+
+
 def attention(p, c: AttnCfg, x, positions, *, kv_cache=None,
-              cache_len=None):
+              cache_len=None, tp=None):
     """Causal self-attention.
 
     Without a cache (the eval path): x (..., S, D), every leading axis
@@ -142,7 +163,13 @@ def attention(p, c: AttnCfg, x, positions, *, kv_cache=None,
     offset) — and every key at or beyond ``cache_len + S`` is zeroed before
     the products, as the reference does.  Returns ``(out, (K, V))``, the
     same two tensors.  Raises ``ValueError`` when an int ``cache_len + S``
-    exceeds max_len (the reference would clamp the write)."""
+    exceeds max_len (the reference would clamp the write).
+
+    ``tp`` (a ``core.spmd.Axis``, the ``"model"`` axis of more than one
+    rank): ``p`` holds the rank's shards (:func:`_local_heads`), the
+    attention runs on the rank's heads, a KV cache holds its kv heads (all
+    of them where they do not divide the axis) and the output projection
+    ``wo`` (``_ROW``) gives a partial sum, summed over the axis."""
     if kv_cache is None:
         lead, (S, d) = x.shape[:-2], x.shape[-2:]
         x = x.reshape(-1, S, d)
@@ -150,9 +177,15 @@ def attention(p, c: AttnCfg, x, positions, *, kv_cache=None,
         S = x.shape[1]
     B = x.shape[0]
     h, kvh, hd = c.n_heads, c.n_kv_heads, c.head_dim
+    kv_index = None
+    if tp is not None:
+        h, kvh, kv_index = _local_heads(p, c, tp)
+        x = spmd.enter(x, tp)
+        p = _entered(p, tp, ("q_norm", "k_norm") + (
+            ("wk", "wv") if kv_index is not None else ()))
     q = (x @ p["wq"]).reshape(B, S, h, hd)
-    k = (x @ p["wk"]).reshape(B, S, kvh, hd)
-    v = (x @ p["wv"]).reshape(B, S, kvh, hd)
+    k = (x @ p["wk"]).reshape(B, S, -1, hd)
+    v = (x @ p["wv"]).reshape(B, S, -1, hd)
     if c.qk_norm:
         q = rmsnorm(p["q_norm"], q)
         k = rmsnorm(p["k_norm"], k)
@@ -160,8 +193,10 @@ def attention(p, c: AttnCfg, x, positions, *, kv_cache=None,
     k = rope(k, positions, c.rope_theta)
     scale = hd ** -0.5
     if kv_cache is None:
+        if kv_index is not None:
+            k, v = k[:, :, kv_index], v[:, :, kv_index]
         out = _attend(q, k, v, window=c.window, scale=scale)
-        out = out.reshape(B, S, h * hd) @ p["wo"]
+        out = spmd.all_reduce_sum(out.reshape(B, S, h * hd) @ p["wo"], tp)
         return out.reshape(tuple(lead) + (S, out.shape[-1]))
     K, V = kv_cache
     kj = torch.arange(K.shape[1], device=x.device)
@@ -178,9 +213,26 @@ def attention(p, c: AttnCfg, x, positions, *, kv_cache=None,
         K[:, cache_len:cache_len + S] = k.to(K.dtype)
         V[:, cache_len:cache_len + S] = v.to(V.dtype)
         valid = (kj < cache_len + S)[None, :, None, None]
-    out = _attend(q, torch.where(valid, K, 0), torch.where(valid, V, 0),
-                  causal_offset=cache_len, window=c.window, scale=scale)
-    return out.reshape(B, S, h * hd) @ p["wo"], (K, V)
+    Kv, Vv = torch.where(valid, K, 0), torch.where(valid, V, 0)
+    if kv_index is not None:
+        Kv, Vv = Kv[:, :, kv_index], Vv[:, :, kv_index]
+    out = _attend(q, Kv, Vv, causal_offset=cache_len, window=c.window,
+                  scale=scale)
+    return spmd.all_reduce_sum(out.reshape(B, S, h * hd) @ p["wo"],
+                               tp), (K, V)
+
+
+def _entered(p, tp, names):
+    """``p`` with the leaves (or norm dicts) ``names`` passed through
+    ``spmd.enter``: parameters every rank holds whole but uses on its own
+    heads, whose gradients are summed over the axis."""
+    out = dict(p)
+    for n in names:
+        if n in out:
+            v = out[n]
+            out[n] = {k: spmd.enter(t, tp) for k, t in v.items()} \
+                if isinstance(v, dict) else spmd.enter(v, tp)
+    return out
 
 
 # ---------------------------------------------------------------- gated FFN
@@ -195,8 +247,26 @@ def ffn_init(gen, d, f, *, gated=True, dtype=torch.bfloat16, device="cuda"):
     return p
 
 
+def tp_split(n_local: int, n: int, tp):
+    """``(lo, hi)`` of the rank's block of ``n`` channels when a leaf
+    holds ``n_local`` of them under tensor parallelism ``tp``, or None
+    where the leaf is whole (no ``tp``, or the channels do not split)."""
+    if tp is None or n_local == n:
+        return None
+    return tp.index * n_local, (tp.index + 1) * n_local
+
+
+def slice_site(mask, poly, span):
+    """The mask ``(…, F)`` and poly ``(3, …, F)`` of a site cut to the
+    channel block ``span`` (None: as they are)."""
+    if span is None:
+        return mask, poly
+    lo, hi = span
+    return mask[..., lo:hi], None if poly is None else poly[..., lo:hi]
+
+
 def ffn(p, x, mask, site: linearize.MaskSite, *, poly=None, soft=False,
-        fused=False, ties=True):
+        fused=False, ties=True, tp=None):
     """Gated (SwiGLU-style) or plain FFN with the *masked* activation: act(h)
     at kept channels, identity (or poly2) at linearized ones; for a gated FFN
     the gate branch is the mask site.
@@ -210,8 +280,24 @@ def ffn(p, x, mask, site: linearize.MaskSite, *, poly=None, soft=False,
     hard mask without poly2 and without share ties runs gate, up-branch
     product and down-projection as one kernel
     (``kernels.ops.masked_act_matmul[_batched]``).  Every other case keeps
-    the unfused route, the gate followed by ``torch.matmul``."""
+    the unfused route, the gate followed by ``torch.matmul``.
+
+    ``tp`` (tensor parallelism over ``"model"``): ``w_gate`` and ``w_up``
+    hold the rank's block of F columns (``_COL``), ``w_down`` its rows
+    (``_ROW``); the mask (and poly) is cut to that block, and the
+    down-projection's partial sum is summed over the axis (on the fused
+    route too, at K = F / size)."""
     gated = "w_gate" in p
+    span = tp_split(p["w_up"].shape[-1], site.shape[-1], tp)
+    if span is not None:
+        x = spmd.enter(x, tp)
+        mask, poly = slice_site(mask, poly, span)
+        site = dataclasses.replace(site, shape=(span[1] - span[0],))
+    out = _ffn(p, x, mask, site, gated, poly, soft, fused, ties)
+    return out if span is None else spmd.all_reduce_sum(out, tp)
+
+
+def _ffn(p, x, mask, site, gated, poly, soft, fused, ties):
     h = x @ (p["w_gate"] if gated else p["w_up"])
     mul = x @ p["w_up"] if gated else None
     stacked = mask.dim() == len(site.shape) + 1

@@ -41,6 +41,16 @@ block its scan state and its convolution's trailing inputs, an RWKV-6
 block its scan state and the two token shifts' last inputs, in the
 reference's cache tree.  The port writes the cache **in place** where the
 reference returns a new one.
+
+**On a mesh** (``LM(cfg, mesh)``, a ``("data", "model")`` mesh of ranks):
+the reference's placement rules (``param_specs``, ``cache_specs``, at the
+end of this module) and the layouts the port holds (``held_param_specs``,
+``held_cache_specs``); under ``model > 1`` the forward is tensor-parallel,
+its collectives written out (``core.spmd``): attention and the RWKV-6
+time-mix on the rank's heads, FFNs and the channel-mix on its block of
+d_ff columns, the embedding and the logits on its block of the
+vocabulary.  MoE and Mamba2 blocks refuse a model split (``ROADMAP.md``
+Queue A13).
 """
 from __future__ import annotations
 
@@ -126,7 +136,7 @@ class LM:
     (:func:`repro_torch.use_full_float32`): the fused kernels accumulate in
     exact float32, and every evaluation path must rank candidates alike."""
 
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, mesh=None):
         blocks = tuple(cfg.head_blocks) + tuple(cfg.pattern) + tuple(cfg.tail)
         for blk in blocks:
             _sites_for(cfg, blk)          # raises for an unknown kind
@@ -134,6 +144,33 @@ class LM:
         self.cfg = cfg
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" \
             else torch.float32
+        self._place(mesh)
+
+    # ------------------------------------------------------------ mesh
+
+    def _place(self, mesh) -> None:
+        """The model's place on a ``("data", "model")`` mesh (``None``: one
+        rank).  Under ``model > 1`` every forward is tensor-parallel: the
+        parameters are the rank's shards (:func:`held_param_specs`), the
+        attention and RWKV time-mix run on the rank's heads, FFNs on its
+        block of d_ff columns, the embedding and the logits on its block
+        of the vocabulary.  ``fsdp_specs`` (set by the sharded train step)
+        names the parameters split over ``"data"`` (ZeRO-3), gathered as
+        each block runs."""
+        from repro_torch.launch import mesh as mesh_lib
+        self.mesh = mesh
+        self.data_axis = mesh_lib.axis(mesh, "data")
+        self.model_axis = mesh_lib.axis(mesh, "model")
+        self._tp = self.model_axis if self.model_axis.size > 1 else None
+        self.fsdp_specs = None
+        if self._tp is not None:
+            _check_tensor_parallel(self.cfg, self.model_axis.size)
+
+    def on_mesh(self, mesh) -> "LM":
+        """This model placed on ``mesh`` (itself where it already is)."""
+        if mesh is self.mesh:
+            return self
+        return LM(self.cfg, mesh)
 
     # ------------------------------------------------------------ init
 
@@ -266,30 +303,33 @@ class LM:
             (suf, site), = sites.items()
             m, ply = ms[suf], plys[suf]
             rc = _rwkv_cfg(self.cfg)
+            tp = self._tp
             if cache is None:
-                x = x + ssm.rwkv_time_mix(p["tmix"], rc, h)
+                x = x + ssm.rwkv_time_mix(p["tmix"], rc, h, tp=tp)
                 h = layers.rmsnorm(p["ln2"], x)
                 return x + ssm.rwkv_channel_mix(p["tmix"], rc, h, m, site,
                                                 poly=ply, soft=soft,
-                                                ties=ties)
+                                                ties=ties, tp=tp)
             y, (state, ptm) = ssm.rwkv_time_mix(
-                p["tmix"], rc, h, cache=(cache["state"], cache["ptm"]))
+                p["tmix"], rc, h, cache=(cache["state"], cache["ptm"]),
+                tp=tp)
             cache["state"].copy_(state)
             cache["ptm"].copy_(ptm)
             x = x + y
             h = layers.rmsnorm(p["ln2"], x)
             y, pcm = ssm.rwkv_channel_mix(p["tmix"], rc, h, m, site,
                                           poly=ply, soft=soft, ties=ties,
-                                          cache=cache["pcm"])
+                                          cache=cache["pcm"], tp=tp)
             cache["pcm"].copy_(pcm)
             return x + y
         ac = _attn_cfg(self.cfg, blk)
         if cache is None:
-            x = x + layers.attention(p["attn"], ac, h, positions)
+            x = x + layers.attention(p["attn"], ac, h, positions,
+                                     tp=self._tp)
         else:
             x = x + layers.attention(p["attn"], ac, h, positions,
                                      kv_cache=cache["kv"],
-                                     cache_len=cache_len)[0]
+                                     cache_len=cache_len, tp=self._tp)[0]
         if blk.kind == "attn_only":
             return x
         h = layers.rmsnorm(p["ln2"], x)
@@ -301,7 +341,7 @@ class LM:
                 soft=soft, fused=fused, ties=ties)
         return x + layers.ffn(p["ffn"], h, ms["ffn"], sites["ffn"],
                               poly=plys["ffn"], soft=soft, fused=fused,
-                              ties=ties)
+                              ties=ties, tp=self._tp)
 
     # The forward is a fold over segments: 0 = the embedding (done before
     # the fold), 1..H = head blocks, 1+H..H+R = stack repeats, then the tail
@@ -322,8 +362,11 @@ class LM:
         each block's parameters are cast to the model's dtype as the block
         runs."""
         cfg = self.cfg
+        fs = self.fsdp_specs
 
-        def up(p):
+        def up(p, spec=None):
+            if spec is not None:
+                p = _gather_data(p, spec, self.data_axis)
             return _cast_tree(p, self.dtype) if upcast else p
         H, R = len(cfg.head_blocks), cfg.n_repeats
         if cache is None:
@@ -340,20 +383,23 @@ class LM:
         def repeat(x, r):
             for pos, blk in enumerate(cfg.pattern):
                 lp = params["stack"][str(pos)]
+                spec = None if fs is None else fs["stack"][str(pos)]
                 if not blk.shared:
                     lp = rows[pos][r]
+                    spec = None if spec is None else _row_specs(spec)
                 lc = None if cache is None \
                     else _index(cache["stack"][str(pos)], r)
-                x = self._layer_apply(blk, up(lp), x, masks, f"s{pos}", opt,
-                                      positions, repeat=r, cache=lc,
+                x = self._layer_apply(blk, up(lp, spec), x, masks, f"s{pos}",
+                                      opt, positions, repeat=r, cache=lc,
                                       cache_len=cache_len)
             return x
 
         for seg in range(max(lo, 1), min(hi, H + 1)):
             i = seg - 1
             x = self._layer_apply(
-                cfg.head_blocks[i], up(params["head"][i]), x, masks, f"h{i}",
-                opt, positions, cache=None if cache is None
+                cfg.head_blocks[i], up(params["head"][i],
+                                       None if fs is None else fs["head"][i]),
+                x, masks, f"h{i}", opt, positions, cache=None if cache is None
                 else cache["head"][i], cache_len=cache_len)
         reps = range(max(lo - 1 - H, 0), min(hi - 1 - H, R))
         if len(reps):
@@ -365,19 +411,38 @@ class LM:
         for seg in range(max(lo, H + R + 1), hi):
             i = seg - 1 - H - R
             x = self._layer_apply(
-                cfg.tail[i], up(params["tail"][i]), x, masks, f"t{i}", opt,
-                positions, cache=None if cache is None
+                cfg.tail[i], up(params["tail"][i],
+                                None if fs is None else fs["tail"][i]),
+                x, masks, f"t{i}", opt, positions, cache=None if cache is None
                 else cache["tail"][i], cache_len=cache_len)
         return x
 
+    def _vocab_split(self, embed) -> bool:
+        """Whether ``embed`` holds the rank's block of the vocabulary."""
+        return self._tp is not None and embed.shape[0] != self.cfg.vocab
+
     def _logits(self, params, x, return_hidden=False):
+        """The final norm, then the logits ``x @ embed.T``: under a split
+        vocabulary, the rank's block of them (``(…, V / size)``)."""
         x = layers.rmsnorm(params["final_norm"], x)
         if return_hidden:
             return x
-        return x @ params["embed"].T.to(x.dtype)
+        emb = params["embed"]
+        if self._vocab_split(emb):
+            x = spmd.enter(x, self._tp)
+        return x @ emb.T.to(x.dtype)
 
     def _embed(self, params, tokens):
-        return params["embed"][tokens.long()]
+        """The token embedding; under a split vocabulary each rank looks up
+        the tokens of its block (the rest read 0) and the axis sums."""
+        emb = params["embed"]
+        if not self._vocab_split(emb):
+            return emb[tokens.long()]
+        n = emb.shape[0]
+        t = tokens.long() - self._tp.index * n
+        ok = (t >= 0) & (t < n)
+        rows = torch.where(ok[..., None], emb[torch.where(ok, t, 0)], 0)
+        return spmd.all_reduce_sum(rows, self._tp)
 
     # ------------------------------------------------------------ forward
 
@@ -704,8 +769,22 @@ class LM:
         tree :meth:`forward` documents; the stack's leaves carry a leading
         repeats axis (a shared block's too: its parameters are shared, its
         caches are not) and every leaf is a tensor of its own (they are
-        written in place)."""
+        written in place).  On a mesh, the rank's held piece of it
+        (:func:`held_cache_specs`): the B sequences split over ``"data"``
+        where they divide, heads over ``"model"``."""
         cfg, R = self.cfg, self.cfg.n_repeats
+        if self.mesh is not None and torch.device(device).type != "meta":
+            shapes = LM(cfg).init_cache(B, max_len, "meta")
+            specs = held_cache_specs(shapes, ("data",), self.data_axis.size,
+                                     B, self.data_axis.size,
+                                     self.model_axis.size)
+            sizes = {"data": self.data_axis.size,
+                     "model": self.model_axis.size}
+            return _map_specs(
+                lambda t, sp: torch.zeros(spmd.local_shape(t.shape, sp,
+                                                           sizes),
+                                          dtype=t.dtype, device=device),
+                shapes, specs)
         stack = {}
         for pos, blk in enumerate(cfg.pattern):
             stack[str(pos)] = _stack_trees(
@@ -716,6 +795,11 @@ class LM:
                 "stack": stack,
                 "tail": [self._layer_cache(b, B, max_len, device)
                          for b in cfg.tail]}
+
+    def param_shapes(self):
+        """The parameter tree on the ``"meta"`` device: shapes and dtypes,
+        no storage (the reference's ``jax.eval_shape(model.init)``)."""
+        return LM(self.cfg).init(None, "meta")
 
 
 def _positions(B: int, S: int, cache_len, device):
@@ -827,3 +911,208 @@ def _index(tree, r: int):
     if isinstance(tree, tuple):
         return tuple(_index(v, r) for v in tree)
     return tree[r]
+
+
+def _gather_data(tree, specs, axis):
+    """A block's parameters with every leaf split over ``"data"`` (ZeRO-3)
+    gathered whole along that dimension (its gradient reduce-scattered)."""
+    if isinstance(tree, dict):
+        return {k: _gather_data(v, specs[k], axis) for k, v in tree.items()}
+    d = specs.dim_of("data")
+    return tree if d is None else spmd.all_gather_dim(tree, d, axis)
+
+
+def _row_specs(specs):
+    """A stacked block's placements for one of its rows (the leading
+    repeats axis dropped)."""
+    if isinstance(specs, dict):
+        return {k: _row_specs(v) for k, v in specs.items()}
+    return spmd.Spec(*specs[1:])
+
+
+def _check_tensor_parallel(cfg: ArchConfig, model: int) -> None:
+    """Refuse a config the tensor-parallel forward cannot split over
+    ``model`` ranks: MoE and Mamba2 blocks (``ROADMAP.md`` Queue A13), and
+    heads that the ``_COL`` rule would cut mid-head."""
+    kinds = {b.kind for b in tuple(cfg.head_blocks) + tuple(cfg.pattern)
+             + tuple(cfg.tail)}
+    if kinds & {"moe", "mamba"}:
+        raise NotImplementedError(
+            f"{cfg.name}: {sorted(kinds & {'moe', 'mamba'})} blocks under "
+            f"model={model} (tensor parallelism) are not ported; their "
+            "tensor-parallel forwards are ROADMAP.md Queue A13")
+    if kinds & {"dense", "attn_only"} and cfg.n_heads % model:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_heads} attention heads do not split over "
+            f"model={model} ranks")
+    if "rwkv" in kinds:
+        H = cfg.d_model // cfg.rwkv_head_dim
+        if cfg.d_model % model == 0 and H % model:
+            raise NotImplementedError(
+                f"{cfg.name}: {H} RWKV heads do not split over "
+                f"model={model} ranks")
+
+
+# =================================================================== specs
+#
+# The reference's placement rules (``repro/models/lm.py``), to the bit, as
+# host logic over shapes and integer axis sizes: each function returns a
+# tree mirroring its input whose leaves are ``spmd.Spec`` tuples (a mesh
+# axis name, a tuple of names, or None per dimension; the reference's
+# ``P()`` is ``Spec()``).
+
+_COL = {"wq", "wk", "wv", "w_gate", "w_up", "w_ck", "w_cr", "w_r", "w_k",
+        "w_v", "w_g", "w_w", "w_z", "w_x"}    # (..., in, out): TP on out
+_ROW = {"wo", "w_down", "w_out", "w_o", "w_cv"}  # (..., in, out): TP on in
+_FSDP_ONLY = {"router", "w_bcdt"}
+
+
+def _leaf_spec(name: str, shape, data: int, model: int,
+               fsdp: bool = True) -> spmd.Spec:
+    nd = len(shape)
+
+    def ok(dim_idx, axis_size):
+        return shape[dim_idx] % axis_size == 0
+
+    if name == "embed":
+        return spmd.Spec("model" if ok(0, model) else None, None)
+    if name in _COL:
+        sp = ["data" if fsdp and ok(nd - 2, data) else None,
+              "model" if ok(nd - 1, model) else None]
+    elif name in _ROW:
+        sp = ["model" if ok(nd - 2, model) else None,
+              "data" if fsdp and ok(nd - 1, data) else None]
+    elif name in _FSDP_ONLY:
+        sp = ["data" if fsdp and ok(nd - 2, data) else None, None]
+    elif name == "conv":
+        sp = [None, "model" if ok(nd - 1, model) else None]
+    else:
+        return spmd.Spec()
+    return spmd.Spec(*([None] * (nd - 2) + sp))
+
+
+def map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over a nested dict / list / tuple / namedtuple
+    (``path``: dict keys as strings, sequence indices as ints); a
+    ``spmd.Spec`` is a leaf, None stays None."""
+    if isinstance(tree, spmd.Spec):
+        return fn(path, tree)
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(type(tree), "_fields"):
+        return type(tree)(*(map_with_path(fn, v, path + (f,))
+                            for f, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(path, tree)
+
+
+def _leaf_name(path):
+    for p in reversed(path):
+        if isinstance(p, str):
+            return p
+    return None
+
+
+def _map_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree and its placement tree."""
+    if isinstance(specs, spmd.Spec):
+        return fn(tree, specs)
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    return type(tree)(_map_specs(fn, v, s) for v, s in zip(tree, specs))
+
+
+def param_specs(params_shape, data: int, model: int, fsdp: bool = True):
+    """Placement tree mirroring the params tree (rule-based on leaf name,
+    the last dict key of its path).  ``data``/``model``: mesh axis sizes
+    (for divisibility checks).  ``fsdp=False`` turns off the ZeRO-3
+    ``"data"``-axis weight sharding (pure TP).  ``params_shape``: any tree
+    whose leaves have ``.shape`` (:meth:`LM.param_shapes`)."""
+    return map_with_path(
+        lambda path, leaf: _leaf_spec(_leaf_name(path), tuple(leaf.shape),
+                                      data, model, fsdp), params_shape)
+
+
+def cache_specs(cache_shape, dp_axes: Tuple[str, ...], B: int, data: int,
+                model: int, shard_seq: bool = False):
+    """Placements for decode caches, the reference's rule as it is: a leaf
+    of 3 or more dimensions splits its first over ``dp_axes`` and, for a
+    4-D leaf longer than 4096 along its second (a KV cache), its heads (or
+    head_dim) over ``"model"``, else its second over ``"model"``; a 2-D
+    prev-token leaf its batch and its ``d``.  A stacked leaf's first
+    dimension is its repeats axis, which the rule reads as the batch."""
+    def f(path, leaf):
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        if nd >= 3:
+            batch_ok = B % (data) == 0 and B >= data
+            sp = [dp_axes if batch_ok and shape[0] % data == 0 else None]
+            if nd == 4 and shape[1] > 4096:
+                sp.append("data" if (shard_seq and not batch_ok and
+                                     shape[1] % data == 0) else None)
+                sp.append("model" if shape[2] % model == 0 else None)
+                sp.append(None if shape[2] % model == 0 else
+                          ("model" if shape[3] % model == 0 else None))
+            else:
+                sp.append("model" if shape[1] % model == 0 else None)
+                sp += [None] * (nd - 2)
+            return spmd.Spec(*sp)
+        if nd == 2:
+            return spmd.Spec(dp_axes if shape[0] % data == 0 and B >= data
+                             else None,
+                             "model" if shape[1] % model == 0 else None)
+        return spmd.Spec()
+    return map_with_path(f, cache_shape)
+
+
+# ------------------------------------------------------- held layouts
+#
+# Where the tensor-parallel forward needs a leaf otherwise than the
+# reference's placement puts it, the port holds it in the layout it
+# computes with; the values are the reference's (docs/port.md lists every
+# difference).
+
+
+def held_param_specs(specs, cfg: ArchConfig, model: int):
+    """The parameter layout the port holds: the reference's
+    :func:`param_specs`, except ``wk`` / ``wv`` whole over ``"model"``
+    where the kv heads do not split over it (each rank's query heads read
+    their own kv heads, :func:`layers._local_heads`)."""
+    if model == 1 or cfg.n_kv_heads % model == 0:
+        return specs
+
+    def f(path, spec):
+        if _leaf_name(path) in ("wk", "wv"):
+            return spmd.Spec(*(None if e == "model" else e for e in spec))
+        return spec
+    return map_with_path(f, specs)
+
+
+def held_cache_specs(cache_shape, dp_axes, dp_size: int, B: int, data: int,
+                     model: int):
+    """The cache layout the port holds (:meth:`LM.init_cache` on a mesh):
+    the batch over ``dp_axes`` where B splits over them (as the
+    reference's ``training.serve._cache_specs``); a KV cache ``(B, S, KV,
+    hd)`` its kv heads over ``"model"`` where they split, whole
+    otherwise, never its sequence; an RWKV-6 state ``(B, H, hd, hd)`` its
+    heads; the token shifts ``(B, d)`` whole along ``d``; a Mamba2 cache
+    whole but for its batch."""
+    batch_ok = B % dp_size == 0 and B >= dp_size
+    bspec = dp_axes if batch_ok else None
+
+    def f(path, leaf):
+        stacked = "stack" in path
+        shape = tuple(leaf.shape)[1:] if stacked else tuple(leaf.shape)
+        name = _leaf_name(path)
+        rest = [None] * (len(shape) - 1)
+        if name == "kv":
+            rest[1] = "model" if shape[2] % model == 0 else None
+        elif name == "state":
+            rest[0] = "model" if shape[1] % model == 0 else None
+        sp = spmd.Spec(bspec, *rest)
+        return spmd.Spec(None, *sp) if stacked else sp
+    return map_with_path(f, cache_shape)

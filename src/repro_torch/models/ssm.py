@@ -31,7 +31,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import linearize
+from repro_torch.core import linearize, spmd
 from repro_torch.kernels import ops, ref
 from . import layers
 
@@ -242,7 +242,7 @@ def _lerp(mu, x, xs):
     return (mu * x + (1 - mu) * xs).to(x.dtype)
 
 
-def rwkv_time_mix(p, c: RWKVCfg, x, *, cache=None):
+def rwkv_time_mix(p, c: RWKVCfg, x, *, cache=None, tp=None):
     """The time-mix of (…, B, S, D) activations; the scan runs on
     ``(G·H, S, hd)`` float32 rows, G the product of the leading axes.
     Raises ``ValueError`` when S exceeds the scan chunk and is not a
@@ -253,9 +253,26 @@ def rwkv_time_mix(p, c: RWKVCfg, x, *, cache=None):
     float32, prev_x (B, D) the block input's last token — takes x (B, S, D)
     and returns ``(y, (S_end, x[:, -1]))``: the scan starts from ``state``
     and its final state is kept; one token takes the exact recurrence
-    :func:`linattn_step` instead of the scan, as the reference does."""
+    :func:`linattn_step` instead of the scan, as the reference does.
+
+    ``tp`` (tensor parallelism over ``"model"``): the ``_COL`` projections
+    ``w_r``, ``w_k``, ``w_v``, ``w_g``, ``w_w`` hold the rank's block of
+    ``H / size`` heads, the per-head leaves every rank holds whole (the
+    bonus ``u``, the decay bias) are cut to it, the scan (kernel 7) runs on
+    those heads and the state ``(B, H / size, hd, hd)`` holds them; the
+    ``_ROW`` output projection ``w_o`` gives a partial sum, summed over the
+    axis.  The token shift reads the whole ``d``."""
     *lead, S, d = x.shape
     H, hd = c.n_heads, c.head_dim
+    span = layers.tp_split(p["w_r"].shape[-1], d, tp)
+    if span is not None:
+        lo, hi = span
+        H = (hi - lo) // hd
+        x = spmd.enter(x, tp)
+        p = dict(p, mu=spmd.enter(p["mu"], tp),
+                 w_bias=spmd.enter(p["w_bias"], tp)[lo:hi],
+                 u=spmd.enter(p["u"], tp)[lo // hd:hi // hd],
+                 ln_x={"scale": spmd.enter(p["ln_x"]["scale"], tp)})
     chunk = min(c.chunk, S)
     step = S == 1 and cache is not None
     if S % chunk and not step:
@@ -292,16 +309,18 @@ def rwkv_time_mix(p, c: RWKVCfg, x, *, cache=None):
     else:
         y, s_end = ops.rwkv6(r, k, v, wdec, p["u"], s0, chunk=chunk)
     y = layers.rmsnorm(p["ln_x"], y)                    # per-head norm
-    y = y.reshape(G, H, S, hd).transpose(1, 2).reshape(*lead, S, d) \
+    y = y.reshape(G, H, S, hd).transpose(1, 2).reshape(*lead, S, H * hd) \
         .to(x.dtype)
     out = (y * g) @ p["w_o"]
+    if span is not None:
+        out = spmd.all_reduce_sum(out, tp)
     if cache is None:
         return out
     return out, (s_end.reshape(G, H, hd, hd), x[:, -1])
 
 
 def rwkv_channel_mix(p, c: RWKVCfg, x, mask, site: linearize.MaskSite, *,
-                     poly=None, soft=False, ties=True, cache=None):
+                     poly=None, soft=False, ties=True, cache=None, tp=None):
     """Channel-mix with the sqrelu mask site, gated through
     ``linearize.apply_masked_act`` (kernels 1 and 2), never a fused
     product, as the reference routes it.  x: (B, S, D) or stacked
@@ -310,8 +329,20 @@ def rwkv_channel_mix(p, c: RWKVCfg, x, mask, site: linearize.MaskSite, *,
     stride-0 candidate view.
 
     Without a cache returns y alone; ``cache=prev_x`` (B, D), the block
-    input's last token, returns ``(y, x[:, -1])``."""
-    xs = _shift(x, cache)
+    input's last token, returns ``(y, x[:, -1])``.
+
+    ``tp``: ``w_ck`` holds the rank's block of F columns and ``w_cv`` its
+    rows (the mask is cut to it; the product is summed over the axis);
+    ``w_cr`` (``_COL``) holds a block of the d output columns, whose
+    receptance the axis gathers back to the whole d."""
+    span = layers.tp_split(p["w_ck"].shape[-1], site.shape[-1], tp)
+    prev = cache
+    if span is not None:
+        x = spmd.enter(x, tp)
+        p = dict(p, mu_c=spmd.enter(p["mu_c"], tp))
+        mask, poly = layers.slice_site(mask, poly, span)
+        site = dataclasses.replace(site, shape=(span[1] - span[0],))
+    xs = _shift(x, prev)
     xk = _lerp(p["mu_c"][0], x, xs)
     xr = _lerp(p["mu_c"][1], x, xs)
     h = xk @ p["w_ck"]
@@ -319,5 +350,10 @@ def rwkv_channel_mix(p, c: RWKVCfg, x, mask, site: linearize.MaskSite, *,
         h = h.unsqueeze(0).expand((mask.shape[0],) + tuple(h.shape))
     a = linearize.apply_masked_act(h, mask, site, poly=poly, soft=soft,
                                    ties=ties)
-    out = (a @ p["w_cv"]) * torch.sigmoid(xr @ p["w_cr"])
+    kv = a @ p["w_cv"]
+    r = torch.sigmoid(xr @ p["w_cr"])
+    if span is not None:
+        kv = spmd.all_reduce_sum(kv, tp)
+        r = spmd.all_gather_dim(r, -1, tp, grad="slice")
+    out = kv * r
     return out if cache is None else (out, x[:, -1])

@@ -33,6 +33,14 @@ the job's :mod:`repro_torch.launch.coordinator`).  :func:`save` enforces
 this when handed a coordinator; reader ranks follow the writer's lineage
 with :func:`wait_for_step` and prove they restored the same checkpoint by
 comparing :func:`manifest_fingerprint` values.
+
+Sharded states (``shardings=``, a ``launch.mesh.Shardings``): :func:`save`
+gathers each leaf whole, leaf by leaf on every rank, and rank 0 of the
+process group writes the same files, manifest and sha256 as a one-process
+save of the same values; :func:`restore` is the reference's elastic
+restore, each rank reading only its slice of each leaf (``np.load`` with
+``mmap_mode="r"``), so a checkpoint saved on one mesh restores onto any
+other, or onto one process.
 """
 from __future__ import annotations
 
@@ -223,8 +231,43 @@ def _leaf_tensor(arr: np.ndarray, dtype: Optional[str]) -> torch.Tensor:
         .view(torch.bfloat16)
 
 
+def _flatten_specs(specs, prefix: Tuple[str, ...] = ()) -> Dict[str, Any]:
+    """A placement tree's ``spmd.Spec`` leaves by their keys, as
+    :func:`_flatten` keys a state's leaves."""
+    from repro_torch.core import spmd
+    if isinstance(specs, spmd.Spec):
+        return {_SEP.join(prefix): specs}
+    out = {}
+    if isinstance(specs, dict):
+        for k in specs:
+            out.update(_flatten_specs(specs[k], prefix + (str(k),)))
+    elif isinstance(specs, tuple) and hasattr(type(specs), "_fields"):
+        for f, v in zip(specs._fields, specs):
+            out.update(_flatten_specs(v, prefix + (f,)))
+    elif isinstance(specs, (list, tuple)):
+        for i, v in enumerate(specs):
+            out.update(_flatten_specs(v, prefix + (str(i),)))
+    return out
+
+
+def _sharded_arrays(flat, shardings, writer: bool) -> dict:
+    """Every leaf gathered whole over the mesh, leaf by leaf in key order
+    on every rank; the writer keeps each as its host array."""
+    from repro_torch.core import spmd
+    from repro_torch.launch import mesh as mesh_lib
+    specs = _flatten_specs(shardings.specs)
+    arrays = {}
+    for key, leaf in sorted(flat, key=lambda kv: kv[0]):
+        whole = mesh_lib.gather_tree(leaf, specs.get(key, spmd.Spec()),
+                                     shardings.mesh)
+        if writer:
+            arrays[key] = _host_array(whole)
+        del whole
+    return arrays
+
+
 def save(state, ckpt_dir: str, step: int, *, meta: Optional[dict] = None,
-         keep: int = 3, coordinator=None) -> str:
+         keep: int = 3, coordinator=None, shardings=None) -> str:
     """Atomic checkpoint write.  Returns the final directory.
 
     ``state`` is a nested dict / list / tuple of tensors (CUDA or CPU),
@@ -237,6 +280,11 @@ def save(state, ckpt_dir: str, step: int, *, meta: Optional[dict] = None,
     object) enforces the single-writer policy: a non-writer rank calling
     this raises :class:`CheckpointError` before any bytes are written —
     reader ranks must :func:`wait_for_step` instead.
+
+    ``shardings`` (a ``launch.mesh.Shardings``): ``state`` holds this
+    rank's shards.  Every rank calls ``save``; each leaf is gathered whole
+    and rank 0 of the process group writes; every rank returns once the
+    step directory is committed.
     """
     if coordinator is not None and not coordinator.is_writer:
         raise CheckpointError(
@@ -245,7 +293,25 @@ def save(state, ckpt_dir: str, step: int, *, meta: Optional[dict] = None,
             f"checkpoints to {ckpt_dir}; readers wait_for_step()")
     flat = _flatten(state)
     treedef = treedef_str(state)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if shardings is not None:
+        import torch.distributed as dist
+        from repro_torch.launch import mesh as mesh_lib
+        writer = mesh_lib.process_info()[0] == 0
+        arrays = _sharded_arrays(flat, shardings, writer)
+        if writer:
+            _commit(arrays, treedef, ckpt_dir, step, meta, keep)
+        if mesh_lib.process_info()[1] > 1:
+            dist.barrier()
+        return final
     arrays = {key: _host_array(leaf) for key, leaf in flat}
+    return _commit(arrays, treedef, ckpt_dir, step, meta, keep)
+
+
+def _commit(arrays: dict, treedef: str, ckpt_dir: str, step: int,
+            meta: Optional[dict], keep: int) -> str:
+    """Write the step directory from host arrays (key -> (array, dtype))
+    and rename it into place."""
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -347,8 +413,8 @@ def read_manifest(ckpt_dir: str, step: int) -> dict:
     return manifest
 
 
-def restore(state_template, ckpt_dir: str, step: Optional[int] = None, *,
-            device="cuda", verify: bool = True):
+def restore(state_template, ckpt_dir: str, step: Optional[int] = None,
+            shardings=None, *, device="cuda", verify: bool = True):
     """Restore into the structure of ``state_template``: returns ``(tree,
     step)``, every leaf a tensor on ``device`` with the dtype on disk (the
     manifest's ``"bfloat16"`` a ``torch.bfloat16`` leaf).
@@ -357,7 +423,13 @@ def restore(state_template, ckpt_dir: str, step: Optional[int] = None, *,
     more).  ``verify`` checks each leaf file against the manifest's sha256
     before use; corruption raises :class:`CheckpointError` instead of
     handing the caller partial state.
+
+    ``shardings`` (a ``launch.mesh.Shardings`` over the template's tree):
+    the reference's elastic restore — each leaf is this rank's shard of
+    it, read from the file's slice alone, whatever mesh saved it.
     """
+    specs = _flatten_specs(shardings.specs) if shardings is not None \
+        else None
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -384,7 +456,13 @@ def restore(state_template, ckpt_dir: str, step: Optional[int] = None, *,
                 f"checkpoint {d}: leaf {key!r} ({info['file']}) fails its "
                 "manifest sha256 — corrupted on disk")
         try:
-            t = _leaf_tensor(np.load(fpath), info.get("dtype"))
+            if specs is not None and key in specs and info.get("shape"):
+                from repro_torch.launch import mesh as mesh_lib
+                arr = mesh_lib.shard_tree(np.load(fpath, mmap_mode="r"),
+                                          specs[key], shardings.mesh)
+            else:
+                arr = np.load(fpath)
+            t = _leaf_tensor(arr, info.get("dtype"))
         except (ValueError, OSError, EOFError) as e:
             raise CheckpointError(
                 f"checkpoint {d}: leaf {key!r} unreadable: {e}") from e

@@ -10,8 +10,12 @@ and drills:
   run_supervised(...)   — restart-from-checkpoint loop (bounded failures)
   StragglerWatchdog     — per-step wall-time EWMA; flags slow steps
 
-Restoring onto another mesh (the reference's ``state_shardings``) needs
-more than one device and is not ported (``ROADMAP.md`` Queue A11).
+A sharded run (``state_shardings``, a ``launch.mesh.Shardings`` of the
+train state's held layout) runs the loop on every rank of the mesh: rank 0
+writes each checkpoint, gathered whole (``checkpoint.save(shardings=)``),
+and a (re)start restores each rank's shards from the newest one, whatever
+mesh wrote it (``checkpoint.restore(shardings=)``).  An injected failure
+fires at the same step on every rank.
 """
 from __future__ import annotations
 
@@ -84,14 +88,11 @@ def run_supervised(
     ``ckpt_dir`` into ``init_state_fn()``'s structure, its leaves on
     ``device``, or starts from ``init_state_fn()`` when there is none; a
     checkpoint is written after every ``ckpt_every``-th step and after the
-    last.  ``state_shardings`` must be None (one device).
+    last.  ``state_shardings``: the state is sharded over a mesh (see the
+    module's docstring); ``init_state_fn()`` returns this rank's shards.
 
     Returns {state, restarts, flagged_steps, completed_steps}.
     """
-    if state_shardings is not None:
-        raise NotImplementedError(
-            "run_supervised(state_shardings=): restoring onto a mesh is not "
-            "ported (multi-device, ROADMAP.md Queue A11)")
     restarts = 0
     while True:
         # ---- (re)start: newest valid checkpoint, else fresh init
@@ -101,6 +102,7 @@ def run_supervised(
         if latest is not None and checkpoint.validate(ckpt_dir, latest):
             template = init_state_fn()
             state, start = checkpoint.restore(template, ckpt_dir, latest,
+                                              shardings=state_shardings,
                                               device=device)
             del template
         if state is None:
@@ -114,7 +116,8 @@ def run_supervised(
                 if watchdog is not None:
                     watchdog.observe(step, time.perf_counter() - t0)
                 if (step + 1) % ckpt_every == 0 or step + 1 == n_steps:
-                    checkpoint.save(state, ckpt_dir, step + 1)
+                    checkpoint.save(state, ckpt_dir, step + 1,
+                                    shardings=state_shardings)
             return {"state": state, "restarts": restarts,
                     "flagged_steps": (watchdog.flagged if watchdog else []),
                     "completed_steps": n_steps}

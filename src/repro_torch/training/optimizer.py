@@ -134,7 +134,8 @@ class OptState(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     """An (init, update) pair — the optax-style contract — and the rule it
-    is made of: ``prepare(grads, state)`` gives the step's values (the
+    is made of: ``prepare(grads, state, sumsq=None)`` gives the step's
+    values (the
     learning rate, the gradient clip's scale), ``leaf(ctx, g, m, n, p,
     owned=False)`` one leaf's ``(update, new m, new n)`` (n is None for
     SGD), with ``owned`` writing the new moments over m and n."""
@@ -163,7 +164,7 @@ def _tree_update(prepare, leaf):
 
 
 def step_leaves(opt: Optimizer, grads: list, state: OptState,
-                params: list):
+                params: list, sumsq=None):
     """One step of ``opt`` on lists of leaves (:func:`tree_leaves` order),
     **in place**: leaf by leaf, the moments in ``state.mu`` / ``state.nu``
     (lists from ``opt.init`` of a list, which the step owns) are updated
@@ -172,8 +173,12 @@ def step_leaves(opt: Optimizer, grads: list, state: OptState,
     made.  The peak is then the parameters, gradients and moments and a
     few of one leaf's temporaries, not a second copy of each tree.  The
     arithmetic is ``opt.update`` followed by :func:`apply_updates`, bit
-    for bit.  Returns ``(params, new_state)``: the same lists."""
-    ctx = opt.prepare(grads, state)
+    for bit.  Returns ``(params, new_state)``: the same lists.
+
+    ``sumsq`` (sharded leaves): ``grads -> Σ g²`` over the whole leaves
+    (a 0-d float32 tensor), for the gradient clip's global norm
+    (:func:`_clip_scale`)."""
+    ctx = opt.prepare(grads, state, sumsq)
     mu, nu = state.mu, state.nu
     for i in range(len(params)):
         u, _, _ = opt.leaf(ctx, grads[i], mu[i],
@@ -216,9 +221,9 @@ def sgd(lr: float = 1e-3, momentum: float = 0.9,
     def init(params):
         return OptState(0, _zeros_like_tree(params), None)
 
-    def prepare(grads, state):
+    def prepare(grads, state, sumsq=None):
         lr_t = sched(state.step)
-        return (_clip_scale(grads, grad_clip), lr_t,
+        return (_clip_scale(grads, grad_clip, sumsq), lr_t,
                 _f32(np.float32(lr_t) * np.float32(weight_decay)))
 
     def leaf(ctx, g, m, n, p, owned=False):
@@ -245,10 +250,10 @@ def adamw(lr: float = 3.5e-5, b1: float = 0.9, b2: float = 0.999,
         return OptState(0, _zeros_like_tree(params),
                         _zeros_like_tree(params))
 
-    def prepare(grads, state):
+    def prepare(grads, state, sumsq=None):
         step = state.step + 1
         lr_t = sched(state.step)
-        return (_clip_scale(grads, grad_clip), lr_t,
+        return (_clip_scale(grads, grad_clip, sumsq), lr_t,
                 _f32(np.float32(lr_t) * np.float32(weight_decay)),
                 np.float32(1.0) - np.float32(b1) ** np.float32(step),
                 np.float32(1.0) - np.float32(b2) ** np.float32(step))
@@ -289,13 +294,19 @@ def adamw(lr: float = 3.5e-5, b1: float = 0.9, b2: float = 0.999,
     return Optimizer(init, _tree_update(prepare, leaf), prepare, leaf)
 
 
-def _clip_scale(grads, max_norm):
+def _clip_scale(grads, max_norm, sumsq=None):
     """The gradient clip's factor (a 0-d tensor), or None without a clip:
-    the global norm over every leaf, in :func:`tree_leaves` order."""
+    the global norm over every leaf, in :func:`tree_leaves` order.
+    ``sumsq``: the sum of squares of sharded leaves, each whole leaf
+    counted once (``training.train``'s sharded step), in place of the
+    local sum."""
     if not max_norm:
         return None
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                        for g in tree_leaves(grads)))
+    if sumsq is not None:
+        gn = torch.sqrt(sumsq(tree_leaves(grads)))
+    else:
+        gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                            for g in tree_leaves(grads)))
     return torch.clamp_max(torch.full_like(gn, max_norm) / (gn + 1e-9), 1.0)
 
 

@@ -1,12 +1,16 @@
 """Serving: batched prefill + single-token decode over a resident cache.
 
-Counterpart of ``repro/training/serve.py`` on one device.  The reference
-jits closures over ``LM.forward`` with the cache as a jit input and output;
-here the closures are plain functions and the cache is written in place
-(``models.lm.LM.forward(cache=)``).  The reference's mesh half —
-``ServeCfg``, ``serve_shardings``, ``_cache_specs``, ``jit_prefill`` and
-``jit_decode_step`` — needs a device mesh and waits for ``ROADMAP.md``
-Queue A11.
+Counterpart of ``repro/training/serve.py``.  The reference jits closures
+over ``LM.forward`` with the cache as a jit input and output; here the
+closures are plain functions and the cache is written in place
+(``models.lm.LM.forward(cache=)``).
+
+Over a ``("data", "model")`` mesh (``ServeCfg``, ``serve_shardings``,
+``_cache_specs``, ``jit_prefill``, ``jit_decode_step``, under the
+reference's names; there is no jit): every rank runs the same function on
+its shards, the batch split over ``"data"`` where it divides and the model
+tensor-parallel over ``"model"`` (``models.lm.LM`` on a mesh).  The
+reference's placements are returned beside the layout the port holds.
 
 Also here: :class:`MaskSetStore`, several ReLU budgets served from one
 resident parameter set, and the slot surgery of continuous batching
@@ -18,7 +22,7 @@ import dataclasses
 import glob
 import os
 import re
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,14 +32,9 @@ from repro_torch.core import masks as M, pi_cost
 
 def make_prefill(model):
     """Prefill function: ``(params, masks, tokens, cache) -> (last logits
-    (B, V), cache)``, the cache filled in place from position 0."""
-    def prefill(params, masks, tokens, cache, prefix_embeds=None,
-                ties=True):
-        logits, cache = model.forward(params, masks, tokens,
-                                      prefix_embeds=prefix_embeds,
-                                      cache=cache, cache_len=0, ties=ties)
-        return logits[:, -1], cache
-    return prefill
+    (B, V), cache)``, the cache filled in place from position 0.
+    :func:`jit_prefill` on no mesh."""
+    return jit_prefill(model, None, ServeCfg())
 
 
 def make_decode_step(model):
@@ -43,13 +42,197 @@ def make_decode_step(model):
     ``(params, masks, token (B, 1), cache, cache_len) -> (next token
     (B, 1) int32, cache, last-position logits (B, V))``; ``cache_len`` an
     int or a (B,) array of per-slot positions.  The reference returns the
-    first two; the logits are the ones the token was taken from."""
+    first two; the logits are the ones the token was taken from.
+    :func:`jit_decode_step` on no mesh."""
+    return jit_decode_step(model, None, ServeCfg())
+
+
+# ------------------------------------------------------------ over a mesh
+
+
+@dataclasses.dataclass
+class ServeCfg:
+    """Serving shape/placement knobs (batch, cache length, DP axes)."""
+
+    dp_axes: Tuple[str, ...] = ("data",)
+    max_len: int = 32768
+    batch: int = 128
+    greedy: bool = True
+
+
+class ServeShardings(NamedTuple):
+    """The reference's placements (``params``, ``cache``) and the layouts
+    the port holds (``held_params``, ``held_cache``); trees of
+    ``spmd.Spec``."""
+
+    params: object
+    cache: object
+    held_params: object
+    held_cache: object
+
+
+def _sizes(mesh) -> Dict[str, int]:
+    """Mesh axis sizes: a ``DeviceMesh``, or a mapping name -> size (the
+    reference's ``mesh.shape``)."""
+    if isinstance(mesh, dict):
+        return dict(mesh)
+    from repro_torch.launch import mesh as mesh_lib
+    return {n: mesh_lib.axis(mesh, n).size for n in mesh.mesh_dim_names}
+
+
+def _dp(mesh, dp_axes) -> int:
+    n = 1
+    sizes = _sizes(mesh)
+    for a in dp_axes:
+        n *= sizes[a]
+    return n
+
+
+def serve_shardings(model, mesh, cfg: ServeCfg) -> ServeShardings:
+    """The reference's ``(param placements, cache placements)`` — the
+    parameters by ``param_specs(fsdp=False)``, the caches by
+    :func:`_cache_specs` — and the layouts the port holds
+    (``models.lm.held_param_specs``, ``models.lm.held_cache_specs``).
+    ``mesh``: a ``DeviceMesh`` or ``{"data": d, "model": m}``."""
+    from repro_torch.models import lm as lm_lib
+    sizes = _sizes(mesh)
+    data, model_ax = sizes.get("data", 1), sizes.get("model", 1)
+    dp_size = _dp(mesh, cfg.dp_axes)
+    pspec = lm_lib.param_specs(model.param_shapes(), data, model_ax,
+                               fsdp=False)
+    cshapes = lm_lib.LM(model.cfg).init_cache(cfg.batch, cfg.max_len,
+                                              "meta")
+    cspec = _cache_specs(cshapes, cfg.dp_axes, dp_size, cfg.batch, data,
+                         model_ax)
+    return ServeShardings(
+        pspec, cspec, lm_lib.held_param_specs(pspec, model.cfg, model_ax),
+        lm_lib.held_cache_specs(cshapes, cfg.dp_axes, dp_size, cfg.batch,
+                                data, model_ax))
+
+
+def _cache_specs(cache_shape, dp_axes, dp_size: int, B: int, data: int,
+                 model_ax: int):
+    """The reference's rule, as it is.  KV (B,S,KV,hd) with S >= 1024:
+    batch over dp if divisible, else seq over 'data'; heads (or head_dim)
+    over 'model' when divisible.  Any other 4-D leaf (SSM/RWKV states, and
+    a KV cache shorter than 1024, whose sequence axis the rule then puts
+    on 'model'): batch over dp, its second axis over 'model'.  Conv state
+    (B, dc-1, di): di over 'model'; prev-token (B, d): d over 'model'."""
+    from repro_torch.core import spmd
+    from repro_torch.models import lm as lm_lib
+    batch_ok = B % dp_size == 0 and B >= dp_size
+
+    def f(path, leaf):
+        stacked = "stack" in path
+        shape = tuple(leaf.shape)[1:] if stacked else tuple(leaf.shape)
+        nd = len(shape)
+        bspec = dp_axes if batch_ok else None
+        if nd == 4 and shape[1] >= 1024:
+            seq = None if batch_ok else "data"
+            kv_ok = shape[2] % model_ax == 0
+            sp = spmd.Spec(bspec, seq, "model" if kv_ok else None,
+                           "model" if (not kv_ok and shape[3] % model_ax == 0)
+                           else None)
+        elif nd == 4:
+            sp = spmd.Spec(bspec, "model" if shape[1] % model_ax == 0
+                           else None, None, None)
+        elif nd == 3:
+            sp = spmd.Spec(bspec, None,
+                           "model" if shape[2] % model_ax == 0 else None)
+        elif nd == 2:
+            sp = spmd.Spec(bspec, "model" if shape[1] % model_ax == 0
+                           else None)
+        else:
+            sp = spmd.Spec()
+        return spmd.Spec(None, *sp) if stacked else sp
+    return lm_lib.map_with_path(f, cache_shape)
+
+
+def shard_params(params, model, mesh):
+    """Whole parameters (tensors or numpy arrays) cut to this rank's held
+    serving shards (:func:`serve_shardings` ``held_params``; the cache's
+    shape does not enter them)."""
+    from repro_torch.launch import mesh as mesh_lib
+    sh = serve_shardings(model, mesh, ServeCfg(batch=1, max_len=1))
+    return mesh_lib.shard_tree(params, sh.held_params, mesh)
+
+
+def local_rows(t, model, B: int):
+    """This rank's rows of a batch of ``B`` (split over ``"data"`` where B
+    divides, else all of them); ``t`` a tensor, array or scalar (a
+    scalar, or anything without B rows, is returned as it is)."""
+    ax = model.data_axis
+    if ax.size == 1 or B % ax.size or B < ax.size \
+            or not hasattr(t, "shape") or len(t.shape) == 0 \
+            or t.shape[0] != B:
+        return t
+    lo, hi = ax.span(B)
+    return t[lo:hi]
+
+
+def jit_prefill(model, mesh, cfg: ServeCfg, with_prefix: bool = False):
+    """The sharded prefill: ``(params, masks, tokens (B, S), cache,
+    prefix_embeds=None, ties=True) -> (last logits, cache)`` over this
+    rank's held ``params`` and ``cache`` (:func:`serve_shardings`).
+    ``tokens`` (and ``prefix_embeds``) are the whole batch; the rank takes
+    its rows.  The logits are its rows' and its block of the vocabulary
+    (``(B / data, V / model)``, the reference's sharded output)."""
+    del with_prefix        # a prefix rides on the same function
+    tpm = model.on_mesh(mesh)
+
+    def prefill(params, masks, tokens, cache, prefix_embeds=None,
+                ties=True):
+        if prefix_embeds is not None:
+            prefix_embeds = local_rows(prefix_embeds, tpm, cfg.batch)
+        logits, cache = tpm.forward(params, masks,
+                                    local_rows(tokens, tpm, cfg.batch),
+                                    prefix_embeds=prefix_embeds, cache=cache,
+                                    cache_len=0, ties=ties)
+        return logits[:, -1], cache
+    return prefill
+
+
+def jit_decode_step(model, mesh, cfg: ServeCfg):
+    """The sharded greedy decode step: ``(params, masks, token (B, 1),
+    cache, cache_len, ties=True) -> (next token (B, 1) int32, cache, last
+    logits)``.  ``token`` and a ``(B,)`` ``cache_len`` are the whole
+    batch; the rank decodes its rows, takes the argmax over the vocabulary
+    split over ``"model"`` (``spmd.argmax``: the first largest) and
+    gathers the batch's tokens over ``"data"``, so every rank returns the
+    same ``(B, 1)``.  The logits are the rank's (rows, vocabulary
+    block)."""
+    tpm = model.on_mesh(mesh)
+
     def decode_step(params, masks, token, cache, cache_len, ties=True):
-        logits, cache = model.forward(params, masks, token, cache=cache,
-                                      cache_len=cache_len, ties=ties)
+        logits, cache = tpm.forward(
+            params, masks, local_rows(token, tpm, cfg.batch), cache=cache,
+            cache_len=local_rows(cache_len, tpm, cfg.batch), ties=ties)
         last = logits[:, -1]
-        return last.argmax(-1, keepdim=True).to(torch.int32), cache, last
+        return greedy_tokens(last, tpm, token.shape[0]), cache, last
     return decode_step
+
+
+def greedy_tokens(last, model, B: int):
+    """``(B, 1)`` int32 greedy tokens of the whole batch, the same on
+    every rank, from this rank's (rows, vocabulary block) of last-position
+    logits: the argmax over ``"model"`` (``spmd.argmax``, the first
+    largest), the rows gathered over ``"data"``."""
+    from repro_torch.core import spmd
+    nxt = spmd.argmax(last, model.model_axis)
+    if nxt.shape[0] != B:
+        nxt = spmd.all_gather_dim(nxt, 0, model.data_axis)
+    return nxt[:, None].to(torch.int32)
+
+
+def gather_logits(logits, model, B: int):
+    """Whole ``(B, V)`` logits on every rank from each rank's (rows,
+    vocabulary block)."""
+    from repro_torch.core import spmd
+    if model.model_axis.size > 1 and logits.shape[-1] != model.cfg.vocab:
+        logits = spmd.all_gather_dim(logits, -1, model.model_axis)
+    if logits.shape[0] != B:
+        logits = spmd.all_gather_dim(logits, 0, model.data_axis)
+    return logits
 
 
 # ---------------------------------------------------------------- mask sets

@@ -4,6 +4,8 @@ reference's supervisor, injector and watchdog cases
 injected failure against an uninterrupted one, through the launcher's own
 code, equal to the bit.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -76,10 +78,33 @@ def test_failure_injector_fires_once_per_step():
 
 
 def test_restore_onto_a_mesh_names_the_queue(tmp_path):
+    """``state_shardings`` is ported (Queue A11; 4 ranks in
+    ``tests/test_torch_sharded_train.py``): with placements on no mesh (a
+    world of one) a supervised run with a failure writes the same
+    checkpoint files as one without placements."""
+    from repro_torch.core import spmd
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.training import ft
-    with pytest.raises(NotImplementedError, match="A11"):
-        ft.run_supervised(_mini_state, lambda s, i: s, n_steps=1,
-                          ckpt_dir=str(tmp_path), state_shardings={})
+
+    def step_fn(state, step):
+        p = state["params"]
+        return {"params": {"a": p["a"] + 1.0, "b": [p["b"][0] - 0.5]},
+                "step": state["step"] + 1}
+    specs = {"params": {"a": spmd.Spec(None, None), "b": [spmd.Spec(None)]},
+             "step": spmd.Spec()}
+    files = []
+    for label, sh in (("plain", None),
+                      ("placed", mesh_lib.Shardings(None, specs))):
+        d = tmp_path / label
+        out = ft.run_supervised(
+            lambda: _mini_state(0.0), step_fn, n_steps=4, ckpt_dir=str(d),
+            ckpt_every=2, state_shardings=sh, device="cpu",
+            injector=ft.FailureInjector(fail_at_steps=(3,)))
+        assert out["restarts"] == 1
+        step = d / "step_00000004"
+        files.append({f: (step / f).read_bytes()
+                      for f in sorted(os.listdir(step))})
+    assert files[0] == files[1]
 
 
 def _launch(tmp_path, steps, extra=()):

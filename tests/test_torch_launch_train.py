@@ -61,10 +61,16 @@ def test_compress_grads_and_remat_group_flags(tmp_path):
 
 
 def test_a_mesh_is_refused_naming_the_queue(tmp_path):
+    """``--mesh`` is ported (Queue A11; ``--mesh 2,2`` on 4 ranks in
+    ``tests/test_torch_sharded_train.py``): a mesh larger than the process
+    group is refused before anything is written or a group comes up."""
+    import torch.distributed as dist
     from repro_torch.launch import train as launch
-    with pytest.raises(SystemExit, match="A11"):
+    assert not dist.is_initialized()
+    with pytest.raises(ValueError, match="need 2 ranks, have 1"):
         launch.main(_args(tmp_path, 1, "--mesh", "2,1"))
     assert not os.path.exists(tmp_path / "ck")
+    assert not dist.is_initialized()
 
 
 def test_a_bfloat16_config_builds_and_trains_in_bfloat16(tmp_path):

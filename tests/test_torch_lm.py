@@ -442,9 +442,12 @@ def test_params_from_reference_carries_lists_and_bfloat16():
 
 def test_unported_parts_raise_and_name_the_queue():
     """Every architecture builds (the MoE and hybrid blocks came with
-    Queue A9); what still raises is the rest of the multi-device part
-    (Queue A11): sharded serving.  The sharded candidate engine is ported
-    (``tests/test_torch_sharded.py``): its factory checks its arguments."""
+    Queue A9), and sharded serving is ported (Queue A11,
+    ``tests/test_torch_sharded_serve.py``); what still raises is the
+    tensor-parallel forward of MoE and Mamba2 blocks (Queue A13), and a
+    mesh larger than the process group, which is never shrunk.  The
+    sharded candidate engine (``tests/test_torch_sharded.py``) checks its
+    arguments."""
     from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.configs.base import Block
     from repro_torch.core import engine
@@ -457,10 +460,17 @@ def test_unported_parts_raise_and_name_the_queue():
     m = LM(get_config("stablelm_1p6b").reduced())
     params = m.init(torch.Generator().manual_seed(0), "cpu")
     store = serve_loop.threshold_mask_sets(m, [1.0], device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        serve_loop.ServeLoop(m, params, store,
-                             serve_loop.default_classes(store),
-                             mesh=object(), device="cpu")
+    assert serve_loop.default_classes(store)
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import lm as lm_lib
+    import torch.distributed as dist
+    for arch in ("deepseek_moe_16b", "zamba2_2p7b"):
+        with pytest.raises(NotImplementedError, match="A13"):
+            lm_lib._check_tensor_parallel(get_config(arch).reduced(), 4)
+    if not dist.is_initialized():
+        with pytest.raises(ValueError, match="need 4 ranks, have 1"):
+            mesh_lib.make_host_mesh(2, 2, device="cpu")
+        assert not dist.is_initialized()
     with pytest.raises(ValueError, match="unknown block kind"):
         LM(dataclasses.replace(get_config("stablelm_1p6b").reduced(),
                                pattern=(Block("conv"),)))

@@ -563,15 +563,33 @@ def test_serving_entry_points_default_to_the_card():
 
 
 def test_mesh_is_refused_until_sharded_serving_is_ported():
-    from repro_torch.launch import serve, serve_loop
+    """Sharded serving is ported (``tests/test_torch_sharded_serve.py``);
+    a mesh larger than the process group is refused before any group
+    comes up, never shrunk; a mesh of one rank serves as one process
+    does."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib, serve, serve_loop
     _, _, _, _, tmodel, tparams = _build("stablelm_1p6b")
     store = serve_loop.threshold_mask_sets(tmodel, [1.0], device="cpu")
     classes = serve_loop.default_classes(store)
-    with pytest.raises(NotImplementedError, match="A11"):
-        serve_loop.ServeLoop(tmodel, tparams, store, classes, mesh=object(),
-                             device="cpu")
-    with pytest.raises(SystemExit, match="A11"):
+    if dist.is_initialized():
+        pytest.fail("a process group is up in this test process")
+    with pytest.raises(ValueError, match="need 2 ranks, have 1"):
         serve.main(["--mesh", "2,1", "--device", "cpu"])
+    assert not dist.is_initialized()
+    prompts = [np.arange(3 + i, dtype=np.int32) for i in range(3)]
+
+    def serve_all(mesh):
+        loop = serve_loop.ServeLoop(tmodel, tparams, store, classes,
+                                    mesh=mesh, device="cpu")
+        reqs = [loop.submit(p, classes[0].name) for p in prompts]
+        loop.shutdown(drain=True)
+        return loop.stats()["decisions_sha256"], [r.tokens for r in reqs]
+    try:
+        one = mesh_lib.make_host_mesh(1, 1, device="cpu")
+        assert serve_all(one) == serve_all(None)
+    finally:
+        mesh_lib.shutdown()
 
 
 def test_serve_clis_and_example_run_on_the_cpu(capsys):

@@ -273,10 +273,32 @@ def test_step_consumes_the_state_and_keeps_the_moments():
 
 
 def test_sharded_factories_name_the_queue():
-    from repro_torch.training import train
-    for fn in (train.state_specs, train.jit_train_step):
-        with pytest.raises(NotImplementedError, match="A11"):
-            fn(None, None)
+    """``state_specs`` and ``jit_train_step`` are ported (Queue A11,
+    ``tests/test_torch_specs.py``, ``tests/test_torch_sharded_train.py``):
+    on no mesh the sharded step is ``make_train_step``, bit for bit, and a
+    state's placements are the parameters' for every moment."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import linearize, masks as M
+    from repro_torch.models import lm
+    from repro_torch.training import optimizer as opt_lib, train
+    model = lm.LM(get_config("stablelm_1p6b").reduced())
+    opt = opt_lib.adamw(lr=1e-2, grad_clip=0.5)
+    sp = train.state_specs(model, opt, 2, 2)
+    assert sp["opt"].mu is sp["params"] is sp["opt"].nu
+    assert sp["step"] == () == sp["opt"].step
+    masks = M.as_device(linearize.init_masks(model.mask_sites()), "cpu")
+    t = torch.from_numpy(np.random.default_rng(0).integers(0, 128, (2, 9)))
+    batch = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    out = []
+    for make in (lambda: train.make_train_step(model, opt),
+                 lambda: train.jit_train_step(model, opt, None)):
+        state = train.make_state(model, opt,
+                                 torch.Generator().manual_seed(0), "cpu")
+        state, m = make()(state, batch, masks)
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    [x.clone() for x in opt_lib.tree_leaves(state)]))
+    assert out[0][:2] == out[1][:2]
+    assert all(torch.equal(a, b) for a, b in zip(out[0][2], out[1][2]))
 
 
 # ------------------------------------------------------ remat, hidden
