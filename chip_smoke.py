@@ -123,7 +123,17 @@ all 24 layers, float32, through ``ServeLoop(mesh=)`` on ``(1, 4)`` and
 each rank's decisions and tokens against the one-process loop's (run by
 this process meanwhile), its served tokens against the sharded uncached
 argmax, its logits within 1e-3 of the sharded and of the one-process
-uncached forward, each decode tick timed with its collectives; then
+uncached forward, each decode tick timed with its collectives; then the
+MoE and hybrid families split over ``"model"`` (``sharded_moe_serve``,
+``sharded_hybrid_serve`` and ``sharded_family_train`` lines,
+``--only-sharded-family`` alone): DeepSeek-MoE-16B at its published
+widths, float32, 4 of 28 layers, on ``(1, 4)`` and ``(2, 2)``, and
+Zamba2-2.7B, 6 of 54 layers, on ``(1, 4)``, a prefill of 4 × 64 tokens and
+4 greedy decode steps against this process's one-process run (tokens
+equal, logits within 1e-3 up to the first forward whose routes differ,
+differing routes counted, the model ranks of a batch slice routing
+alike), and a float32 SGD step of each on ``(2, 2)`` against one
+process's under the float32 gates below; then
 StableLM-2-1.6B in bfloat16, 2 of 24 layers: the first step's loss and
 gradients on ``(2, 2)`` against one process's by the bfloat16 rule, a
 float32 step against one process's within 1e-4, ``launch.train.run
@@ -395,6 +405,13 @@ PATH_KERNELS = {
     # backward on the F shard of the bfloat16 step)
     "sharded_serve": ("masked_act_2d", "rwkv6_scan"),
     "sharded_train": ("masked_act_2d", "masked_act_2d_bwd"),
+    # the MoE and hybrid families over "model": DeepSeek-MoE-16B's routed
+    # experts, shared expert and dense head block and Zamba2-2.7B's z
+    # gate on each rank's columns, and their float32 train steps (the gate
+    # and its backward)
+    "sharded_moe_serve": ("masked_act_2d",),
+    "sharded_hybrid_serve": ("masked_act_2d",),
+    "sharded_family_train": ("masked_act_2d", "masked_act_2d_bwd"),
 }
 # kernels with no TPU counterpart
 PORT_ONLY = {"masked_act_2d_bwd": "the gradient of kernel 1 (the reference "
@@ -1433,6 +1450,41 @@ def time_scan_copies(scan_ms: float) -> dict:
             "scan_ms": scan_ms, "copies_vs_scan": copies_ms / scan_ms}
 
 
+def sharded_family_shapes():
+    """The gate's (rows, columns) on one rank of the sharded MoE and hybrid
+    lines: ``(serving, training)``, each a list of ``(where, rows,
+    cols)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, moe
+    B, P = SHARDED_FAMILY_BATCH, SHARDED_FAMILY_PROMPT
+    ds = get_config(FAMILY_PATHS[0].arch)
+    mc = lm._moe_cfg(ds)
+    di = get_config(FAMILY_PATHS[1].arch).d_inner
+    serve = []
+    for shape in SHARDED_FAMILY_MESHES["moe"]:
+        d, m = shape
+        b = B // d
+        for step, (rows, cap) in (("prefill", (b * P, moe._capacity(mc, P))),
+                                  ("decode", (b, 1))):
+            tag = f"deepseek {d}x{m} {step}"
+            serve += [(f"{tag} routed", b * cap,
+                       mc.n_experts * mc.d_ff_expert // m),
+                      (f"{tag} shared", rows, mc.d_ff_shared // m),
+                      (f"{tag} dense head", rows, ds.d_ff // m)]
+    for d, m in SHARDED_FAMILY_MESHES["hybrid"]:
+        serve += [(f"zamba2 {d}x{m} prefill", B // d * P, di // m),
+                  (f"zamba2 {d}x{m} decode", B // d, di // m)]
+    d, m = SHARDED_FAMILY_TRAIN_MESH
+    S = SHARDED_FAMILY_TRAIN_SEQ
+    rows = B // d * S
+    trn = [(f"deepseek {d}x{m} train routed", B // d * moe._capacity(mc, S),
+            mc.n_experts * mc.d_ff_expert // m),
+           (f"deepseek {d}x{m} train shared", rows, mc.d_ff_shared // m),
+           (f"deepseek {d}x{m} train dense head", rows, ds.d_ff // m),
+           (f"zamba2 {d}x{m} train", rows, di // m)]
+    return serve, trn
+
+
 def run_kernel_cases():
     """Every kernel at the shapes the main path gives it (eval batch 128,
     chunks of 8 candidates, the four ResNet18 stages, the serving path's
@@ -1510,6 +1562,17 @@ def run_kernel_cases():
         cases.append(gate_case(g2, dt, kind, n=1, rows=rows, cols=cols,
                                poly=False, shared_x=False, primary=False,
                                seed=340 + i, timed=True))
+    # ... and the sharded MoE and hybrid lines' gates on each rank's
+    # columns (``sharded_family_shapes``): DeepSeek-MoE-16B's routed
+    # experts (rows B·C of E·F / model columns), shared expert and dense
+    # head block, Zamba2-2.7B's z gate (d_inner / model), at the prefill
+    # and at a decode tick
+    for i, (where, rows, cols) in enumerate(sharded_family_shapes()[0]):
+        case = gate_case(g2, f32, "silu", n=1, rows=rows, cols=cols,
+                         poly=False, shared_x=False, primary=False,
+                         seed=360 + i, timed=True)
+        case["sharded_family"] = where
+        cases.append(case)
 
     # ---- masked_act_2d_bwd: every ResNet18 site shape of the train step
     # at batch 32 (the stem and stage 0, then stages 1-3), relu with the
@@ -1569,6 +1632,12 @@ def run_kernel_cases():
     cases.append(gate_bwd_case("silu", 4 * 128, 5632 // 2, False,
                                primary=False, seed=330, timed=True,
                                dtype=bf16))
+    # ... and the sharded MoE and hybrid float32 steps' gates on (2, 2)
+    for i, (where, rows, cols) in enumerate(sharded_family_shapes()[1]):
+        case = gate_bwd_case("silu", rows, cols, False, primary=False,
+                             seed=380 + i, timed=True)
+        case["sharded_family"] = where
+        cases.append(case)
 
     # ---- masked_act_2d_batched: a chunk of 8 candidates
     g2b = "masked_act_2d_batched"
@@ -2758,9 +2827,9 @@ def _digest(t) -> str:
                           .view(torch.uint8).numpy().tobytes()).hexdigest()
 
 
-SHARDED_PHASES = ("bcd", "serve", "train")
+SHARDED_PHASES = ("bcd", "serve", "family", "train")
 # each phase's share of the spawn's time limit
-SHARDED_TIMEOUT_S = {"bcd": 180, "serve": 420, "train": 480}
+SHARDED_TIMEOUT_S = {"bcd": 180, "serve": 420, "family": 240, "train": 480}
 
 
 def run_rank_phase(phases, rank, world, store, out, root, device="cuda",
@@ -2782,6 +2851,7 @@ def run_rank_phase(phases, rank, world, store, out, root, device="cuda",
     wait_for_file(os.path.join(root, "parent_ready"), None,
                   SHARDED_RANK_TIMEOUT_S)
     fns = {"bcd": run_sharded_bcd_rank, "serve": run_sharded_serve_rank,
+           "family": run_sharded_family_rank,
            "train": run_sharded_train_rank}
     result = {}
     for phase in phases.split(","):
@@ -2871,15 +2941,17 @@ def sum_launches(parts, by_path, path):
 
 def run_sharded_phases(by_path, phases=SHARDED_PHASES, device="cuda",
                        small=False):
-    """The ``sharded_bcd``, ``sharded_serve`` and ``sharded_train`` phases
-    (those of ``phases``) on one spawn of 4 ranks (:func:`run_rank_phase`).
-    While the ranks start, this process does its side of each phase: the
-    batched BCD runs, the one-process loops and uncached forwards the
-    serving ranks are held to, and the one-process first step; then it
-    lets the ranks go, and restores the training ranks' final checkpoint
-    onto one process.  Returns each phase's line
-    (:func:`judge_sharded_bcd`, :func:`judge_sharded_serve`,
-    :func:`judge_sharded_train`); each phase fails on its own."""
+    """The ``sharded_bcd``, ``sharded_serve``, sharded MoE and hybrid
+    (``family``) and ``sharded_train`` phases (those of ``phases``) on one
+    spawn of 4 ranks (:func:`run_rank_phase`).  While the ranks start,
+    this process does its side of each phase: the batched BCD runs, the
+    one-process loops and uncached forwards the serving ranks are held
+    to, the MoE's and the hybrid's one-process serving, and the
+    one-process first step; then it lets the ranks go, and restores the
+    training ranks' final checkpoint onto one process.  Returns each
+    phase's lines (:func:`judge_sharded_bcd`, :func:`judge_sharded_serve`,
+    :func:`judge_sharded_family`, :func:`judge_sharded_train`); each phase
+    fails on its own."""
     import shutil
     root = os.path.join(HERE, "build", f"sharded_{os.getpid()}")
     shutil.rmtree(root, ignore_errors=True)
@@ -2891,6 +2963,8 @@ def run_sharded_phases(by_path, phases=SHARDED_PHASES, device="cuda",
     if "serve" in phases:
         for kind in ("stablelm", "rwkv"):
             sharded_one_process(kind, root, device, small)
+    if "family" in phases:
+        sharded_family_one_process(root, device, small)
     if "train" in phases:
         sharded_first_step_one_process(root, device, small)
     parent_s = time.perf_counter() - t0
@@ -2909,6 +2983,9 @@ def run_sharded_phases(by_path, phases=SHARDED_PHASES, device="cuda",
     if "serve" in phases:
         lines["sharded_serve"] = judge_sharded_serve(
             [r["serve"] for r in results], by_path, device)
+    if "family" in phases:
+        lines.update(judge_sharded_family([r["family"] for r in results],
+                                          by_path, device))
     if "train" in phases:
         lines["sharded_train"] = judge_sharded_train(
             [r["train"] for r in results], by_path, device, restore)
@@ -2970,6 +3047,19 @@ def sharded_restore_one_process(root, procs, device, small):
     return dict(step=step, digests=digests, seconds=time.perf_counter() - t0)
 
 
+def _f32_step_ok(f32) -> bool:
+    """sharded_train's float32 gates: every leaf within SHARDED_F32_TOL,
+    loss and grad norm within it relatively, each leaf's update within
+    SHARDED_F32_UPDATE_REL of one process's, every leaf moved."""
+    return (f32["max_abs_leaf_diff"] <= SHARDED_F32_TOL and
+            abs(f32["loss_sharded"] - f32["loss_one_process"]) <=
+            SHARDED_F32_TOL * abs(f32["loss_one_process"]) and
+            abs(f32["grad_norm_sharded"] - f32["grad_norm_one_process"]) <=
+            SHARDED_F32_TOL * abs(f32["grad_norm_one_process"]) and
+            f32["max_update_rel_diff"] <= SHARDED_F32_UPDATE_REL and
+            f32["least_leaf_max_update"] > 0)
+
+
 def judge_sharded_train(parts, by_path, device, restore):
     """Gates of ``sharded_train``: the first step's loss and gradients by
     the bfloat16 rule, the float32 step's leaves within ``SHARDED_F32_TOL``
@@ -2983,13 +3073,7 @@ def judge_sharded_train(parts, by_path, device, restore):
     first, f32 = r0["first_step"], r0["float32_step"]
     if not (first["grads_ok"] and first["loss_rel"] <= first["loss_tol"]):
         fail(f"sharded_train: first step vs one process: {first}")
-    if not (f32["max_abs_leaf_diff"] <= SHARDED_F32_TOL and
-            abs(f32["loss_sharded"] - f32["loss_one_process"]) <=
-            SHARDED_F32_TOL * abs(f32["loss_one_process"]) and
-            abs(f32["grad_norm_sharded"] - f32["grad_norm_one_process"]) <=
-            SHARDED_F32_TOL * abs(f32["grad_norm_one_process"]) and
-            f32["max_update_rel_diff"] <= SHARDED_F32_UPDATE_REL and
-            f32["least_leaf_max_update"] > 0):
+    if not _f32_step_ok(f32):
         fail(f"sharded_train: float32 step vs one process: {f32}")
     for res in parts:
         it = res["interrupted"]
@@ -3038,6 +3122,406 @@ def sharded_train_template(small: bool):
     moments = opt_lib.adamw().init(shapes)
     return {"params": shapes,
             "opt": opt_lib.OptState(0, moments.mu, moments.nu), "step": 0}
+
+
+# ---------------------------------------------- sharded MoE and hybrid
+#
+# The MoE and hybrid families split over "model" (Queue A13), on the same
+# spawn of 4 ranks, between the serve and the train phases
+# (``sharded_moe_serve``, ``sharded_hybrid_serve`` and
+# ``sharded_family_train`` lines, ``--only-sharded-family`` alone):
+# DeepSeek-MoE-16B at its published widths in float32, 4 of 28 layers (the
+# dense head block and 3 MoE blocks, 8.2 GB whole), on each mesh of
+# ``SHARDED_SERVE_MESHES``; Zamba2-2.7B, 6 of 54 layers (one pattern: 5
+# Mamba2 blocks and the shared attention block), each Mamba2 ``w_out`` at
+# 1/32 of the init's scale as its LM path draws it, on (1, 4).  Each serves
+# a prefill of SHARDED_FAMILY_BATCH exact-length prompts of
+# SHARDED_FAMILY_PROMPT tokens (a multiple of the Mamba2 chunk, 64; a MoE's
+# capacity depends on the length), then SHARDED_FAMILY_GEN greedy decode
+# steps, held to this process's one-process serving of the same weights
+# and masks.  Then one float32 SGD step of each at SHARDED_F32_LR on (2, 2)
+# (ZeRO-3 over "data"), DeepSeek at 2 layers (the head block and one MoE
+# block), against one process's step, which every rank takes itself, under
+# sharded_train's float32 gates.
+SHARDED_FAMILY_LAYERS = {"moe": 4, "hybrid": 6}
+SHARDED_FAMILY_TRAIN_LAYERS = {"moe": 2, "hybrid": 6}
+SHARDED_FAMILY_BATCH, SHARDED_FAMILY_PROMPT = 4, 64
+SHARDED_FAMILY_GEN = 4
+SHARDED_FAMILY_MESHES = {"moe": SHARDED_SERVE_MESHES, "hybrid": ((1, 4),)}
+SHARDED_FAMILY_TRAIN_MESH = (2, 2)
+SHARDED_FAMILY_TRAIN_SEQ = 64     # a global batch of SHARDED_FAMILY_BATCH
+
+
+def sharded_family_cfg(kind: str, small: bool, train: bool = False):
+    from repro_torch.configs import get_config
+    spec = FAMILY_PATHS[0] if kind == "moe" else FAMILY_PATHS[1]
+    cfg = get_config(spec.arch)
+    if small:
+        return spec, cfg.reduced()
+    layers = (SHARDED_FAMILY_TRAIN_LAYERS if train
+              else SHARDED_FAMILY_LAYERS)[kind]
+    return spec, dataclasses.replace(cfg, n_layers=layers, dtype="float32")
+
+
+def sharded_family_masks(model, device):
+    """The served and trained masks: a quarter of every site's
+    nonlinearities kept (``SERVE_FRACS``' budget), the same draw in every
+    process."""
+    from repro_torch.launch import serve_loop
+    store = serve_loop.threshold_mask_sets(model, SERVE_FRACS[-1:],
+                                           seed=SEED, device=device)
+    return store.select(store.names[0])
+
+
+def _markov_batch(vocab, batch, seq):
+    from repro_torch.data import MarkovTokens
+    return MarkovTokens(vocab, seed=SEED).batch(batch, seq, 0)
+
+
+class route_spy:
+    """Within the block, every MoE layer's routes (the experts of each
+    token, ``(rows, S, k)``, from ``moe._top_k``) appended to ``calls[-1]``
+    (:meth:`forward` starts a forward's list)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def forward(self):
+        self.calls.append([])
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.orig = moe._top_k
+
+        def spy(logits, c):
+            gates, eidx = self.orig(logits, c)
+            self.calls[-1].append(eidx.to(torch.int32).cpu().numpy())
+            return gates, eidx
+        moe._top_k = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._top_k = self.orig
+
+
+def sharded_family_drive(tpm, params, masks, prefill, decode, device):
+    """A prefill of the prompt and SHARDED_FAMILY_GEN greedy decode steps:
+    tokens ``(B, 1 + gen)``, whole logits ``(1 + gen, B, V)``, each
+    forward's routes and, for each decode tick (synchronised around it),
+    its milliseconds and ``all_reduce`` calls."""
+    from repro_torch.core import spmd
+    from repro_torch.training import serve as serve_lib
+    B, P = SHARDED_FAMILY_BATCH, SHARDED_FAMILY_PROMPT
+    prompt = torch.from_numpy(_markov_batch(tpm.cfg.vocab, B, P)[
+        "tokens"]).long().to(device)
+    ticks = []
+    with torch.no_grad(), route_spy() as spy:
+        cache = tpm.init_cache(B, P + SHARDED_FAMILY_GEN + 1, device)
+        sync(device)
+        t0 = time.perf_counter()
+        spy.forward()
+        last, cache = prefill(params, masks, prompt, cache)
+        sync(device)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        tok = serve_lib.greedy_tokens(last, tpm, B)
+        toks = [tok]
+        logits = [serve_lib.gather_logits(last, tpm, B).float().cpu()]
+        for t in range(SHARDED_FAMILY_GEN):
+            spy.forward()
+            before = spmd.collective_counts()["calls"]
+            sync(device)
+            t0 = time.perf_counter()
+            tok, cache, last = decode(params, masks, tok, cache,
+                                      np.full((B,), P + t, np.int64))
+            sync(device)
+            ticks.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                              calls=spmd.collective_counts()["calls"] -
+                              before))
+            toks.append(tok)
+            logits.append(serve_lib.gather_logits(last, tpm, B)
+                          .float().cpu())
+    return dict(tokens=torch.cat(toks, 1).cpu().numpy(),
+                logits=torch.stack(logits).numpy(), routes=spy.calls,
+                prefill_ms=prefill_ms, ticks=ticks)
+
+
+def sharded_family_one_process(root, device="cuda", small=False):
+    """This process's side of the sharded MoE and hybrid serving: each
+    model's one-process prefill and decode steps (tokens, logits and
+    routes) saved under ``root`` for the ranks."""
+    from repro_torch.training import serve as serve_lib
+    for kind in ("moe", "hybrid"):
+        spec, cfg = sharded_family_cfg(kind, small)
+        model, params = make_lm(SEED, spec, device, cfg=cfg)
+        masks = sharded_family_masks(model, device)
+        got = sharded_family_drive(
+            model, params, masks, serve_lib.make_prefill(model),
+            serve_lib.make_decode_step(model), device)
+        routes = {f"{i}_{j}": r for i, f in enumerate(got["routes"])
+                  for j, r in enumerate(f)}
+        np.savez(os.path.join(root, f"{kind}_one.npz"),
+                 tokens=got["tokens"], logits=got["logits"], **routes)
+        del model, params, masks, got
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def _routes_digest(calls) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for f in calls:
+        for r in f:
+            h.update(np.ascontiguousarray(r).tobytes())
+    return h.hexdigest()
+
+
+def sharded_family_serve_case(kind, shape, root, device, small):
+    """One family's model on one mesh, on this rank: the prefill and decode
+    steps with counts set to 0 just before and read just after, held to
+    the one-process run: tokens, logits up to the first forward whose
+    routes differ, the routes of the rank's rows."""
+    from repro_torch.core import spmd
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.training import serve as serve_lib
+    spec, cfg = sharded_family_cfg(kind, small)
+    B, P = SHARDED_FAMILY_BATCH, SHARDED_FAMILY_PROMPT
+    t_case = time.perf_counter()
+    mesh = mesh_lib.make_host_mesh(*shape, device=device)
+    model, full = make_lm(SEED, spec, device, cfg=cfg)
+    params = serve_lib.shard_params(full, model, mesh)
+    del full
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    masks = sharded_family_masks(model, device)
+    scfg = serve_lib.ServeCfg(max_len=P + SHARDED_FAMILY_GEN + 1, batch=B)
+    tpm = model.on_mesh(mesh)
+    prefill = serve_lib.jit_prefill(model, mesh, scfg)
+    decode = serve_lib.jit_decode_step(model, mesh, scfg)
+    build.reset_launch_counts()
+    spmd.reset_collective_counts()
+    got = sharded_family_drive(tpm, params, masks, prefill, decode, device)
+    launches = counts()
+    drive_calls = spmd.collective_counts()["calls"]
+    one = np.load(os.path.join(root, f"{kind}_one.npz"))
+    rows = serve_lib.local_rows(np.arange(B), tpm, B)
+    n_fwd = 1 + SHARDED_FAMILY_GEN
+    # routes of this rank's rows against the one process's, forward by
+    # forward: (token, k) entries that differ, and the first forward
+    # where any does
+    differ = [sum(int((r != one[f"{i}_{j}"][rows]).sum())
+                  for j, r in enumerate(got["routes"][i]))
+              for i in range(n_fwd)] if kind == "moe" else [0] * n_fwd
+    first = next((i for i, n in enumerate(differ) if n), None)
+    held = n_fwd if first is None else first
+    err = [float(np.abs(got["logits"][i] - one["logits"][i]).max())
+           for i in range(n_fwd)]
+    ms = [t["ms"] for t in got["ticks"]]
+    peak = torch.cuda.max_memory_allocated() \
+        if torch.device(device).type == "cuda" else None
+    del params, model, tpm
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(
+        kind=kind, mesh=list(shape), model=cfg.name, layers=cfg.n_layers,
+        batch=B, prompt=P, decode_steps=SHARDED_FAMILY_GEN,
+        rows=[int(r) for r in rows],
+        tokens_equal_one_process=bool(np.array_equal(got["tokens"],
+                                                     one["tokens"])),
+        logits_vs_one_process=dict(
+            max_abs_diff_by_forward=err, held_forwards=held,
+            max_abs_diff_held=max(err[:held], default=0.0),
+            tol=LM_LOGIT_TOL),
+        routes=dict(differing_entries_by_forward=differ,
+                    first_differing_forward=first,
+                    sha256=_routes_digest(got["routes"]))
+        if kind == "moe" else None,
+        prefill_ms=got["prefill_ms"],
+        decode_tick=dict(ms=ms, ms_median=float(np.median(ms)),
+                         all_reduce_per_tick=sorted(
+                             {t["calls"] for t in got["ticks"]})),
+        all_reduce_calls_in_drive=drive_calls,
+        launches={k: v for k, v in launches.items() if v},
+        peak_bytes=peak, seconds=time.perf_counter() - t_case)
+
+
+def sharded_family_step(kind, rank, device, small):
+    """One float32 SGD step of ``kind`` at SHARDED_F32_LR on
+    SHARDED_FAMILY_TRAIN_MESH, counts set to 0 just before and read just
+    after, held to one process's step from the same state: every rank
+    takes that step itself and keeps its own shard of the parameters
+    before and after it, so the leaves are compared shard by shard and
+    only each leaf's largest differences cross the ranks."""
+    from repro_torch.core import spmd
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.lm import LM
+    from repro_torch.training import optimizer as opt_lib, train
+    spec, cfg = sharded_family_cfg(kind, small, train=True)
+    t_case = time.perf_counter()
+    mesh = mesh_lib.make_host_mesh(*SHARDED_FAMILY_TRAIN_MESH, device=device)
+    model = LM(cfg)
+    sgd = opt_lib.sgd(lr=SHARDED_F32_LR, momentum=0.9, grad_clip=1.0)
+    tcfg = train.TrainStepCfg(remat=True)
+    held = train.held_state_specs(model, sgd, *SHARDED_FAMILY_TRAIN_MESH)
+    masks = sharded_family_masks(model, device)
+    t = _markov_batch(cfg.vocab, SHARDED_FAMILY_BATCH,
+                      SHARDED_FAMILY_TRAIN_SEQ)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in t.items()}
+
+    def fresh():
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        state = train.make_state(model, sgd, gen, device)
+        if spec.w_o_scale != 1.0:
+            for w in output_projections(state["params"]):
+                w.mul_(spec.w_o_scale)
+        return state
+
+    def mine(params):
+        return opt_lib.tree_leaves(
+            mesh_lib.shard_tree(params, held["params"], mesh))
+    start = fresh()
+    p0 = mine(start["params"])
+    one, m1 = train.make_train_step(model, sgd, tcfg)(start, batch, masks)
+    p1 = mine(one["params"])
+    names = opt_lib.tree_leaves(_leaf_names(one["params"]))
+    del start, one
+    state = train.shard_state(fresh(), model, sgd, mesh)
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    step = train.jit_train_step(model, sgd, mesh, tcfg)
+    build.reset_launch_counts()
+    spmd.reset_collective_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    state, met = step(state, batch, masks)
+    sync(device)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    calls = spmd.collective_counts()["calls"]
+    peak = torch.cuda.max_memory_allocated() \
+        if torch.device(device).type == "cuda" else None
+    # per leaf: the largest |sharded - one process|, the largest update of
+    # one process, the largest difference of the two updates
+    local = torch.tensor([
+        [float((a - b).abs().max()), float((b - z).abs().max()),
+         float(((a - z) - (b - z)).abs().max())]
+        for a, b, z in zip(opt_lib.tree_leaves(state["params"]), p1, p0)],
+        dtype=torch.float32, device=device)
+    for ax in (model.on_mesh(mesh).data_axis,
+               model.on_mesh(mesh).model_axis):
+        local = spmd.all_reduce_max(local, ax)
+    errs, moved, diff = (c.tolist() for c in local.cpu().unbind(1))
+    rel = [d / max(m, 1e-30) for d, m in zip(diff, moved)]
+    del state, p0, p1
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(
+        model=cfg.name, layers=cfg.n_layers,
+        mesh=list(SHARDED_FAMILY_TRAIN_MESH), optimizer="sgd",
+        lr=SHARDED_F32_LR, batch=SHARDED_FAMILY_BATCH,
+        seq=SHARDED_FAMILY_TRAIN_SEQ, step_ms=step_ms,
+        all_reduce_calls=calls, peak_bytes=peak,
+        launches={k: v for k, v in launches.items() if v},
+        loss_sharded=float(met["loss"]), loss_one_process=float(m1["loss"]),
+        grad_norm_sharded=float(met["grad_norm"]),
+        grad_norm_one_process=float(m1["grad_norm"]),
+        max_abs_leaf_diff=max(errs), tol=SHARDED_F32_TOL,
+        max_abs_update=max(moved), least_leaf_max_update=min(moved),
+        least_moved_leaf=names[int(np.argmin(moved))],
+        max_update_rel_diff=max(rel), update_rel_tol=SHARDED_F32_UPDATE_REL,
+        worst_update_leaf=names[int(np.argmax(rel))],
+        seconds=time.perf_counter() - t_case)
+
+
+def run_sharded_family_rank(rank, world, root, device="cuda", small=False):
+    """One rank of the sharded MoE and hybrid phase: DeepSeek-MoE-16B on
+    each mesh of ``SHARDED_FAMILY_MESHES["moe"]``, Zamba2-2.7B on (1, 4),
+    then the float32 step of each."""
+    out = dict(rank=rank, serve=[], train=[])
+    for kind in ("moe", "hybrid"):
+        for shape in SHARDED_FAMILY_MESHES[kind]:
+            out["serve"].append(sharded_family_serve_case(
+                kind, shape, root, device, small))
+    for kind in ("moe", "hybrid"):
+        out["train"].append(sharded_family_step(kind, rank, device, small))
+    return out
+
+
+def judge_sharded_family(parts, by_path, device):
+    """Gates of the sharded MoE and hybrid lines: on every rank and mesh
+    the one process's tokens, logits within LM_LOGIT_TOL up to the first
+    forward whose routes differ (a MoE; every forward of the hybrid), the
+    model ranks of a batch slice routing alike (equal route digests), the
+    path's kernels launched; the float32 steps under sharded_train's
+    gates.  Returns the three lines."""
+    lines = {}
+    cuda = torch.device(device).type == "cuda"
+    for kind, path in (("moe", "sharded_moe_serve"),
+                       ("hybrid", "sharded_hybrid_serve")):
+        cases = []
+        for res in parts:
+            for case in res["serve"]:
+                if case["kind"] != kind:
+                    continue
+                where = f"{path} {case['mesh']} rank {res['rank']}"
+                lg = case["logits_vs_one_process"]
+                if not case["tokens_equal_one_process"]:
+                    fail(f"{where}: tokens differ from one process's")
+                if not lg["max_abs_diff_held"] <= LM_LOGIT_TOL:
+                    fail(f"{where}: logits vs one process: {lg}")
+                if kind == "hybrid" and lg["held_forwards"] != \
+                        1 + SHARDED_FAMILY_GEN:
+                    fail(f"{where}: not every forward held: {lg}")
+                missing = [k for k in PATH_KERNELS[path]
+                           if case["launches"].get(k, 0) == 0]
+                if missing and cuda:
+                    fail(f"{where}: no launch of {missing}")
+                cases.append(dict(rank=res["rank"], **case))
+        if kind == "moe":
+            for shape in SHARDED_FAMILY_MESHES[kind]:
+                mine = [c for c in cases if c["mesh"] == list(shape)]
+                by_rows = {}
+                for c in mine:
+                    by_rows.setdefault(tuple(c["rows"]), set()).add(
+                        c["routes"]["sha256"])
+                if len(by_rows) != shape[0] or any(
+                        len(v) != 1 for v in by_rows.values()):
+                    fail(f"{path} {list(shape)}: the model ranks of a batch "
+                         f"slice route apart: {by_rows}")
+        sum_launches(cases, by_path, path)
+        lines[path] = dict(world=SHARDED_WORLD, backend="gloo",
+                           note="4 ranks share one card: correctness runs, "
+                                "not a speed-up",
+                           cases=cases)
+    steps = []
+    for res in parts:
+        for st in res["train"]:
+            where = f"sharded_family_train {st['model']} rank {res['rank']}"
+            if not _f32_step_ok(st):
+                fail(f"{where}: float32 step vs one process: {st}")
+            missing = [k for k in PATH_KERNELS["sharded_family_train"]
+                       if st["launches"].get(k, 0) == 0]
+            if missing and cuda:
+                fail(f"{where}: no launch of {missing}")
+            steps.append(dict(rank=res["rank"], **st))
+    sum_launches(steps, by_path, "sharded_family_train")
+    lines["sharded_family_train"] = dict(
+        world=SHARDED_WORLD, backend="gloo",
+        note="4 ranks share one card: correctness runs, not a speed-up",
+        steps=steps)
+    seconds = max(r["rank_s"] for r in parts)
+    for line in lines.values():
+        line["phase_seconds"] = seconds
+    return lines
 
 
 # ------------------------------------------------------------ training half
@@ -6831,6 +7315,7 @@ def sync(device) -> None:
 
 
 def main() -> None:
+    t_script = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only-kernels", action="store_true",
                     help="build and compare the kernels, then stop "
@@ -6890,6 +7375,11 @@ def main() -> None:
                     help="build the kernels and run the sharded training "
                          "phase alone (4 gloo ranks on the card), without "
                          "the kernel comparison (prints no result line)")
+    ap.add_argument("--only-sharded-family", action="store_true",
+                    help="build the kernels and run the sharded MoE and "
+                         "hybrid phase alone (4 gloo ranks on the card), "
+                         "without the kernel comparison (prints no result "
+                         "line)")
     ap.add_argument("--sharded-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--sharded-phase", default=",".join(SHARDED_PHASES),
@@ -6991,15 +7481,14 @@ def main() -> None:
         emit({"sweep": run_sweep_path(by_path)})
         check_launches(by_path, ("resnet18_sweep",))
         return
-    if args.only_sharded or args.only_sharded_serve or \
-            args.only_sharded_train:
+    switches = (args.only_sharded, args.only_sharded_serve,
+                args.only_sharded_family, args.only_sharded_train)
+    if any(switches):
         by_path = {}
-        phases = tuple(p for p, on in zip(SHARDED_PHASES, (
-            args.only_sharded, args.only_sharded_serve,
-            args.only_sharded_train)) if on)
+        phases = tuple(p for p, on in zip(SHARDED_PHASES, switches) if on)
         for name, line in run_sharded_phases(by_path, phases).items():
             emit({name: line})
-        check_launches(by_path, tuple(f"sharded_{p}" for p in phases))
+        check_launches(by_path, tuple(by_path))
         emit({"disk_writes": DISK.summary()})
         return
     if args.only_serve:
@@ -7124,6 +7613,13 @@ def main() -> None:
             "tolerance": {"atol": prim["atol"], "rtol": prim["rtol"]}})
         if name in PORT_ONLY:
             kernels[-1]["port_only"] = PORT_ONLY[name]
+        family = [c for c in mine if "sharded_family" in c]
+        if family:
+            kernels[-1]["sharded_family_shapes"] = [
+                {k: c.get(k) for k in (
+                    "sharded_family", "shape", "max_abs_err", "ms",
+                    "queued_ms", "plain_ms", "bound_ms", "bound_by")}
+                for c in family]
         if name == "rwkv6_scan_bwd":
             kernels[-1]["tolerance"]["form"] = prim["tol"]
         if name == "masked_act_2d_bwd":
@@ -7139,6 +7635,7 @@ def main() -> None:
             kernels[-1].update(scan_routes(mine, by_path))
         if name == "rwkv6_scan_bwd":
             kernels[-1].update(scan_bwd_routes(mine, by_path))
+    emit({"script": {"seconds": time.perf_counter() - t_script}})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True,

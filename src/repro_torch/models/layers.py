@@ -266,7 +266,7 @@ def slice_site(mask, poly, span):
 
 
 def ffn(p, x, mask, site: linearize.MaskSite, *, poly=None, soft=False,
-        fused=False, ties=True, tp=None):
+        fused=False, ties=True, tp=None, partial=False):
     """Gated (SwiGLU-style) or plain FFN with the *masked* activation: act(h)
     at kept channels, identity (or poly2) at linearized ones; for a gated FFN
     the gate branch is the mask site.
@@ -286,15 +286,18 @@ def ffn(p, x, mask, site: linearize.MaskSite, *, poly=None, soft=False,
     hold the rank's block of F columns (``_COL``), ``w_down`` its rows
     (``_ROW``); the mask (and poly) is cut to that block, and the
     down-projection's partial sum is summed over the axis (on the fused
-    route too, at K = F / size)."""
+    route too, at K = F / size).  ``partial``: the caller has entered x
+    and sums the output itself (the MoE's shared expert, whose partial sum
+    joins the routed experts' in one ``all_reduce``)."""
     gated = "w_gate" in p
     span = tp_split(p["w_up"].shape[-1], site.shape[-1], tp)
     if span is not None:
-        x = spmd.enter(x, tp)
+        if not partial:
+            x = spmd.enter(x, tp)
         mask, poly = slice_site(mask, poly, span)
         site = dataclasses.replace(site, shape=(span[1] - span[0],))
     out = _ffn(p, x, mask, site, gated, poly, soft, fused, ties)
-    return out if span is None else spmd.all_reduce_sum(out, tp)
+    return out if span is None or partial else spmd.all_reduce_sum(out, tp)
 
 
 def _ffn(p, x, mask, site, gated, poly, soft, fused, ties):

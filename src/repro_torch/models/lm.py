@@ -46,11 +46,12 @@ reference returns a new one.
 the reference's placement rules (``param_specs``, ``cache_specs``, at the
 end of this module) and the layouts the port holds (``held_param_specs``,
 ``held_cache_specs``); under ``model > 1`` the forward is tensor-parallel,
-its collectives written out (``core.spmd``): attention and the RWKV-6
-time-mix on the rank's heads, FFNs and the channel-mix on its block of
-d_ff columns, the embedding and the logits on its block of the
-vocabulary.  MoE and Mamba2 blocks refuse a model split (``ROADMAP.md``
-Queue A13).
+its collectives written out (``core.spmd``): attention, the RWKV-6
+time-mix and the Mamba2 block on the rank's heads, FFNs, the channel-mix
+and every MoE expert on its block of d_ff columns, the embedding and the
+logits on its block of the vocabulary.  A config whose heads or expert
+columns do not split over the axis is refused
+(:func:`_check_tensor_parallel`).
 """
 from __future__ import annotations
 
@@ -152,11 +153,12 @@ class LM:
         """The model's place on a ``("data", "model")`` mesh (``None``: one
         rank).  Under ``model > 1`` every forward is tensor-parallel: the
         parameters are the rank's shards (:func:`held_param_specs`), the
-        attention and RWKV time-mix run on the rank's heads, FFNs on its
-        block of d_ff columns, the embedding and the logits on its block
-        of the vocabulary.  ``fsdp_specs`` (set by the sharded train step)
-        names the parameters split over ``"data"`` (ZeRO-3), gathered as
-        each block runs."""
+        attention, the RWKV time-mix and the Mamba2 block run on the
+        rank's heads, FFNs and MoE experts on its block of d_ff columns,
+        the embedding and the logits on its block of the vocabulary.
+        ``fsdp_specs`` (set by the sharded train step) names the
+        parameters split over ``"data"`` (ZeRO-3), gathered as each block
+        runs."""
         from repro_torch.launch import mesh as mesh_lib
         self.mesh = mesh
         self.data_axis = mesh_lib.axis(mesh, "data")
@@ -288,7 +290,7 @@ class LM:
         if blk.kind == "mamba":
             mc = _mamba_cfg(self.cfg)
             h = layers.rmsnorm(p["ln"], x)
-            kw = dict(poly=plys["mamba"], soft=soft, ties=ties)
+            kw = dict(poly=plys["mamba"], soft=soft, ties=ties, tp=self._tp)
             if cache is None:
                 return x + ssm.mamba_block(p["mamba"], mc, h, ms["mamba"],
                                            sites["mamba"], **kw)
@@ -338,7 +340,7 @@ class LM:
                 p["moe"], _moe_cfg(self.cfg), h, ms["moe"], sites["moe"],
                 ms.get("moe_shared"), sites.get("moe_shared"),
                 poly=plys["moe"], shared_poly=plys.get("moe_shared"),
-                soft=soft, fused=fused, ties=ties)
+                soft=soft, fused=fused, ties=ties, tp=self._tp)
         return x + layers.ffn(p["ffn"], h, ms["ffn"], sites["ffn"],
                               poly=plys["ffn"], soft=soft, fused=fused,
                               ties=ties, tp=self._tp)
@@ -932,25 +934,30 @@ def _row_specs(specs):
 
 def _check_tensor_parallel(cfg: ArchConfig, model: int) -> None:
     """Refuse a config the tensor-parallel forward cannot split over
-    ``model`` ranks: MoE and Mamba2 blocks (``ROADMAP.md`` Queue A13), and
-    heads that the ``_COL`` rule would cut mid-head."""
+    ``model`` ranks: attention heads, RWKV-6 heads or Mamba2 heads that
+    the ``_COL`` rule would cut mid-head, and routed or shared expert
+    columns that would stay whole (a block run whole on every rank)."""
     kinds = {b.kind for b in tuple(cfg.head_blocks) + tuple(cfg.pattern)
              + tuple(cfg.tail)}
-    if kinds & {"moe", "mamba"}:
-        raise NotImplementedError(
-            f"{cfg.name}: {sorted(kinds & {'moe', 'mamba'})} blocks under "
-            f"model={model} (tensor parallelism) are not ported; their "
-            "tensor-parallel forwards are ROADMAP.md Queue A13")
-    if kinds & {"dense", "attn_only"} and cfg.n_heads % model:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.n_heads} attention heads do not split over "
-            f"model={model} ranks")
+
+    def refuse(n, what):
+        raise NotImplementedError(f"{cfg.name}: {n} {what} do not split "
+                                  f"over model={model} ranks")
+    if kinds & {"dense", "attn_only", "moe"} and cfg.n_heads % model:
+        refuse(cfg.n_heads, "attention heads")
+    if "moe" in kinds:
+        if cfg.d_ff_expert % model:
+            refuse(cfg.d_ff_expert, "expert columns (d_ff_expert)")
+        if cfg.n_shared_experts and cfg.d_ff_shared % model:
+            refuse(cfg.d_ff_shared, "shared-expert columns (d_ff_shared)")
+    if "mamba" in kinds:
+        nh = cfg.d_inner // cfg.mamba_head_dim
+        if nh % model:
+            refuse(nh, "Mamba2 heads")
     if "rwkv" in kinds:
         H = cfg.d_model // cfg.rwkv_head_dim
         if cfg.d_model % model == 0 and H % model:
-            raise NotImplementedError(
-                f"{cfg.name}: {H} RWKV heads do not split over "
-                f"model={model} ranks")
+            refuse(H, "RWKV heads")
 
 
 # =================================================================== specs
@@ -1098,9 +1105,12 @@ def held_cache_specs(cache_shape, dp_axes, dp_size: int, B: int, data: int,
     the batch over ``dp_axes`` where B splits over them (as the
     reference's ``training.serve._cache_specs``); a KV cache ``(B, S, KV,
     hd)`` its kv heads over ``"model"`` where they split, whole
-    otherwise, never its sequence; an RWKV-6 state ``(B, H, hd, hd)`` its
-    heads; the token shifts ``(B, d)`` whole along ``d``; a Mamba2 cache
-    whole but for its batch."""
+    otherwise, never its sequence; an RWKV-6 state ``(B, H, hd, hd)`` and
+    a Mamba2 scan state ``(B, nh, N, hd)`` their heads; the token shifts
+    ``(B, d)`` whole along ``d``; a Mamba2 convolution state ``(B, dc-1,
+    d_inner)`` its channels, as ``_cache_specs`` places it (the
+    reference's :func:`cache_specs` would put ``"model"`` on ``dc-1``, 3,
+    which does not split)."""
     batch_ok = B % dp_size == 0 and B >= dp_size
     bspec = dp_axes if batch_ok else None
 
@@ -1111,8 +1121,10 @@ def held_cache_specs(cache_shape, dp_axes, dp_size: int, B: int, data: int,
         rest = [None] * (len(shape) - 1)
         if name == "kv":
             rest[1] = "model" if shape[2] % model == 0 else None
-        elif name == "state":
+        elif name in ("state", "ssm"):
             rest[0] = "model" if shape[1] % model == 0 else None
+        elif name == "conv":
+            rest[1] = "model" if shape[2] % model == 0 else None
         sp = spmd.Spec(bspec, *rest)
         return spmd.Spec(None, *sp) if stacked else sp
     return map_with_path(f, cache_shape)

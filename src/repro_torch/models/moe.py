@@ -33,6 +33,16 @@ site ``moe``, of shape (E, F): the (…, E, C, F) gate input is laid out as
 ``layers.ffn`` (site ``moe_shared``), so it takes ``fused=`` like a dense
 FFN.
 
+**Tensor parallelism** (``moe_ffn(tp=)``, the ``"model"`` axis of more
+than one rank): every expert's ``w_gate`` and ``w_up`` hold the rank's
+block of F / size columns and its ``w_down`` those rows (``_COL`` /
+``_ROW``), the shared expert likewise; the router is whole on every rank
+(``_FSDP_ONLY``), so every rank routes alike.  The (E, F) mask is cut to
+the rank's columns, the experts run on them, and since the combine is
+linear in the experts' outputs the rank's partial (B, S, d) is summed over
+the axis once, after the combine, together with the shared expert's
+partial: one ``all_reduce`` a MoE layer.
+
 ``dispatch``: "scatter" writes each kept token's row into its slot,
 "gather" reads each slot's source token (the reference's two modes, kept
 for its GSPMD partitioning); both fill the same slots with the same rows.
@@ -43,7 +53,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import linearize
+from repro_torch.core import linearize, spmd
 from . import layers
 
 
@@ -238,12 +248,25 @@ def _experts(p, xe, mask, site, stacked_mask: bool, shared_x: bool, *,
 
 def moe_ffn(p, c: MoECfg, x, mask, site: linearize.MaskSite,
             shared_mask=None, shared_site=None, *, poly=None,
-            shared_poly=None, soft=False, fused=False, ties=True):
+            shared_poly=None, soft=False, fused=False, ties=True, tp=None):
     """x: (B, S, d), or (N, B, S, d) stacked.  mask: (E, F) per-expert
     channel masks, or (N, E, F) for N stacked candidates; shared_mask:
     (F_s,) or (N, F_s) for the shared expert, whose gate takes
     ``shared_poly`` and ``fused`` (``layers.ffn``).  Returns (B, S, d), or
-    (N, B, S, d) under stacked masks."""
+    (N, B, S, d) under stacked masks.
+
+    ``tp`` (tensor parallelism over ``"model"``): ``p`` holds the rank's
+    block of expert columns; x and the router enter the axis (their
+    gradients are summed over it), the mask and poly are cut to the block,
+    and the routed and shared partial sums are summed over the axis in one
+    ``all_reduce``."""
+    span = layers.tp_split(p["w_gate"].shape[-1], site.shape[-1], tp)
+    if span is not None:
+        x = spmd.enter(x, tp)
+        p = dict(p, router=spmd.enter(p["router"], tp))
+        mask, poly = layers.slice_site(mask, poly, span)
+        site = dataclasses.replace(
+            site, shape=site.shape[:-1] + (span[1] - span[0],))
     S, d = x.shape[-2:]
     C = _capacity(c, S)
     stacked_mask = mask.dim() == len(site.shape) + 1
@@ -272,5 +295,7 @@ def moe_ffn(p, c: MoECfg, x, mask, site: linearize.MaskSite,
     if "shared" in p:
         y = y + layers.ffn(p["shared"], x, shared_mask, shared_site,
                            poly=shared_poly, soft=soft, fused=fused,
-                           ties=ties)
+                           ties=ties, tp=tp, partial=True)
+    if span is not None:
+        y = spmd.all_reduce_sum(y, tp)
     return y.to(x.dtype)

@@ -122,7 +122,7 @@ def _causal_conv(xin, conv, state=None):
 
 
 def mamba_block(p, c: MambaCfg, x, mask, site: linearize.MaskSite, *,
-                poly=None, soft=False, ties=True, cache=None):
+                poly=None, soft=False, ties=True, cache=None, tp=None):
     """The Mamba2 block of (…, B, S, d) activations, its mask site the silu
     gate on z, of shape (d_inner,).  The scan runs on G = (product of the
     leading axes) rows at ``chunk = min(c.chunk, S)``; raises
@@ -136,9 +136,30 @@ def mamba_block(p, c: MambaCfg, x, mask, site: linearize.MaskSite, *,
     takes x (B, S, d) and returns ``(y, (ssm_state, conv_state))``, the
     scan starting from the cached state; one token takes the exact
     recurrence :func:`linattn_step` instead of the scan, as the reference
-    does."""
+    does.
+
+    ``tp`` (tensor parallelism over ``"model"``): ``w_z``, ``w_x`` and the
+    depthwise ``conv`` hold the rank's block of d_inner / size channels,
+    ``nh / size`` whole heads; ``w_bcdt`` is whole (every rank reads the
+    same B, C and dt, and keeps the dt of its heads), the per-head
+    ``dt_bias``, ``A_log`` and ``D`` are cut to the rank's heads, the scan
+    runs on them, the gate mask is cut to the block and the cache holds
+    the rank's heads and channels; ``w_out`` (``_ROW``) gives a partial
+    sum, summed over the axis."""
     *lead, S, d = x.shape
     di, nh, hd, N = c.d_inner, c.n_heads, c.head_dim, c.d_state
+    span = layers.tp_split(p["w_z"].shape[-1], di, tp)
+    h0 = 0
+    if span is not None:
+        lo, hi = span
+        h0, di = lo // hd, hi - lo
+        nh = di // hd
+        x = spmd.enter(x, tp)
+        p = dict(p, w_bcdt=spmd.enter(p["w_bcdt"], tp),
+                 **{k: spmd.enter(p[k], tp)[h0:h0 + nh]
+                    for k in ("dt_bias", "A_log", "D")})
+        mask, poly = layers.slice_site(mask, poly, span)
+        site = dataclasses.replace(site, shape=(di,))
     chunk = min(c.chunk, S)
     step = S == 1 and cache is not None
     if S % chunk and not step:
@@ -153,7 +174,8 @@ def mamba_block(p, c: MambaCfg, x, mask, site: linearize.MaskSite, *,
                                    None if cache is None else cache[1])
     xin = F.silu(xin)
     bcdt = xg @ p["w_bcdt"]
-    b, cc, dt = bcdt[..., :N], bcdt[..., N:2 * N], bcdt[..., 2 * N:]
+    b, cc = bcdt[..., :N], bcdt[..., N:2 * N]
+    dt = bcdt[..., 2 * N + h0:2 * N + h0 + nh]
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])       # (G, S, nh)
     a = torch.exp(-torch.exp(p["A_log"]) * dt)                  # (G, S, nh)
     v = xin.reshape(G, S, nh, hd).transpose(1, 2)               # (G,nh,S,hd)
@@ -182,6 +204,8 @@ def mamba_block(p, c: MambaCfg, x, mask, site: linearize.MaskSite, *,
     gate = linearize.apply_masked_act(z, mask, site, poly=poly, soft=soft,
                                       ties=ties)
     out = (y * gate) @ p["w_out"]
+    if span is not None:
+        out = spmd.all_reduce_sum(out, tp)
     return out if cache is None else (out, (s_end, conv_state))
 
 

@@ -443,8 +443,9 @@ def test_params_from_reference_carries_lists_and_bfloat16():
 def test_unported_parts_raise_and_name_the_queue():
     """Every architecture builds (the MoE and hybrid blocks came with
     Queue A9), and sharded serving is ported (Queue A11,
-    ``tests/test_torch_sharded_serve.py``); what still raises is the
-    tensor-parallel forward of MoE and Mamba2 blocks (Queue A13), and a
+    ``tests/test_torch_sharded_serve.py``), MoE and Mamba2 blocks split
+    over ``"model"`` too (Queue A13); what still raises is a config whose
+    expert columns or Mamba2 heads do not split over the ranks, and a
     mesh larger than the process group, which is never shrunk.  The
     sharded candidate engine (``tests/test_torch_sharded.py``) checks its
     arguments."""
@@ -464,9 +465,13 @@ def test_unported_parts_raise_and_name_the_queue():
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import lm as lm_lib
     import torch.distributed as dist
-    for arch in ("deepseek_moe_16b", "zamba2_2p7b"):
-        with pytest.raises(NotImplementedError, match="A13"):
-            lm_lib._check_tensor_parallel(get_config(arch).reduced(), 4)
+    for arch, change in (("deepseek_moe_16b", dict(d_ff_expert=30)),
+                         ("zamba2_2p7b", dict(mamba_head_dim=64))):
+        cfg = get_config(arch).reduced()
+        lm_lib._check_tensor_parallel(cfg, 4)
+        with pytest.raises(NotImplementedError, match="do not split"):
+            lm_lib._check_tensor_parallel(
+                dataclasses.replace(cfg, **change), 4)
     if not dist.is_initialized():
         with pytest.raises(ValueError, match="need 4 ranks, have 1"):
             mesh_lib.make_host_mesh(2, 2, device="cpu")

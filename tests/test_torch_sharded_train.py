@@ -5,9 +5,11 @@
   state, on reduced StableLM-2-1.6B and RWKV-6 3B: two steps on each mesh
   ``(4, 1)``, ``(2, 2)``, ``(1, 4)`` with ZeRO-3 (``fsdp``), and with
   ``compress_grads`` and with ZeRO-3 off (``CASES``), all under a gradient
-  clip that bites.  SGD with
-  momentum at a learning rate of 1e-3: the loss and every updated leaf
-  within 1e-5 of the reference's.  (The rate keeps one int8 quantum of a
+  clip that bites; reduced DeepSeek-MoE-16B on ``(2, 2)`` and Zamba2-2.7B
+  on ``(1, 4)``, their experts and Mamba2 heads split over ``"model"``.
+  SGD with momentum at a learning rate of 1e-3 (Zamba2's at 1.0,
+  ``LR_BY_ARCH``): the loss and every updated leaf within 1e-5 of the
+  reference's.  (The rate keeps one int8 quantum of a
   compressed gradient, which an ulp of difference in the gradient can move
   across a rounding boundary, below the tolerance; AdamW divides each
   gradient by its own magnitude, so it is held by the update's relative
@@ -18,7 +20,8 @@
   (``restore(shardings=)``) onto every other mesh, and onto one process,
   to the bit.
 - ``launch/train.py --mesh 2,2`` under the supervisor with an injected
-  failure equals, to the bit, the uninterrupted run on the same mesh.
+  failure equals, to the bit, the uninterrupted run on the same mesh; it
+  trains reduced DeepSeek-MoE and Zamba2 on that mesh too.
 
 All four ranks run in one spawn for the module; every step pins one
 intra-op thread.
@@ -30,10 +33,13 @@ import pytest
 
 from test_torch_helpers import reference, run_ranks, to_numpy_tree
 
-ARCHS = ("stablelm_1p6b", "rwkv6_3b")
 MESHES = ((4, 1), (2, 2), (1, 4))
 TOL = 1e-5
 LR, CLIP = 1e-3, 0.5
+# Zamba2's A_log starts at -4, where an update below 2.4e-7 rounds away: at
+# LR a layer's A_log does not move; at 1.0 every leaf moves by ~100 ulps or
+# more, so each leaf's update is held too (chip_smoke.py's SHARDED_F32_LR)
+LR_BY_ARCH = {"zamba2_2p7b": 1.0}
 B, S = 4, 16
 # (arch, optimizer, compress_grads, fsdp, mesh): each mesh once, ZeRO-3 on
 # and off, compression on and off
@@ -41,6 +47,8 @@ CASES = (("stablelm_1p6b", "sgd", False, True, (2, 2)),
          ("stablelm_1p6b", "sgd", True, True, (4, 1)),
          ("stablelm_1p6b", "sgd", False, False, (1, 4)),
          ("rwkv6_3b", "sgd", False, True, (2, 2)),
+         ("deepseek_moe_16b", "sgd", False, True, (2, 2)),
+         ("zamba2_2p7b", "sgd", False, True, (1, 4)),
          ("stablelm_1p6b", "adamw", False, True, (2, 2)))
 _CACHE = {}
 
@@ -62,15 +70,16 @@ def _reference_runs():
     from repro.core import linearize as rlin
     from repro.training import optimizer as ropt, train as rtrain
     out = {}
-    for arch in ARCHS:
+    for arch in sorted({c[0] for c in CASES}):
         cfg = ref.configs.get_config(arch).reduced()
         model = ref.lm.LM(cfg)
         masks = ref.masks.as_device(rlin.init_masks(model.mask_sites()))
         batches = _batches(cfg.vocab)
         run = {"batches": batches, "steps": {}}
-        for name, opt in (("sgd", ropt.sgd(lr=LR, momentum=0.9,
+        lr = LR_BY_ARCH.get(arch, LR)
+        for name, opt in (("sgd", ropt.sgd(lr=lr, momentum=0.9,
                                            grad_clip=CLIP)),
-                          ("adamw", ropt.adamw(lr=LR, grad_clip=CLIP))):
+                          ("adamw", ropt.adamw(lr=lr, grad_clip=CLIP))):
             todo = {c[2] for c in CASES if c[:2] == (arch, name)}
             if not todo:
                 continue
@@ -111,11 +120,12 @@ def _port_state(tree, opt_name):
             "step": torch.tensor(int(tree["step"]), dtype=torch.int32)}
 
 
-def _opt(name):
+def _opt(name, arch="stablelm_1p6b"):
     from repro_torch.training import optimizer as opt_lib
+    lr = LR_BY_ARCH.get(arch, LR)
     if name == "sgd":
-        return opt_lib.sgd(lr=LR, momentum=0.9, grad_clip=CLIP)
-    return opt_lib.adamw(lr=LR, grad_clip=CLIP)
+        return opt_lib.sgd(lr=lr, momentum=0.9, grad_clip=CLIP)
+    return opt_lib.adamw(lr=lr, grad_clip=CLIP)
 
 
 def _numpy(tree):
@@ -138,7 +148,7 @@ def _steps_on_ranks(runs):
         batches = [{k: torch.from_numpy(v.astype(np.int64))
                     for k, v in b.items()} for b in run["batches"]]
         mesh = mesh_lib.make_host_mesh(*shape, device="cpu")
-        opt = _opt(name)
+        opt = _opt(name, arch)
         state = train_lib.shard_state(_port_state(run[name], name),
                                       model, opt, mesh, fsdp)
         step = train_lib.jit_train_step(
@@ -233,10 +243,28 @@ def _launch_on_ranks(root):
     return got
 
 
+def _family_launch_on_ranks(root):
+    """``launch.train.run --mesh 2,2`` of reduced DeepSeek-MoE and Zamba2:
+    two steps each, experts and Mamba2 heads split over ``"model"``."""
+    from repro_torch.launch import train as launch
+    got = {}
+    for arch in ("deepseek_moe_16b", "zamba2_2p7b"):
+        args = launch.parse_args(
+            ["--arch", arch, "--reduced", "--steps", "2", "--global-batch",
+             "4", "--seq", "16", "--ckpt-every", "2", "--mesh", "2,2",
+             "--ckpt-dir", os.path.join(root, arch), "--device", "cpu"])
+        res = launch.run(args, launch.make_config(args), "cpu")
+        got[arch] = dict(losses=res["losses"],
+                         restarts=res["result"]["restarts"])
+    return got
+
+
 def _on_ranks(rank, world, runs, root):
     return dict(steps=_steps_on_ranks(runs),
                 ckpt=_checkpoints_on_ranks(runs["stablelm_1p6b"], root),
-                launch=_launch_on_ranks(os.path.join(root, "launch")))
+                launch=_launch_on_ranks(os.path.join(root, "launch")),
+                family_launch=_family_launch_on_ranks(
+                    os.path.join(root, "family_launch")))
 
 
 @pytest.fixture(scope="module")
@@ -344,3 +372,14 @@ def test_interrupted_sharded_launch_equals_the_uninterrupted_run(runs):
     for got in runs[1][1:]:
         for a, b in zip(got["launch"]["plain"]["leaves"], first):
             assert np.array_equal(a, b)
+
+
+def test_sharded_launch_trains_the_moe_and_hybrid_families(runs):
+    """``launch/train.py --mesh 2,2`` of reduced DeepSeek-MoE and Zamba2:
+    finite losses, no restart, the same losses on every rank."""
+    first = runs[1][0]["family_launch"]
+    for got in runs[1]:
+        assert got["family_launch"] == first
+    for arch, res in first.items():
+        assert len(res["losses"]) == 2 and res["restarts"] == 0, arch
+        assert all(np.isfinite(res["losses"])), arch

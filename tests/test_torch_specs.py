@@ -143,7 +143,8 @@ def test_held_layouts_differ_only_where_the_forward_needs_it():
     whole over ``"model"`` where the kv heads do not split (reduced
     StableLM's 2 kv heads on 4 ranks); a KV cache never split along its
     sequence, its kv heads over ``"model"`` where they split; the token
-    shifts whole along ``d``."""
+    shifts whole along ``d``; a Mamba2 convolution state over its
+    channels."""
     from repro_torch.core import spmd
     from repro_torch.models import lm
     from repro_torch.training import serve
@@ -173,24 +174,57 @@ def test_held_layouts_differ_only_where_the_forward_needs_it():
     assert spmd.local_shape(shapes["stack"]["0"]["state"].shape,
                             h["state"], sizes) == (2, 2, 2, 16, 16)
     assert lm.held_param_specs(sh.params, rw.cfg, 2) is sh.params
+    # a Mamba2 scan state over its heads and its convolution state over
+    # its channels, as the reference's serving rule places them (its
+    # models.lm.cache_specs would put "model" on dc - 1 = 3, which does
+    # not split)
+    zb = _port_model("zamba2_2p7b", True)
+    sh = serve.serve_shardings(zb, {"data": 2, "model": 2},
+                               serve.ServeCfg(max_len=64, batch=4))
+    c, h = sh.cache["stack"]["0"], sh.held_cache["stack"]["0"]
+    assert c["ssm"] == h["ssm"] == (None, "data", "model", None, None)
+    assert c["conv"] == h["conv"] == (None, "data", None, "model")
+    conv = zb.init_cache(4, 64, "meta")["stack"]["0"]["conv"][0]
+    assert lm.cache_specs({"conv": conv}, ("data",), 4, 2, 2)["conv"] == \
+        ("data", None, None)
+    shapes = zb.init_cache(4, 64, "meta")["stack"]["0"]
+    assert spmd.local_shape(shapes["conv"].shape, h["conv"], sizes) == \
+        (2, 2, 3, 64)
+    assert spmd.local_shape(shapes["ssm"].shape, h["ssm"], sizes) == \
+        (2, 2, 4, 8, 16)
+    assert lm.held_param_specs(sh.params, zb.cfg, 2) is sh.params
 
 
 def test_moe_and_mamba2_under_model_split_name_the_queue():
-    """MoE and Mamba2 blocks have no tensor-parallel forward yet
-    (``ROADMAP.md`` Queue A13): the model refuses them under
-    ``model > 1``; their placement tables above are the reference's."""
+    """MoE and Mamba2 blocks split over ``"model"``: every MoE and hybrid
+    config, full and reduced, passes the check at 2 and 4 ranks (expert
+    and shared-expert columns, Mamba2 and attention heads all divide);
+    one whose expert columns, shared-expert columns or Mamba2 heads do
+    not divide is refused, naming what does not split."""
     from repro_torch.models import lm
     for arch in ("deepseek_moe_16b", "mixtral_8x22b", "zamba2_2p7b"):
         for reduced in (True, False):
             cfg = _port_model(arch, reduced).cfg
-            with pytest.raises(NotImplementedError, match="A13"):
-                lm._check_tensor_parallel(cfg, 2)
+            for model in (2, 4):
+                lm._check_tensor_parallel(cfg, model)
     for arch in ("stablelm_1p6b", "rwkv6_3b", "qwen3_32b", "gemma3_27b"):
         lm._check_tensor_parallel(_port_model(arch, False).cfg, 4)
-    cfg = dataclasses.replace(_port_model("stablelm_1p6b", True).cfg,
-                              n_heads=6, n_kv_heads=2)
-    with pytest.raises(NotImplementedError, match="do not split"):
-        lm._check_tensor_parallel(cfg, 4)
+    ds = _port_model("deepseek_moe_16b", True).cfg
+    zb = _port_model("zamba2_2p7b", True).cfg
+    for cfg, what in (
+            (dataclasses.replace(ds, d_ff_expert=30), "30 expert columns"),
+            (dataclasses.replace(ds, d_ff_shared=18), "18 shared-expert"),
+            (dataclasses.replace(zb, mamba_head_dim=64), "2 Mamba2 heads"),
+            (dataclasses.replace(_port_model("stablelm_1p6b", True).cfg,
+                                 n_heads=6, n_kv_heads=2), "6 attention")):
+        with pytest.raises(NotImplementedError, match=what) as e:
+            lm._check_tensor_parallel(cfg, 4)
+        assert "do not split" in str(e.value)
+    # Zamba2's full width: 80 Mamba2 heads split over 4 (and 16, not 32)
+    full = _port_model("zamba2_2p7b", False).cfg
+    lm._check_tensor_parallel(full, 16)
+    with pytest.raises(NotImplementedError, match="80 Mamba2 heads"):
+        lm._check_tensor_parallel(full, 32)
 
 
 def test_spec_is_a_plain_tuple_and_pickles():
