@@ -318,10 +318,12 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-FP32_FLOP_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
-BF16_FLOP_PER_S = 989e12       # H100 SXM bfloat16 tensor cores, dense
-TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
+# the H100 SXM's rates (dense), kept in one place: the port's roofline
+from repro_torch.analysis.roofline import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S,             # device memory
+    PEAK_FLOPS as BF16_FLOP_PER_S,         # bfloat16 tensor cores
+    PEAK_FLOPS_F32 as FP32_FLOP_PER_S,     # float32, outside the tensor cores
+    PEAK_FLOPS_TF32 as TF32_FLOP_PER_S)    # TF32 tensor cores
 
 _CSRC = "src/repro_torch/kernels/csrc/"
 SOURCE = {
@@ -6550,6 +6552,9 @@ def run_family_sweep(fam, ex, root, device="cuda"):
     total = M.count(masks0)
     line["learning_rates"] = dict(train=ex.TRAIN_LR, snl=ex.SNL_CFG["lr"],
                                   finetune=ex.FT_LR)
+    # where the suffix engine may site a chunk, for the cost_model line
+    line["chunk_size"] = args.chunk_size
+    line["site_prefix_fractions"] = model.site_prefix_fractions()
 
     def held_loss(p, m):
         with torch.no_grad():
@@ -6715,12 +6720,56 @@ def family_cuts(fam, model) -> list:
     return cuts
 
 
+def cost_model_line(lines, history, backend):
+    """The suffix cost model calibrated from this run's own bench history
+    (``SuffixCostModel.calibrated``, fingerprint ``{"model", "dtype",
+    "backend"}``, so one dtype's timings do not move another's points)
+    for each family and dtype whose sweeps wrote a mid-scan line, under
+    ``families[model][dtype]``: its measured points and, at each of the
+    family's sites (their prefix fractions), the analytic model's and the
+    calibrated model's ``use_suffix`` for a chunk of the sweep's size.
+    Host only.  Fails where such a family calibrates to nothing
+    (``measured=None``)."""
+    from repro_torch.analysis.roofline import SuffixCostModel
+    t0 = time.perf_counter()
+    wrote = {}
+    for line in lines:
+        rows = [r["midscan"] for r in line["runs"].values()
+                if r.get("midscan")]
+        if rows:
+            key = (line["model"], line["dtype"])
+            wrote.setdefault(key, (line, []))[1].extend(rows)
+    analytic = SuffixCostModel()
+    families = {}
+    for (name, dtype), (line, rows) in wrote.items():
+        cm = SuffixCostModel.calibrated(history, fingerprint={
+            "model": name, "dtype": dtype, "backend": backend})
+        if cm.measured is None:
+            fail(f"cost_model: {name}'s {dtype} sweeps wrote {len(rows)} "
+                 f"mid-scan line(s), but SuffixCostModel.calibrated("
+                 f"{history!r}) found no measured point")
+        n = line["chunk_size"]
+        fracs = sorted(line["site_prefix_fractions"].items(),
+                       key=lambda kv: (kv[1], kv[0]))
+        families.setdefault(name, {})[dtype] = dict(
+            midscan_lines=len(rows), chunk=n,
+            measured=[list(p) for p in cm.measured],
+            sites=[dict(site=site, prefix_fraction=f,
+                        analytic=analytic.use_suffix(f, n),
+                        calibrated=cm.use_suffix(f, n),
+                        predicted_speedup=cm.predicted_speedup(f, n))
+                   for site, f in fracs])
+    return dict(history=history, backend=backend, families=families,
+                seconds=time.perf_counter() - t0)
+
+
 def run_family_path(by_path, device="cuda", only=None):
     """The family path: the three families' sweeps (``FAMILY_SWEEPS``),
     in float32 and in the configs' own bfloat16, their launch counts
     summed into ``by_path["family_sweep"]`` and
     ``by_path["family_sweep_bf16"]`` (``only``: one family's tag, both
-    dtypes, or one sweep's, e.g. ``rwkv_bf16``, to run it alone).  Run
+    dtypes, or one sweep's, e.g. ``rwkv_bf16``, to run it alone), then the
+    ``cost_model`` line on the bench history the sweeps wrote.  Run
     directories live under ``build/family_sweep`` of this checkout (tens
     of GB of checkpoints at full width), removed at the end."""
     import shutil
@@ -6755,6 +6804,10 @@ def run_family_path(by_path, device="cuda", only=None):
             total = totals.get(path)
             totals[path] = launches if total is None else \
                 {k: total[k] + launches[k] for k in total}
+        cuda = torch.device(device).type == "cuda"
+        emit({"cost_model": cost_model_line(
+            lines, os.path.join(root, "BENCH_history.jsonl"),
+            torch.cuda.get_device_name(0) if cuda else "cpu")})
     finally:
         shutil.rmtree(root, ignore_errors=True)
     by_path.update(totals)
@@ -7419,6 +7472,11 @@ def main() -> None:
             fail("--src is for --only-lm, --only-rwkv, --only-moe or "
                  "--only-hybrid")
         sys.path.insert(0, os.path.abspath(args.src))
+        # the card's rates came from this checkout's package: the run
+        # imports the other tree's
+        for name in [m for m in sys.modules
+                     if m.split(".")[0] == "repro_torch"]:
+            del sys.modules[name]
 
     # before anything touches the card: segments that grow in place, so
     # that the family path's AdamW over 12.4 GB of parameters (5 copies

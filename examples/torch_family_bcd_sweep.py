@@ -250,7 +250,8 @@ def record_midscan_speedup(args, model, masks, params, eval_b,
         "utc": datetime.datetime.now(datetime.timezone.utc)
         .strftime("%Y-%m-%dT%H:%M:%SZ"),
         "git": git,
-        "config": {"model": model.cfg.name, "chunk_size": chunk,
+        "config": {"model": model.cfg.name, "dtype": model.cfg.dtype,
+                   "chunk_size": chunk,
                    "eval_batch": args.eval_batch,
                    "n_devices": torch.cuda.device_count() if cuda else 1,
                    "backend": torch.cuda.get_device_name(0) if cuda

@@ -1,12 +1,13 @@
 """Architecture config system: ArchConfig, input shapes, registry.
 
 Counterpart of ``repro/configs/base.py`` (a copy: the reference's module
-imports ``jax`` at the top).  Every assigned architecture is a
-``configs/<id>.py`` exporting ``CONFIG``; those data files are copied
-verbatim.  Backbones are built from a repeating ``pattern`` of Blocks, plus
-optional unrolled ``head_blocks`` (before) and an automatic tail (the
-``n_layers % len(pattern)`` remainder, taken from the pattern prefix).
-``input_specs`` and ``make_inputs`` come with the serving slice.
+imports ``jax`` at the top; ``input_specs`` gives ``"meta"`` tensors where
+the reference gives ``jax.ShapeDtypeStruct``).  Every assigned
+architecture is a ``configs/<id>.py`` exporting ``CONFIG``; those data
+files are copied verbatim.  Backbones are built from a repeating
+``pattern`` of Blocks, plus optional unrolled ``head_blocks`` (before) and
+an automatic tail (the ``n_layers % len(pattern)`` remainder, taken from
+the pattern prefix).
 """
 from __future__ import annotations
 
@@ -126,3 +127,57 @@ def cell_applicable(cfg: ArchConfig, shape: str) -> Tuple[bool, str]:
     if shape == "long_500k" and not cfg.subquadratic:
         return False, "pure full-attention arch: 512k decode is quadratic"
     return True, ""
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeCell):
+    """``"meta"`` tensor stand-ins for every model input (no allocation):
+    the reference's names and shapes.  Tokens are int32 (the LM's
+    embedding takes any integer tensor; the serving and training paths
+    hand it int32, as the reference's), embeddings the config's dtype.
+
+    train:   tokens/labels (B, S) (+ prefix_embeds for stub frontends;
+             text length shrinks so total seq == shape.seq_len)
+    prefill: tokens (B, S)
+    decode:  token (B, 1) + cache handled by the step factory.
+    """
+    import torch
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    f = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    text = S - cfg.prefix_len
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+    specs = {}
+    if shape.mode == "train":
+        specs["tokens"] = meta((B, text), i32)
+        specs["labels"] = meta((B, text), i32)
+    elif shape.mode == "prefill":
+        specs["tokens"] = meta((B, text), i32)
+    else:  # decode: one new token, cache of length S
+        specs["tokens"] = meta((B, 1), i32)
+    if cfg.prefix_len and shape.mode != "decode":
+        specs["prefix_embeds"] = meta((B, cfg.prefix_len, cfg.d_model), f)
+    return specs
+
+
+def make_inputs(cfg: ArchConfig, shape: ShapeCell, seed: int = 0,
+                device="cuda"):
+    """Concrete (small-RNG) inputs matching :func:`input_specs`, on
+    ``device``: the reference's numpy stream, so its tokens are equal and
+    its embeddings bit-equal.  The float64 normals are rounded to float32
+    first and then to bfloat16, as ``jnp.asarray(..., dtype=bfloat16)``
+    rounds them (twice, not once)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, spec in input_specs(cfg, shape).items():
+        if spec.dtype == torch.int32:
+            a = torch.from_numpy(rng.integers(0, cfg.vocab, size=spec.shape,
+                                              dtype=np.int32))
+        else:
+            a = torch.from_numpy((rng.normal(size=spec.shape) * 0.02)
+                                 .astype(np.float32)).to(spec.dtype)
+        out[k] = a.to(device)
+    return out

@@ -418,3 +418,58 @@ def test_suffix_cost_model_matches_reference():
                     assert t.predicted_speedup(f, n, c) == \
                         r.predicted_speedup(f, n, c)
                     assert t.use_suffix(f, n, c) == r.use_suffix(f, n, c)
+
+
+def test_calibrated_cost_model_turns_a_site_off_and_keeps_the_blocks(
+        setup, tmp_path):
+    """A suffix-engine ``run_bcd`` under a cost model calibrated from a
+    bench history that measured 0.9x at a deep site and 8x at a shallow
+    one: the deep site's chunks fall back to the full forward where the
+    analytic model sited them, the shallow one's are sited where it did
+    not, and the blocks selected are the batched engine's."""
+    import json
+    from repro_torch.analysis.roofline import SuffixCostModel
+    from repro_torch.convert import to_device
+    from repro_torch.core import bcd as B, engine as E, masks as M
+    ref, rmodel, rparams, tmodel, tparams, batch, masks0 = setup
+    fracs = tmodel.site_prefix_fractions()
+    off, on = "g1b0.relu1", "g0b0.relu1"
+    path = tmp_path / "BENCH_history.jsonl"
+    with open(path, "w") as fh:
+        for site, sp in ((off, 0.9), (on, 8.0)):
+            fh.write(json.dumps({
+                "config": {"model": "mini", "chunk_size": 3,
+                           "backend": "cpu"},
+                "per_site_depth": {"midscan": {
+                    "site": site, "prefix_fraction": fracs[site],
+                    "mode": "suffix",
+                    "speedup_suffix_vs_batched": sp}}}) + "\n")
+    decided = []
+
+    class Spy(SuffixCostModel):
+        def use_suffix(self, prefix_fraction, n, covered=0.0):
+            use = super().use_suffix(prefix_fraction, n, covered)
+            decided.append((prefix_fraction, use))
+            return use
+    cm = Spy.calibrated(str(path), fingerprint={"model": "mini",
+                                                "backend": "cpu"})
+    assert cm.measured == ((fracs[on], 8.0, 3), (fracs[off], 0.9, 3))
+    analytic = SuffixCostModel()
+    assert analytic.use_suffix(fracs[off], 3)
+    assert not analytic.use_suffix(fracs[on], 3)
+    total = M.count(masks0)
+    kw = dict(b_target=total - 3 * 16, drc=16, rt=8, adt=0.5,
+              finetune_every_step=False, seed=3, chunk_size=3,
+              moves=("remove", "stage_drop"))
+    bev, eval_acc, _ = _port_evaluator("batched", tmodel, tparams, batch,
+                                       3, 8)
+    want = B.run_bcd(masks0, B.BCDConfig(**kw), eval_acc, evaluator=bev)
+    sev = E.make_evaluator(
+        "suffix", split=tmodel.make_suffix_eval_fns(),
+        context={"params": tparams, "batch": to_device(dict(batch), "cpu")},
+        pad_to=3, cost_model=cm, device="cpu")
+    got = B.run_bcd(masks0, B.BCDConfig(**kw), eval_acc, evaluator=sev)
+    assert (fracs[off], False) in decided
+    assert (fracs[on], True) in decided
+    assert M.fingerprint(got.masks) == M.fingerprint(want.masks)
+    assert _logs(got.history) == _logs(want.history)

@@ -95,6 +95,38 @@ def to_jax_tree(ref, tree):
     return a.astype(ref.jnp.bfloat16) if tree.dtype == torch.bfloat16 else a
 
 
+def cast_floats(tree, dtype):
+    """Nested dicts, lists and tuples of tensors with every floating
+    tensor cast to ``dtype`` (integer tensors and other leaves as they
+    are)."""
+    if isinstance(tree, dict):
+        return {k: cast_floats(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_floats(v, dtype) for v in tree)
+    if hasattr(tree, "is_floating_point") and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
+
+
+def float64_torch():
+    """``(modules, stand_in)``: the port's modules whose upcasts name
+    ``torch.float32`` (the models' blocks, the kernels' plain versions),
+    and a stand-in for their ``torch`` that reads ``float32`` as
+    ``float64``.  Set as each module's ``torch``, the port's plain path,
+    given float64 parameters and caches (:func:`cast_floats`), evaluates
+    the same function in float64."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers, lm, ssm
+
+    class Float64Torch:
+        float32 = torch.float64
+
+        def __getattr__(self, name):
+            return getattr(torch, name)
+    return (ref, layers, lm, ssm), Float64Torch()
+
+
 def random_masks(sites, seed, density=0.6):
     """Random binary mask tree for a ``mask_sites()`` dict, from numpy."""
     rng = np.random.default_rng(seed)

@@ -52,6 +52,10 @@ def main() -> None:
     import chip_smoke as cs          # puts this checkout's src/ first
     if args.src:
         sys.path.insert(0, os.path.abspath(args.src))
+        # chip_smoke took the card's rates from this checkout's package
+        for name in [m for m in sys.modules
+                     if m.split(".")[0] == "repro_torch"]:
+            del sys.modules[name]
     import repro_torch
     from repro_torch.configs import get_config
     from repro_torch.core import engine as E, linearize, masks as M
